@@ -1,0 +1,49 @@
+"""Weight bridge: load the JAX package's parameter tree, given as numpy
+arrays, into the port's modules.
+
+The tree is ``repro.models.model.init_params`` output after
+``jax.tree.map(np.asarray, ...)``: ``{"embed": {"embedding", "lm_head"},
+"final_norm", "blocks": {...}}`` with every block leaf stacked over a
+leading layers axis, which this splits into the per-layer modules. Trees of
+prepared (partitioned) MoE weights load as well: the expert tensors take
+the tree's shapes. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.model import empty_model
+from ..models.transformer import Transformer
+
+
+def _param(a, device) -> nn.Parameter:
+    return nn.Parameter(torch.from_numpy(np.array(a, dtype=np.float32))
+                        .to(device), requires_grad=False)
+
+
+def _load(module: nn.Module, tree: Mapping, layer: int, device) -> None:
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            _load(getattr(module, name), value, layer, device)
+            continue
+        if getattr(module, name, None) is None and name not in dict(
+                module.named_parameters(recurse=False)):
+            raise KeyError(f"{type(module).__name__} has no weight {name!r}")
+        setattr(module, name, _param(value[layer], device))
+
+
+def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
+    """A ``Transformer`` holding the weights of the numpy tree."""
+    model = empty_model(cfg, device=device)
+    dev = model.device
+    model.embed.embedding = _param(tree["embed"]["embedding"], dev)
+    if "lm_head" in tree["embed"]:
+        model.embed.lm_head = _param(tree["embed"]["lm_head"], dev)
+    model.final_norm = _param(tree["final_norm"], dev)
+    for i, block in enumerate(model.blocks):
+        _load(block, tree["blocks"], i, dev)
+    return model

@@ -1,0 +1,38 @@
+"""Config registry of the PyTorch port: the MoE architectures the port
+serves (its own copy of the JAX package's dataclasses, so the port never
+imports that package)."""
+from __future__ import annotations
+
+from .base import ModelConfig, DualSparseConfig, InputShape, INPUT_SHAPES
+
+from . import qwen3_moe_30b_a3b
+from . import paper_models
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    if cfg.arch_id in _REGISTRY:
+        raise ValueError(f"duplicate arch id {cfg.arch_id}")
+    _REGISTRY[cfg.arch_id] = cfg
+    return cfg
+
+
+for _mod in (qwen3_moe_30b_a3b, paper_models):
+    for _cfg in _mod.CONFIGS:
+        register(_cfg)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return _REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+__all__ = ["ModelConfig", "DualSparseConfig", "InputShape", "INPUT_SHAPES",
+           "get_config", "list_archs", "register"]

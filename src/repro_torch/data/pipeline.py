@@ -1,0 +1,58 @@
+"""Synthetic data on numpy generators: a seedable Markov-bigram token source
+for serving prompts and the calibration activations that neuron-importance
+profiling runs on (the JAX package draws the same distributions with
+``jax.random``, so the values differ between the packages)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    """Markov bigram source: P(t | prev) ∝ zipf(t) * affinity(prev, t)."""
+    vocab_size: int
+    seed: int = 0
+    n_clusters: int = 16
+    zipf_a: float = 1.2
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        ranks = np.arange(1, self.vocab_size + 1)
+        self.unigram = ranks ** (-self.zipf_a)
+        self.unigram /= self.unigram.sum()
+        self.cluster = rng.integers(0, self.n_clusters, self.vocab_size)
+
+    def sample_batch(self, rng: np.random.Generator, batch: int,
+                     seq: int) -> Dict[str, np.ndarray]:
+        """Cluster-boosted resampling of iid zipf tokens (int32 arrays)."""
+        base = rng.choice(self.vocab_size, size=(batch, seq + 1),
+                          p=self.unigram)
+        # with prob 0.5, resample each token from its predecessor's cluster
+        resampled = np.empty((batch, seq), np.int64)
+        for c in range(self.n_clusters):
+            members = np.flatnonzero(self.cluster == c)
+            p = self.unigram[members] / self.unigram[members].sum()
+            sel = self.cluster[base[:, :-1]] == c
+            resampled[sel] = rng.choice(members, size=int(sel.sum()), p=p)
+        use = rng.random((batch, seq)) < 0.5
+        nxt = np.where(use, resampled, base[:, 1:])
+        tokens = np.concatenate([base[:, :1], nxt], axis=1)
+        return {"tokens": tokens[:, :-1].astype(np.int32),
+                "targets": tokens[:, 1:].astype(np.int32)}
+
+
+def calibration_activations(rng: np.random.Generator, n_tokens: int,
+                            d_model: int, scale: float = 0.7,
+                            device="cpu") -> torch.Tensor:
+    """(n_tokens, d_model) float32 activations entering a MoE layer, with a
+    power-law feature spectrum plus a few dominant directions."""
+    scales = np.arange(1, d_model + 1) ** -0.3
+    x = rng.standard_normal((n_tokens, d_model)) * scales[None, :]
+    dirs = rng.standard_normal((4, d_model)) / np.sqrt(d_model)
+    coef = rng.standard_normal((n_tokens, 4))
+    out = (x + coef @ dirs * 3.0) * scale
+    return torch.from_numpy(out.astype(np.float32)).to(device)

@@ -1,0 +1,103 @@
+"""Public kernel wrappers of the port.
+
+Each wrapper checks its inputs, then runs the kernel's plain version when
+the tensors lie on the CPU and launches the CUDA kernel when they lie on a
+CUDA device — never one in place of the other. ``<wrapper>.launches``
+counts CUDA launches (nothing else adds to it), so a run can show that its
+main path went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import dualsparse_ffn, ref
+
+__all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref"]
+
+fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
+
+
+def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
+                        counts_major, tok_sorted, combine_sorted,
+                        capacity: int, p_factor: int):
+    named = dict(x=x, w1=w1, w3=w3, w2=w2, group_offsets=group_offsets,
+                 counts_full=counts_full, counts_major=counts_major,
+                 tok_sorted=tok_sorted, combine_sorted=combine_sorted)
+    for name, t in named.items():
+        if t.device != x.device:
+            raise ValueError(f"fused_moe_pipeline: {name} is on {t.device}, "
+                             f"x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_moe_pipeline: {name} is not contiguous")
+    for name in ("x", "w1", "w3", "w2", "combine_sorted"):
+        if named[name].dtype != torch.float32:
+            raise TypeError(f"fused_moe_pipeline: {name} must be float32 "
+                            f"(got {named[name].dtype}); other weight types "
+                            "are not supported yet")
+    for name in ("group_offsets", "counts_full", "counts_major",
+                 "tok_sorted"):
+        if named[name].dtype != torch.int32:
+            raise TypeError(f"fused_moe_pipeline: {name} must be int32 "
+                            f"(got {named[name].dtype})")
+    if x.ndim != 2 or w1.ndim != 3:
+        raise ValueError("fused_moe_pipeline: x must be (T, d) and w1/w3 "
+                         "(E*P, d, f)")
+    T, d = x.shape
+    Es, dw, f = w1.shape
+    E = group_offsets.shape[0]
+    if dw != d or w3.shape != w1.shape or tuple(w2.shape) != (Es, f, d):
+        raise ValueError(f"fused_moe_pipeline: weight shapes w1 "
+                         f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
+                         f"{tuple(w2.shape)} do not fit x {tuple(x.shape)}")
+    if Es != E * p_factor:
+        raise ValueError(f"fused_moe_pipeline: weights carry {Es} "
+                         f"sub-experts; plan has {E} groups x p_factor "
+                         f"{p_factor}")
+    if counts_full.shape != (E,) or counts_major.shape != (E,):
+        raise ValueError("fused_moe_pipeline: counts must be (E,)")
+    if tok_sorted.ndim != 1 or tok_sorted.shape != combine_sorted.shape:
+        raise ValueError("fused_moe_pipeline: tok_sorted and "
+                         "combine_sorted must be matching (N',) vectors")
+    if capacity < 1:
+        raise ValueError("fused_moe_pipeline: capacity must be >= 1")
+
+
+def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
+                       counts_major, tok_sorted, combine_sorted,
+                       capacity: int, p_factor: int = 1, n_minor_start=None,
+                       block_c: int = 128, block_f: int = 128,
+                       streamed: bool = True):
+    """Fused dispatch -> grouped SwiGLU -> weighted combine.
+
+    x: (T, d) float32; w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d);
+    ``group_offsets``/``counts_full``/``counts_major``: (E,) int32 from a
+    ``DispatchPlan`` (counts clamped to ``capacity``); ``tok_sorted``/
+    ``combine_sorted``: (N',) per sorted pair position, padded as
+    ``core.dispatch.sorted_pair_arrays(pad=block_c)`` pads them. Returns
+    (T, d) in x's dtype. ``block_c``, ``block_f`` and ``streamed`` are kept
+    for signature parity with the JAX wrapper: one CUDA kernel serves both
+    values of ``streamed``; ``block_f`` only places an explicit
+    ``n_minor_start`` as the TPU kernel reads it."""
+    _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
+                        counts_major, tok_sorted, combine_sorted, capacity,
+                        p_factor)
+    if x.device.type == "cpu":
+        return ref.fused_moe_pipeline_ref(
+            x, w1, w3, w2, group_offsets, counts_full, counts_major,
+            tok_sorted, combine_sorted, capacity, p_factor=p_factor,
+            n_minor_start=n_minor_start, block_c=block_c, block_f=block_f,
+            streamed=streamed)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_moe_pipeline: no kernel for device "
+                         f"{x.device}")
+    n_major = dualsparse_ffn.resolve_n_major(w1.shape[-1], p_factor,
+                                             n_minor_start, block_f)
+    out = dualsparse_ffn.launch_fused_moe_pipeline(
+        x, w1, w3, w2, group_offsets, counts_full, counts_major, tok_sorted,
+        combine_sorted, capacity=capacity, p_factor=p_factor,
+        n_major=n_major)
+    fused_moe_pipeline.launches += 1
+    return out
+
+
+fused_moe_pipeline.launches = 0

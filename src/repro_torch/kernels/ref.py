@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the port's kernels. The CPU path of every
+kernel wrapper runs these; ``chip_smoke.py`` holds each CUDA kernel against
+its plain version on the card."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .dualsparse_ffn import combine_order, resolve_n_major
+
+
+def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
+                           counts_major, tok_sorted, combine_sorted,
+                           capacity: int, p_factor: int = 1,
+                           n_minor_start=None, block_c: int = 128,
+                           block_f: int = 128, streamed: bool = True):
+    """Fused dispatch -> grouped SwiGLU -> weighted combine, plainly.
+
+    For each expert e: gather the token rows of its sorted positions
+    ``group_offsets[e] + [0, cf + cm)``, run the SwiGLU over the virtual
+    width ``p_factor * f`` (sub-expert ``e*P + j`` holds neurons
+    ``[j*f, (j+1)*f)``) with rows ``>= counts_full`` masked off the MINOR
+    neurons, and scale each row by its combine weight. Then add each token's
+    rows in increasing sorted-position order, starting from 0 — the order
+    the TPU kernel accumulates in. ``capacity``, ``block_c`` and ``streamed``
+    do not change the function (counts arrive clamped); ``block_f`` only
+    places a caller's ``n_minor_start``."""
+    del capacity, block_c, streamed
+    fused_moe_pipeline_ref.calls += 1
+    T, d = x.shape
+    f = w1.shape[-1]
+    P = p_factor
+    V = P * f
+    n_major = resolve_n_major(f, P, n_minor_start, block_f)
+    dev = x.device
+    major = torch.arange(V, device=dev) < n_major                 # (V,)
+    offs = group_offsets.tolist()
+    cf = counts_full.tolist()
+    cm = counts_major.tolist()
+    y_sorted = torch.zeros((tok_sorted.shape[0], d), dtype=torch.float32,
+                           device=dev)
+    for e, (o, c_f, c_m) in enumerate(zip(offs, cf, cm)):
+        n_rows = c_f + c_m
+        if n_rows == 0:
+            continue
+        xe = x[tok_sorted[o:o + n_rows].long()].float()
+        w1e = w1[e * P:(e + 1) * P].permute(1, 0, 2).reshape(d, V)
+        w3e = w3[e * P:(e + 1) * P].permute(1, 0, 2).reshape(d, V)
+        w2e = w2[e * P:(e + 1) * P].reshape(V, d)
+        h = F.silu(xe @ w1e) * (xe @ w3e)
+        rows = torch.arange(n_rows, device=dev)[:, None]
+        limit = torch.where(major, n_rows, c_f)[None, :]
+        h = torch.where(rows < limit, h, torch.zeros((), device=dev))
+        y_sorted[o:o + n_rows] = (combine_sorted[o:o + n_rows, None].float()
+                                  * (h @ w2e))
+    order, start, count = combine_order(tok_sorted, group_offsets,
+                                        counts_full, counts_major, T)
+    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    n_levels = int(count.max()) if T else 0
+    for k in range(n_levels):             # k-th position of every token
+        toks = torch.nonzero(count > k)[:, 0]
+        out[toks] += y_sorted[order[(start[toks] + k).long()].long()]
+    return out.to(x.dtype)
+
+
+fused_moe_pipeline_ref.calls = 0

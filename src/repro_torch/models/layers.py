@@ -1,0 +1,123 @@
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embed/unembed and the
+seeded normal init (scale 0.02, float32) the JAX package uses."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def normal(shape: Sequence[int], *, generator: Optional[torch.Generator],
+           device: torch.device, scale: float = 0.02,
+           dtype=torch.float32) -> nn.Parameter:
+    """``scale * N(0, 1)`` of ``shape`` drawn from ``generator`` (float32).
+    ``generator=None`` allocates without drawing (weights loaded later)."""
+    if generator is None:
+        t = torch.empty(tuple(shape), dtype=dtype, device=device)
+    else:
+        t = torch.randn(tuple(shape), generator=generator, device=device,
+                        dtype=torch.float32).mul_(scale).to(dtype)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def ones(shape: Sequence[int], *, device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(tuple(shape), dtype=torch.float32,
+                                   device=device), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (RoPE; M-RoPE is not ported)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """Rotate-half rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+    d = x.shape[-1]
+    inv = torch.as_tensor(rope_freqs(d, theta), device=x.device)   # (D/2,)
+    ang = positions[..., None].float() * inv                       # (B,S,D/2)
+    cos = torch.cos(ang)[..., None, :]                             # (B,S,1,D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w1, w3, w2):
+    """SwiGLU FFN (paper Eq. 4): (Swish(x·W1) ⊙ (x·W3)) · W2."""
+    h = F.silu(x @ w1) * (x @ w3)
+    return h @ w2
+
+
+class MLP(nn.Module):
+    """Dense SwiGLU FFN: w1/w3 (d, f), w2 (f, d)."""
+
+    def __init__(self, d_model: int, d_ff: int, *, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.w1 = normal((d_model, d_ff), generator=generator, device=device)
+        self.w3 = normal((d_model, d_ff), generator=generator, device=device)
+        self.w2 = normal((d_ff, d_model), generator=generator, device=device)
+
+    def forward(self, x):
+        return swiglu(x, self.w1, self.w3, self.w2)
+
+
+def apply_mlp(mlp: MLP, x, kind: str = "swiglu"):
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    return mlp(x)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """Token embedding (vocab, d) and, unless tied, an lm_head (d, vocab)."""
+
+    def __init__(self, vocab: int, d_model: int, tie: bool, *,
+                 device: torch.device, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.embedding = normal((vocab, d_model), generator=generator,
+                                device=device)
+        self.lm_head = None if tie else normal(
+            (d_model, vocab), generator=generator, device=device)
+
+
+def embed(emb: Embed, tokens):
+    return emb.embedding[tokens]
+
+
+def unembed(emb: Embed, x):
+    if emb.lm_head is not None:
+        return x @ emb.lm_head
+    return x @ emb.embedding.T
+
+
+def tensors_of(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A module's direct parameters as a name -> tensor dict (the form the
+    ``core`` functions take, mirroring the JAX param dicts)."""
+    return {k: v for k, v in module.named_parameters(recurse=False)}

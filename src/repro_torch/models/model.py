@@ -1,0 +1,70 @@
+"""Model entry points: construction with the port's seeded init, and the
+prefill / serve step builders the engines call."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import transformer
+from .transformer import Transformer
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device="cuda") -> Transformer:
+    """The model with weights drawn from ``seed`` on ``device`` (default the
+    card): every matrix ``0.02 * N(0, 1)`` in float32, norms ones. The
+    draws are PyTorch's, so they differ from the JAX package's init of the
+    same seed; ``checkpoint.from_numpy`` loads the JAX weights instead."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        return Transformer(cfg, device=dev, generator=gen)
+
+
+def empty_model(cfg: ModelConfig, *, device="cuda") -> Transformer:
+    """The model with allocated, undrawn weights (to be loaded)."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        return Transformer(cfg, device=dev, generator=None)
+
+
+def make_prefill_step(cfg: ModelConfig, *, cache_len: int = 0,
+                      window: int = 0, policy=None,
+                      cache_dtype=torch.bfloat16, metrics: bool = True):
+    """(model, batch) -> (logits (B,S,vocab), populated decode cache)."""
+    def step(model, batch):
+        with torch.no_grad():
+            return transformer.prefill(model, batch, cfg,
+                                       cache_len=cache_len, window=window,
+                                       policy=policy, cache_dtype=cache_dtype,
+                                       metrics=metrics)
+    return step
+
+
+def make_serve_step(cfg: ModelConfig, *, window: int = 0, policy=None):
+    """(model, token (B,1), cache) -> (logits, cache) — ONE new token."""
+    def step(model, token, cache):
+        with torch.no_grad():
+            return transformer.decode_step(model, token, cache, cfg,
+                                           window=window, policy=policy)
+    return step
+
+
+def context_len_for(cfg: ModelConfig, prompt_len: int,
+                    new_tokens: int) -> int:
+    """KV capacity needed to prefill ``prompt_len`` tokens and then
+    generate ``new_tokens``."""
+    prefix = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    return prompt_len + prefix + new_tokens
+
+
+def init_cache(cfg: ModelConfig, batch: int, context_len: int, *,
+               window: int = 0, dtype=torch.bfloat16,
+               metrics_spec: Optional[tuple] = None, device="cuda"):
+    return transformer.init_cache(cfg, batch, context_len, window=window,
+                                  dtype=dtype, metrics_spec=metrics_spec,
+                                  device=resolve_device(device))

@@ -1,0 +1,153 @@
+"""The port's fused MoE pipeline (its plain version, which the CPU path of
+``repro_torch.kernels.ops.fused_moe_pipeline`` runs) against the JAX
+package's ``fused_moe_pipeline`` in Pallas interpret mode, on the same
+numpy inputs and plans.
+
+Tolerance: rel_err <= 1e-6 in float32 — both sides compute the same rows
+and the same per-token accumulation order; only the order of the sums
+inside each matrix product differs."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dispatch as D
+from repro.kernels import ops as jops
+from repro_torch.kernels import dualsparse_ffn as tdsf
+from repro_torch.kernels import ops as tops
+
+REL_TOL = 1e-6
+
+# name: (seed, T, K, E, P, d, f, capacity, keep_p, major_p, block_c,
+#        block_f, n_minor_start)
+CASES = {
+    "p2_mode_grouped": (0, 48, 4, 6, 2, 32, 32, 64, 0.8, 0.4, 16, 128, None),
+    "p1_sub_pairs": (1, 40, 3, 8, 1, 32, 48, 32, 0.9, 0.0, 16, 128, 48),
+    "p1_half_split": (2, 40, 2, 5, 1, 32, 64, 48, 0.9, 0.5, 16, 128, None),
+    "p1_ragged_f": (3, 40, 2, 3, 1, 32, 96, 48, 1.0, 0.0, 16, 64, 96),
+    "p2_ragged_f": (4, 32, 2, 4, 2, 32, 96, 32, 0.9, 0.5, 16, 64, None),
+    "p2_explicit_minor_start": (5, 32, 2, 4, 2, 32, 96, 32, 0.9, 0.5, 16,
+                                64, 80),
+    "overflow": (6, 64, 4, 4, 2, 32, 32, 8, 0.9, 0.3, 8, 128, None),
+}
+
+
+def _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p, block_c,
+            empty_experts=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    w1 = (rng.standard_normal((E * P, d, f)) * 0.1).astype(np.float32)
+    w3 = (rng.standard_normal((E * P, d, f)) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((E * P, f, d)) * 0.1).astype(np.float32)
+    hi = 1 if empty_experts else E
+    group = rng.integers(0, hi, (T, K)).astype(np.int32)
+    keep = rng.random((T, K)) < keep_p
+    major = (rng.random((T, K)) < major_p) & keep
+    wts = (rng.random((T, K)) * keep).astype(np.float32)
+    plan = D.sort_dispatch(jnp.asarray(group), jnp.asarray(keep),
+                           n_groups=E, capacity=cap,
+                           major_only=jnp.asarray(major))
+    cf, cm = plan.kernel_counts(cap)
+    tok_s, w_s = D.sorted_pair_arrays(plan, jnp.asarray(wts), index_div=K,
+                                      pad=block_c)
+    arrays = dict(x=x, w1=w1, w3=w3, w2=w2,
+                  group_offsets=np.asarray(plan.group_offsets, np.int32),
+                  counts_full=np.asarray(cf, np.int32),
+                  counts_major=np.asarray(cm, np.int32),
+                  tok_sorted=np.asarray(tok_s, np.int32),
+                  combine_sorted=np.asarray(w_s, np.float32))
+    return arrays, int(plan.overflow)
+
+
+def _run_both(arrays, cap, P, block_c, block_f, nms):
+    kw = dict(capacity=cap, p_factor=P, n_minor_start=nms, block_c=block_c,
+              block_f=block_f)
+    y_jax = np.asarray(jops.fused_moe_pipeline(
+        *(jnp.asarray(a) for a in arrays.values()), **kw))
+    y_torch = tops.fused_moe_pipeline(
+        *(torch.from_numpy(a) for a in arrays.values()), **kw).numpy()
+    return y_jax, y_torch
+
+
+def _rel_err(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_pipeline_matches_jax(name):
+    (seed, T, K, E, P, d, f, cap, keep_p, major_p, bc, bf,
+     nms) = CASES[name]
+    arrays, overflow = _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p,
+                               bc)
+    if name == "overflow":
+        assert overflow > 0
+    elif major_p > 0:
+        assert arrays["counts_major"].sum() > 0
+    y_jax, y_torch = _run_both(arrays, cap, P, bc, bf, nms)
+    assert y_torch.shape == y_jax.shape and y_torch.dtype == np.float32
+    assert _rel_err(y_torch, y_jax) <= REL_TOL
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_fused_pipeline_empty_experts(P):
+    """Experts with no rows contribute nothing; tokens whose pairs were all
+    dropped get an exact zero row."""
+    arrays, _ = _inputs(7, 12, 2, 6, P, 16, 32, 32, 0.7, 0.3, 8,
+                        empty_experts=True)
+    assert (arrays["counts_full"][1:] + arrays["counts_major"][1:]).sum() == 0
+    y_jax, y_torch = _run_both(arrays, 32, P, 8, 128, None)
+    assert _rel_err(y_torch, y_jax) <= REL_TOL
+    np.testing.assert_array_equal(y_torch == 0, y_jax == 0)
+
+
+@pytest.mark.parametrize("f,P,block_f,nms,expected", [
+    (64, 1, 128, None, 32),     # f // 2 at P == 1
+    (63, 1, 128, None, 63),     # odd f: no split
+    (64, 1, 128, 64, 64),       # caller passes the full width
+    (48, 2, 128, None, 48),     # sub-expert 0 at P > 1
+    (96, 2, 64, None, 96),      # padded sub-expert width 128 -> 96 real
+    (96, 2, 64, 160, 128),      # padded coords: 96 of sub 0 + 32 of sub 1
+    (96, 4, 64, 256, 192),
+])
+def test_resolve_n_major(f, P, block_f, nms, expected):
+    assert tdsf.resolve_n_major(f, P, nms, block_f) == expected
+
+
+def test_combine_order_skips_uncomputed_positions():
+    """Positions past a group's clamped rows (overflow, drops, padding) are
+    left out; each token's positions come in increasing order."""
+    tok = torch.tensor([2, 0, 2, 1, 0, 2, 1, 0, 0], dtype=torch.int32)
+    offs = torch.tensor([0, 3, 3], dtype=torch.int32)     # group 1 empty
+    cf = torch.tensor([2, 0, 2], dtype=torch.int32)
+    cm = torch.tensor([1, 0, 1], dtype=torch.int32)
+    # group 0 computes positions 0..2, group 2 positions 3..5; 6.. are not
+    order, start, count = tdsf.combine_order(tok, offs, cf, cm, 3)
+    lists = [order[s:s + c].tolist()
+             for s, c in zip(start.tolist(), count.tolist())]
+    assert lists == [[1, 4], [3], [0, 2, 5]]
+
+
+def test_fused_pipeline_wrapper_rejects_bad_inputs():
+    arrays, _ = _inputs(8, 8, 2, 4, 2, 16, 16, 16, 1.0, 0.0, 8)
+    args = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    bad = dict(args, x=args["x"].double())
+    with pytest.raises(TypeError):
+        tops.fused_moe_pipeline(*bad.values(), capacity=16, p_factor=2)
+    bad = dict(args, tok_sorted=args["tok_sorted"].long())
+    with pytest.raises(TypeError):
+        tops.fused_moe_pipeline(*bad.values(), capacity=16, p_factor=2)
+    with pytest.raises(ValueError):
+        tops.fused_moe_pipeline(*args.values(), capacity=16, p_factor=1)
+    bad = dict(args, w2=args["w2"].transpose(1, 2))
+    with pytest.raises(ValueError):
+        tops.fused_moe_pipeline(*bad.values(), capacity=16, p_factor=2)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    arrays, _ = _inputs(9, 8, 2, 4, 2, 16, 16, 16, 1.0, 0.0, 8)
+    launches = tops.fused_moe_pipeline.launches
+    calls = tops.fused_moe_pipeline_ref.calls
+    tops.fused_moe_pipeline(*(torch.from_numpy(a) for a in arrays.values()),
+                            capacity=16, p_factor=2)
+    assert tops.fused_moe_pipeline.launches == launches
+    assert tops.fused_moe_pipeline_ref.calls == calls + 1

@@ -1,0 +1,100 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and the entry points that
+default to the card raise — rather than fall back to the CPU — when no
+CUDA device is available."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            bad += [a.value for a in node.args
+                    if isinstance(a, ast.Constant)
+                    and isinstance(a.value, str) and _forbidden(a.value)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_package_found():
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "fused_moe_pipeline.cu").exists()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import GenerationConfig, ServingEngine
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_cache(cfg, 1, 8)
+    model = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--requests", "1"])
+    eng = ServingEngine(cfg, model, device="cpu", max_prompt_len=4,
+                        max_new_tokens=2)
+    out = eng.generate([np.arange(4)], GenerationConfig(max_new_tokens=2))
+    assert len(out[0].tokens) == 2
+
+
+def test_kernel_wrapper_has_no_fallback():
+    """A tensor on a device without a kernel is refused, never routed to
+    the plain version."""
+    from repro_torch.kernels import ops
+    x = torch.zeros((2, 4), device="meta")
+    w = torch.zeros((2, 4, 4), device="meta")
+    i = torch.zeros((2,), dtype=torch.int32, device="meta")
+    calls = ops.fused_moe_pipeline_ref.calls
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.fused_moe_pipeline(x, w, w, w, i, i, i,
+                               torch.zeros((4,), dtype=torch.int32,
+                                           device="meta"),
+                               torch.zeros((4,), device="meta"),
+                               capacity=2, p_factor=1)
+    assert ops.fused_moe_pipeline_ref.calls == calls
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all()
