@@ -3,13 +3,28 @@
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
    and the build of every kernel from the sources in this checkout.
-2. Kernels: each CUDA kernel of the main path against its plain PyTorch
-   version on the card, at the shapes the main path gives it, with its
-   time, its plain version's time and its bound.
+2. Kernels: the fused MoE pipeline (2) and the grouped SwiGLU (2b)
+   against their plain PyTorch versions on the card, at the shapes the
+   serving paths give them, with their times, their plain versions' times
+   and their bounds.
 3. Serve: Qwen3-30B-A3B at full width (depth cut from 48 to 4 layers,
    seeded random weights) through ``ServingEngine`` under 2T-Drop: 8
    requests x 128-token prompts x 16 new tokens, greedy. Checks the result
-   and that every MoE layer went through the kernel.
+   and that every MoE layer went through the fused kernel.
+4. The same model through ``ContinuousBatchingEngine`` (8 slots, 16
+   requests of 32-128 prompt tokens, mid-decode admission) on the fused
+   kernel.
+5. The same model through ``PagedEngine`` (page 16, chunk 64, 8 slots, 16
+   requests, 8 of them sharing a 64-token prefix) on the buffer path, whose
+   expert FFN is the grouped SwiGLU kernel; then the same requests on the
+   fused route, and the share of greedy tokens the two routes agree on.
+
+Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
+path serves (sync prefill batch, prefill-insert, chunk), against the
+kernel's plain version and the dense oracle.
+
+Each serving path runs with every kernel's launch count and every plain
+version's call count set to 0 just before it and read just after.
 
 Exits non-zero if any phase fails, and before printing any result when no
 CUDA card is visible. The last line of standard output is one JSON object
@@ -35,7 +50,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 REL_TOL = 1e-5          # float32: the same products summed in another order
-N_LAYERS = 4            # depth cut of the serve phase (the model has 48)
+N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
+KERNELS = ("fused_moe_pipeline", "grouped_swiglu")
 
 
 def log(msg: str) -> None:
@@ -179,6 +195,221 @@ def kernel_phase(dev):
     return results
 
 
+def reset_counts() -> None:
+    """Zero every kernel's launch count and plain version's call count."""
+    from repro_torch.kernels import ops
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+        getattr(ops, name + "_ref").calls = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import ops
+    return {name: dict(launches=getattr(ops, name).launches,
+                       plain_calls=getattr(ops, name + "_ref").calls)
+            for name in KERNELS}
+
+
+def grouped_bound(kw):
+    """(bound_ms, bound_by, flops, bytes) of one grouped SwiGLU call: the
+    live rows read once, the whole (E, C, d) output written once, the
+    weights of the neurons the live rows need read once and the counts,
+    over the HBM rate; the SwiGLU FLOPs of the live rows over the float32
+    rate; the larger of the two."""
+    from repro_torch.kernels.dualsparse_ffn import resolve_n_major
+    E, C, d = kw["x"].shape
+    f = kw["w1"].shape[-1]
+    P = kw["p_factor"]
+    V = P * f
+    n_major = resolve_n_major(f, P, kw["n_minor_start"], 128)
+    cf = kw["counts_full"].tolist()
+    cm = kw["counts_major"].tolist()
+    nbytes = E * C * d * 4 + 2 * E * 4
+    flops = 0
+    for rows_f, rows_m in zip(cf, cm):
+        nbytes += (rows_f + rows_m) * d * 4
+        if rows_f:
+            nbytes += 3 * d * V * 4
+        elif rows_m:
+            nbytes += 3 * d * n_major * 4
+        flops += 6 * d * (V * rows_f + n_major * rows_m)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def grouped_phase(dev):
+    """The grouped SwiGLU (the buffer path's expert FFN) against its plain
+    version at Qwen3-30B-A3B widths (d 2048, 128 experts, P 2, 384 neurons
+    per sub-expert, top-8), on the buffers and counts the buffer path
+    builds from a router's routing under 2T thresholds calibrated to a 25%
+    drop target. The dead rows of every buffer (at or past cf + cm) are
+    filled with noise first: they must come out as exact zeros."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import gating, moe
+    from repro_torch.core.drop import expand_pairs_2t
+    from repro_torch.core.policy import TwoTDrop
+    from repro_torch.kernels import ops
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    d, E, K, P = cfg.d_model, cfg.n_experts, cfg.top_k, 2
+    f = cfg.d_expert // P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    params = dict(wg=randn(d, E, scale=0.1), w1=randn(E * P, d, f, scale=0.02),
+                  w3=randn(E * P, d, f, scale=0.02),
+                  w2=randn(E * P, f, d, scale=0.02))
+
+    def full_width(w, axis):
+        """(E*P, ...) sub-expert weights -> (E, ...) full-width experts
+        (sub-expert j's neurons at [j*f, (j+1)*f) of the neuron axis)."""
+        parts = w.reshape((E, P) + tuple(w.shape[1:])).unbind(1)
+        return torch.cat(parts, dim=axis).contiguous()
+    cap_prefill = moe.capacity_for(1024, K * P, E * P, 2.0)
+    cases = [
+        # name, T, capacity, mode_grouped, experts left empty, full width
+        ("decode", 8, 8, True, 0, False),
+        ("chunk", 64, 64, True, 0, False),       # the paged engine's chunk
+        ("prefill", 1024, cap_prefill, True, 0, False),
+        ("p1_sub_pairs", 1024, cap_prefill, False, 0, False),
+        ("p1_half_split", 1024, cap_prefill, True, 0, True),
+        ("ragged", 1024, 100, True, E // 8, False),
+    ]
+    results = []
+    for name, T, cap, mode_grouped, n_empty, widen in cases:
+        x = randn(T, d)
+        wg = params["wg"][:, n_empty:]
+        pol = TwoTDrop(drop_target=0.25)._calibrated([wg], cfg, x)
+        r = gating.route(x, wg, K, cfg.router_norm_topk)
+        pairs = expand_pairs_2t(r.idx + n_empty, r.combine, r.norm_score, P,
+                                pol.t_major, pol.t_minor)
+        kw, _, _, _, overflow = moe.grouped_swiglu_args(
+            params, x, pairs, P, cap, mode_grouped)
+        if widen:      # the same experts unpartitioned: P = 1, split f // 2
+            kw.update(w1=full_width(kw["w1"], 2), w3=full_width(kw["w3"], 2),
+                      w2=full_width(kw["w2"], 1), p_factor=1,
+                      n_minor_start=None)
+        cf, cm = kw["counts_full"], kw["counts_major"]
+        G, C = kw["x"].shape[:2]
+        dead = (torch.arange(C, device=dev)[None, :]
+                >= (cf + cm)[:, None])                           # (G, C)
+        kw["x"] = torch.where(dead[..., None], randn(G, C, d), kw["x"])
+        # the kernel runs before the plain version: its output cannot land
+        # in a freed block that already holds the plain version's result
+        y1 = ops.grouped_swiglu(**kw)
+        y2 = ops.grouped_swiglu(**kw)
+        y_ref = ops.grouped_swiglu_ref(**kw)
+        torch.cuda.synchronize()
+        rel = float((y1 - y_ref).norm() / y_ref.norm())
+        max_abs = float((y1 - y_ref).abs().max())
+        stable = bool(torch.equal(y1, y2))
+        zeros = bool((y1[dead] == 0).all() and (y_ref[dead] == 0).all())
+        rows = dict(full=int(cf.sum()), major=int(cm.sum()),
+                    overflow=int(overflow), groups=G,
+                    empty=int(((cf + cm) == 0).sum()))
+        ms = cuda_ms(lambda: ops.grouped_swiglu(**kw), 20)
+        plain_ms = cuda_ms(lambda: ops.grouped_swiglu_ref(**kw), 5)
+        kw_full = dict(kw, counts_full=cf + cm,
+                       counts_major=torch.zeros_like(cm))
+        full_ms = cuda_ms(lambda: ops.grouped_swiglu(**kw_full), 20)
+        bound_ms, bound_by, flops, nbytes = grouped_bound(kw)
+        res = dict(case=name, T=T, capacity=C, p_factor=kw["p_factor"],
+                   f=kw["w1"].shape[-1], rows=rows, rel_err=rel,
+                   max_abs_err=max_abs, bit_stable=stable, dead_rows_zero=zeros,
+                   ms=ms, plain_ms=plain_ms, all_full_ms=full_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        results.append(res)
+        log(f"  grouped_swiglu[{name}] T={T} C={C} groups={G} "
+            f"P={kw['p_factor']} f={kw['w1'].shape[-1]} rows={rows} "
+            f"rel_err={rel:.3e} max_abs={max_abs:.3e} bit_stable={stable} "
+            f"dead_rows_zero={zeros} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"all_rows_full_ms={full_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if name == "ragged" and (C % 64 == 0 or rows["empty"] < n_empty):
+            raise AssertionError("ragged case is not ragged or has no "
+                                 "empty expert")
+        if mode_grouped and name != "ragged" and rows["major"] == 0:
+            raise AssertionError(f"{name}: no MAJOR-only rows")
+        if not (rel <= REL_TOL and stable and zeros
+                and torch.isfinite(y1).all()):
+            raise AssertionError(f"grouped_swiglu[{name}] disagrees with its "
+                                 f"plain version: rel_err={rel:.3e} (bar "
+                                 f"{REL_TOL}) bit_stable={stable} "
+                                 f"dead_rows_zero={zeros}")
+    return results
+
+
+def layer0_check(label: str, model, cfg, policy, tokens, capacity,
+                 fused: bool) -> dict:
+    """Layer 0's MoE on the real hidden states of ``tokens`` (B, S) as a
+    prefill from position 0 computes them (a sync prefill, a prefill-insert
+    or a first chunk): the served kernel at the served ``capacity`` against
+    its plain version on the same inputs (``capacity`` None: the policy's
+    capacity for T tokens), and the served route at capacity T (no
+    overflow) against the dense oracle ``moe_forward_ref``. Fails
+    beyond REL_TOL. (The sub-pair buffer path seats pairs per sub-expert,
+    so under overflow it keeps other pairs than the kernels do.)"""
+    import torch
+    from repro_torch.core import moe
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T_
+    with torch.no_grad():
+        blk = model.blocks[0]
+        x, pos = T_.embed_inputs(model, {"tokens": tokens}, cfg)
+        x = x + attention.gqa_attention(
+            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), pos, cfg)
+        h = L.rms_norm(x, blk.ln2, cfg.norm_eps).reshape(-1, cfg.d_model)
+        layer = blk.moe.weights()
+        pairs = policy.route(layer, h, cfg)
+        T = h.shape[0]
+        if capacity is None:
+            capacity = moe.capacity_for(T, pairs.idx.shape[1],
+                                        layer["w1"].shape[0],
+                                        policy.capacity_factor)
+        if fused:
+            name = "fused_moe_pipeline"
+            kw, overflow = moe.fused_pipeline_args(layer, pairs, 2, capacity,
+                                                   True)
+            y_k = ops.fused_moe_pipeline(h, **kw)
+            y_p = ops.fused_moe_pipeline_ref(h, **kw)
+        else:
+            name = "grouped_swiglu"
+            kw, *_, overflow = moe.grouped_swiglu_args(layer, h, pairs, 2,
+                                                       capacity, True)
+            y_k = ops.grouped_swiglu(**kw)
+            y_p = ops.grouped_swiglu_ref(**kw)
+        y_exact = moe.moe_forward_dispatch(
+            layer, h, cfg, pairs=pairs, capacity=T, use_kernel=True,
+            mode_grouped=True, fused_pipeline=fused)
+        y_ref = moe.moe_forward_ref(layer, h, cfg, pairs=pairs)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    res = dict(kernel=name, T=T, capacity=capacity, overflow=int(overflow),
+               rel_err_vs_plain=rel(y_k, y_p),
+               rel_err_vs_dense_ref=rel(y_exact, y_ref),
+               max_abs_err_vs_plain=float((y_k - y_p).abs().max()))
+    log(f"  layer-0 MoE on {label}: {name} vs its plain version at capacity "
+        f"{capacity} (T {T}, overflow {res['overflow']}) rel_err "
+        f"{res['rel_err_vs_plain']:.3e}; the route at capacity T vs the "
+        f"dense oracle rel_err {res['rel_err_vs_dense_ref']:.3e}")
+    if not (res["rel_err_vs_plain"] <= REL_TOL
+            and res["rel_err_vs_dense_ref"] <= REL_TOL
+            and torch.isfinite(y_k).all()):
+        raise AssertionError(f"layer-0 MoE on {label} disagrees with its "
+                             f"references")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve through the engine
 # ---------------------------------------------------------------------------
@@ -187,14 +418,9 @@ def serve_phase(dev):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import moe
     from repro_torch.core.policy import make_policy
     from repro_torch.data.pipeline import SyntheticLM, calibration_activations
-    from repro_torch.kernels import ops
-    from repro_torch.models import attention
-    from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    from repro_torch.models import transformer as T_
     from repro_torch.serving import GenerationConfig, ServingEngine
 
     full = get_config("qwen3-moe-30b-a3b")
@@ -229,15 +455,15 @@ def serve_phase(dev):
         prompts, GenerationConfig(max_new_tokens=2))
     eng = ServingEngine(cfg, model, **kw)
 
-    ops.fused_moe_pipeline.launches = 0
-    ops.fused_moe_pipeline_ref.calls = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.generate(prompts, GenerationConfig(max_new_tokens=NEW))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.fused_moe_pipeline.launches
-    plain_calls = ops.fused_moe_pipeline_ref.calls
+    counts = read_counts()
+    launches = counts["fused_moe_pipeline"]["launches"]
+    plain_calls = sum(c["plain_calls"] for c in counts.values())
 
     n_tok = sum(len(r.tokens) for r in results)
     decode_steps = NEW - 1
@@ -271,77 +497,47 @@ def serve_phase(dev):
     expected = cfg.n_layers * (1 + decode_steps)
     if not all(len(r.tokens) == NEW for r in results):
         raise AssertionError("a request did not return every token")
+    if counts["grouped_swiglu"]["launches"] != 0:
+        raise AssertionError("the fused route launched grouped_swiglu")
     if launches != expected or plain_calls != 0:
         raise AssertionError(f"fused_moe_pipeline launched {launches} times "
                              f"(expected {expected}); plain version called "
                              f"{plain_calls} times (expected 0)")
 
     # the output is right: finite prefill logits of the right shape, and
-    # layer 0's MoE on the batch's real hidden states equal to its plain
-    # version at the policy's capacity (overflow included) and to the
-    # dense oracle at capacity T (no overflow). (The sub-pair buffer path
-    # seats pairs per sub-expert, so under overflow it keeps other pairs.)
+    # layer 0's MoE on the batch's real hidden states at the policy's
+    # capacity (overflow included) equal to its plain version
     batch = {"tokens": torch.from_numpy(np.stack(prompts)).long().to(dev)}
     logits, _ = M.make_prefill_step(cfg, cache_len=S + NEW,
                                     policy=policy)(model, batch)
-    with torch.no_grad():
-        blk = model.blocks[0]
-        x, pos = T_.embed_inputs(model, batch, cfg)
-        x = x + attention.gqa_attention(
-            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), pos, cfg)
-        h = L.rms_norm(x, blk.ln2, cfg.norm_eps).reshape(B * S, -1)
-        layer = blk.moe.weights()
-        pairs = policy.route(layer, h, cfg)
-        cap = moe.capacity_for(B * S, pairs.idx.shape[1],
-                               layer["w1"].shape[0], policy.capacity_factor)
-        kw_served, overflow = moe.fused_pipeline_args(layer, pairs, 2, cap,
-                                                      True)
-        y_served = ops.fused_moe_pipeline(h, **kw_served)
-        y_plain = ops.fused_moe_pipeline_ref(h, **kw_served)
-        y_exact = moe.moe_forward_dispatch(
-            layer, h, cfg, pairs=pairs, capacity=B * S, mode_grouped=True,
-            fused_pipeline=True)
-        y_ref = moe.moe_forward_ref(layer, h, cfg, pairs=pairs)
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
-    rel_plain = rel(y_served, y_plain)
-    rel_ref = rel(y_exact, y_ref)
-    serve.update(layer0_rel_err_vs_plain=rel_plain,
-                 layer0_rel_err_vs_dense_ref=rel_ref,
-                 layer0_overflow=int(overflow))
     log(f"  prefill logits {tuple(logits.shape)} finite="
-        f"{bool(torch.isfinite(logits).all())}; layer-0 MoE on the batch: "
-        f"kernel vs plain version at capacity {cap} (overflow "
-        f"{int(overflow)}) rel_err {rel_plain:.3e}; kernel at capacity T "
-        f"vs dense oracle rel_err {rel_ref:.3e}")
+        f"{bool(torch.isfinite(logits).all())}")
     if tuple(logits.shape) != (B, S, cfg.vocab_size) \
             or not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite or misshaped")
-    if rel_plain > REL_TOL or rel_ref > REL_TOL:
-        raise AssertionError("the served MoE path disagrees with its "
-                             "references")
-    serve["profile"] = profile_decode(eng, prompts)
-    return serve
+    serve["layer0"] = layer0_check(f"the {B}x{S} prefill batch", model, cfg,
+                                   policy, batch["tokens"], None, fused=True)
+    serve["profile"] = profile_run(
+        "1 prefill + 3 decode steps",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+    return serve, (cfg, model, policy, calib)
 
 
-def profile_decode(eng, prompts):
-    """Where one more served batch (1 prefill + 3 decode steps) spends its
-    time: its wall time without the profiler, then the device time of
-    every CUDA kernel under ``torch.profiler`` (top kernels by time) and
-    the device-busy share = kernel time / unprofiled wall time."""
+def profile_run(label: str, serve_once):
+    """Where one more served run (``serve_once()``) spends its time: its
+    wall time without the profiler, then the device time of every CUDA
+    kernel under ``torch.profiler`` (top kernels by time) and the
+    device-busy share = kernel time / unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import GenerationConfig
-    gen = GenerationConfig(max_new_tokens=4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(prompts, gen)
+    serve_once()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.generate(prompts, gen)
+        serve_once()
         torch.cuda.synchronize()
 
     def dev_us(ev):
@@ -352,7 +548,7 @@ def profile_decode(eng, prompts):
                and dev_us(ev) > 0]
     busy_ms = sum(dev_us(ev) for ev in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    log(f"  profile (1 prefill + 3 decode steps): wall {wall_ms:.1f} ms "
+    log(f"  profile ({label}): wall {wall_ms:.1f} ms "
         f"unprofiled, CUDA kernels {busy_ms:.1f} ms (device busy "
         f"{100 * busy_ms / wall_ms:.1f}%)")
     for ev in top:
@@ -360,6 +556,192 @@ def profile_decode(eng, prompts):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 top=[dict(name=ev.key, device_ms=dev_us(ev) / 1e3,
                           count=ev.count) for ev in top])
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: the slot engines
+# ---------------------------------------------------------------------------
+
+SLOTS, N_REQ, NEW_TOK, MAX_PROMPT, CHUNK = 8, 16, 16, 128, 64
+
+
+def slot_prompts(vocab: int, shared: int = 0):
+    """N_REQ prompts with lengths spread over 32..128 tokens; with
+    ``shared``, the requests at even positions start with one common
+    ``shared``-token prefix (half of them are admitted in the first wave
+    of slots, half after the first sharers have registered their pages)."""
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    src = SyntheticLM(vocab, seed=1)
+    rng = np.random.default_rng(1)
+    lens = np.linspace(32, MAX_PROMPT, N_REQ).astype(int)
+    rng.shuffle(lens)
+    prefix = src.sample_batch(rng, 1, shared)["tokens"][0]
+    prompts = []
+    for i, n in enumerate(lens):
+        p = src.sample_batch(rng, 1, int(n))["tokens"][0]
+        if shared and i % 2 == 0:
+            n = max(int(n), shared + 16)
+            p = np.concatenate([prefix, src.sample_batch(
+                rng, 1, n - shared)["tokens"][0]]).astype(np.int32)
+        prompts.append(p)
+    return prompts
+
+
+def serve_slots(eng, prompts, budgets=None):
+    """One measured run of every prompt (request i generating
+    ``budgets[i]`` tokens, default NEW_TOK), with the counts zeroed just
+    before and read just after. Returns (results, wall s, counts)."""
+    import torch
+    from repro_torch.serving import GenerationConfig
+    budgets = budgets or [NEW_TOK] * len(prompts)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, GenerationConfig(max_new_tokens=n))
+            for p, n in zip(prompts, budgets)]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    results = [eng.result(u) for u in uids]
+    if [len(r.tokens) for r in results] != list(budgets):
+        raise AssertionError("a request did not return every token")
+    return results, wall, counts
+
+
+def slot_stats(eng, results, wall, counts) -> dict:
+    import statistics
+    n_tok = sum(len(r.tokens) for r in results)
+    decode = eng.tracer.durations("decode")
+    return dict(requests=len(results), tokens=n_tok, wall_s=wall,
+                tok_per_s=n_tok / wall, decode_steps=eng.decode_steps,
+                decode_step_ms=statistics.median(decode) * 1e3,
+                max_concurrency=eng.max_concurrency,
+                overflow_pairs=eng.overflow_pairs, counts=counts)
+
+
+def continuous_phase(dev, cfg, model, policy):
+    """``ContinuousBatchingEngine`` on the default (fused) route. The first
+    wave of requests generates 9..16 tokens (the rest 16), so its slots
+    free up one by one and later requests are admitted while the others
+    decode."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationConfig)
+    prompts = slot_prompts(cfg.vocab_size)
+    budgets = [NEW_TOK - (SLOTS - 1 - i) if i < SLOTS else NEW_TOK
+               for i in range(N_REQ)]
+    kw = dict(n_slots=SLOTS, max_prompt_len=MAX_PROMPT,
+              max_new_tokens=NEW_TOK, policy=policy, device=dev)
+    ContinuousBatchingEngine(cfg, model, **kw).generate(
+        prompts[:2], GenerationConfig(max_new_tokens=2))        # warm-up
+    eng = ContinuousBatchingEngine(cfg, model, **kw)
+    results, wall, counts = serve_slots(eng, prompts, budgets)
+    st = slot_stats(eng, results, wall, counts)
+    first_decode = min(ev["ts"] for ev in eng.tracer.events()
+                       if ev["name"] == "decode")
+    mid = sum(ev["ts"] > first_decode for ev in eng.tracer.events()
+              if ev["name"] == "prefill_insert")
+    st.update(prefill_inserts=eng.n_admitted, mid_decode_admissions=mid)
+    log(f"  served {N_REQ} requests (prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens) x {min(budgets)}-{max(budgets)} "
+        f"new tokens on {SLOTS} slots: {st['tokens']} tokens in "
+        f"{wall:.3f}s ({st['tok_per_s']:.1f} tok/s), {eng.n_admitted} "
+        f"prefill-inserts ({mid} mid-decode), "
+        f"{eng.decode_steps} decode steps (median {st['decode_step_ms']:.3f} "
+        f"ms), max_concurrency {eng.max_concurrency}, overflow_pairs "
+        f"{st['overflow_pairs']}; counts {counts}")
+    expected = cfg.n_layers * (eng.n_admitted + eng.decode_steps)
+    fused = counts["fused_moe_pipeline"]
+    if fused["launches"] != expected or \
+            counts["grouped_swiglu"]["launches"] != 0 or \
+            any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"continuous engine: fused launches "
+                             f"{fused['launches']} (expected {expected}), "
+                             f"counts {counts}")
+    if eng.max_concurrency != SLOTS or eng.n_admitted != N_REQ or mid == 0:
+        raise AssertionError("continuous engine: no mid-decode admission")
+    # a prefill-insert as served: the prompt right-padded to MAX_PROMPT,
+    # at exact capacity (the engine's policy)
+    toks = np.zeros((1, MAX_PROMPT), np.int64)
+    toks[0, :len(prompts[0])] = prompts[0]
+    st["layer0"] = layer0_check(
+        f"a {MAX_PROMPT}-token prefill-insert", model, cfg, eng.policy,
+        torch.from_numpy(toks).to(dev), MAX_PROMPT, fused=True)
+    st["profile"] = profile_run(
+        f"{N_REQ} requests x 4 new tokens",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+    return st
+
+
+def paged_phase(dev, cfg, model, calib):
+    """``PagedEngine`` on the buffer path (grouped SwiGLU kernel), then on
+    the fused route; layer 0's MoE on a real chunk on both routes."""
+    import torch
+    from repro_torch.core.policy import make_policy
+    from repro_torch.serving import GenerationConfig, PagedEngine
+
+    policy = make_policy("2t", cfg.dualsparse, drop_target=0.25,
+                         use_kernel=True, fused_pipeline=False)
+    policy = policy.calibrate(model, cfg, calib)
+    prompts = slot_prompts(cfg.vocab_size, shared=64)
+    kw = dict(n_slots=SLOTS, page_size=16, chunk_size=CHUNK,
+              max_prompt_len=MAX_PROMPT, max_new_tokens=NEW_TOK, device=dev)
+    PagedEngine(cfg, model, policy=policy, **kw).generate(
+        prompts[:2], GenerationConfig(max_new_tokens=2))        # warm-up
+    eng = PagedEngine(cfg, model, policy=policy, **kw)
+    results, wall, counts = serve_slots(eng, prompts)
+    st = slot_stats(eng, results, wall, counts)
+    st.update(chunk_steps=eng.chunk_steps, prefix_hits=eng.prefix_hits,
+              prefix_misses=eng.prefix_misses,
+              prefix_hit_rate=eng.prefix_hit_rate)
+    log(f"  buffer path: {st['tokens']} tokens in {wall:.3f}s "
+        f"({st['tok_per_s']:.1f} tok/s), {eng.chunk_steps} chunk steps, "
+        f"{eng.decode_steps} decode steps (median {st['decode_step_ms']:.3f} "
+        f"ms), max_concurrency {eng.max_concurrency}, prefix hits "
+        f"{eng.prefix_hits} / misses {eng.prefix_misses} (hit rate "
+        f"{eng.prefix_hit_rate:.3f}), overflow_pairs {st['overflow_pairs']}; "
+        f"counts {counts}")
+    expected = cfg.n_layers * (eng.chunk_steps + eng.decode_steps)
+    grouped = counts["grouped_swiglu"]
+    if grouped["launches"] != expected or \
+            counts["fused_moe_pipeline"]["launches"] != 0 or \
+            any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"paged engine: grouped_swiglu launches "
+                             f"{grouped['launches']} (expected {expected}), "
+                             f"counts {counts}")
+    if not eng.prefix_hit_rate > 0:
+        raise AssertionError("paged engine: no prefix-cache hit")
+    st["profile"] = profile_run(
+        f"buffer path, {N_REQ} requests x 4 new tokens, prefix cache warm",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+
+    # the same requests on the fused route: the two kernels sum in other
+    # orders, so the share of equal greedy tokens is reported, not asserted
+    fused_pol = make_policy("2t", cfg.dualsparse, drop_target=0.25)
+    fused_pol = fused_pol.calibrate(model, cfg, calib)
+    eng_f = PagedEngine(cfg, model, policy=fused_pol, **kw)
+    results_f, wall_f, counts_f = serve_slots(eng_f, prompts)
+    same = sum(a == b for r, rf in zip(results, results_f)
+               for a, b in zip(r.tokens, rf.tokens))
+    st.update(fused_route=slot_stats(eng_f, results_f, wall_f, counts_f),
+              tokens_agree=same / st["tokens"])
+    log(f"  fused route: {st['fused_route']['tok_per_s']:.1f} tok/s, decode "
+        f"step median {st['fused_route']['decode_step_ms']:.3f} ms; greedy "
+        f"tokens equal to the buffer path's: {same} of {st['tokens']} "
+        f"({100 * same / st['tokens']:.1f}%)")
+
+    # layer 0 on a real chunk, on each route: the first 64-token chunk of
+    # a prompt is the prefill of those tokens from position 0, at exact
+    # capacity (the engines' policies)
+    toks = torch.from_numpy(prompts[0][None, :CHUNK]).long().to(dev)
+    for e, fused in ((eng, False), (eng_f, True)):
+        st["layer0_fused" if fused else "layer0"] = layer0_check(
+            f"a {CHUNK}-token chunk", model, cfg, e.policy, toks, CHUNK,
+            fused=fused)
+    return st
 
 
 def main() -> int:
@@ -393,26 +775,45 @@ def main() -> int:
         f"FLOPs / {F32_FLOPS / 1e12:.0f} TFLOP/s float32 CUDA-core peak); "
         f"bar rel_err <= {REL_TOL:g} and bit-identical across launches")
     cases = kernel_phase(dev)
+    log("phase 2b: grouped_swiglu against its plain version")
+    grouped = grouped_phase(dev)
     log("phase 3: serve Qwen3-30B-A3B (4 of 48 layers) under 2T-Drop")
-    serve = serve_phase(dev)
+    serve, (cfg, model, policy, calib) = serve_phase(dev)
+    log(f"phase 4: continuous batching ({SLOTS} slots, {N_REQ} requests, "
+        f"fused route)")
+    cont = continuous_phase(dev, cfg, model, policy)
+    log(f"phase 5: paged engine (page 16, chunk 64, {SLOTS} slots, {N_REQ} "
+        f"requests, buffer path on grouped_swiglu)")
+    paged = paged_phase(dev, cfg, model, calib)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     with open(out_dir / "chip_smoke.json", "w") as fh:
         json.dump({"device": smi, "torch": torch.__version__,
-                   "kernel_cases": cases, "serve": serve}, fh, indent=1)
+                   "kernel_cases": cases, "grouped_cases": grouped,
+                   "serve": serve, "continuous": cont, "paged": paged},
+                  fh, indent=1)
 
-    main_case = next(c for c in cases if c["case"] == "prefill")
-    print(json.dumps({"kernels": [{
-        "name": "fused_moe_pipeline", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_moe_pipeline.cu",
-        "replaces": "src/repro/kernels/dualsparse_ffn.py:498",
-        "launches": serve["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None,
-        "at": "prefill T=1024, Qwen3-30B-A3B widths"}]}))
+    def kernel_entry(name, replaces, case_list, case, launches):
+        """The kernel's line, timed at the main path's shape ``case``."""
+        main_case = next(c for c in case_list if c["case"] == case)
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in case_list),
+                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"], "library_ms": None,
+                "at": f"{case} T={main_case['T']} "
+                      f"C={main_case['capacity']}, Qwen3-30B-A3B widths"}
+    print(json.dumps({"kernels": [
+        kernel_entry("fused_moe_pipeline",
+                     "src/repro/kernels/dualsparse_ffn.py:498", cases,
+                     "prefill", serve["launches"]),
+        kernel_entry("grouped_swiglu",
+                     "src/repro/kernels/dualsparse_ffn.py:192", grouped,
+                     "chunk",
+                     paged["counts"]["grouped_swiglu"]["launches"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

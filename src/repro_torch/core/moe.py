@@ -1,6 +1,7 @@
 """MoE layer: the exact dense reference and the capacity-based dispatch
-forward (fused kernel pipeline or gather -> einsum FFN -> unpermute buffer
-path).
+forward (the fused kernel pipeline, or the buffer path: gather -> grouped
+FFN -> unpermute, whose FFN is the grouped SwiGLU kernel under
+``use_kernel`` and an einsum otherwise).
 
 Params are name -> tensor dicts in the JAX layouts: wg (d, E); w1, w3
 (E, d, f); w2 (E, f, d); optional "shared" {w1, w3, w2} dense expert.
@@ -175,6 +176,45 @@ def _fused_pipeline_dispatch(params: Dict, x, cfg, pairs: SubExpertPairs,
     return y, overflow
 
 
+def grouped_swiglu_args(params: Dict, x, pairs: SubExpertPairs, p: int,
+                        capacity: int, mode_grouped: bool):
+    """The buffer path's arguments of ``kernels.ops.grouped_swiglu``, and
+    what the unpermute and combine after it need.
+
+    ``mode_grouped`` (P > 1): one row per (token, ORIGINAL expert) pair,
+    FULL rows first and MAJOR-only rows second, sub-expert weights fused by
+    ``p_factor`` so ``counts_major`` lets the kernel skip the minor half
+    (exact w.r.t. the sub-expert path under partial transformation,
+    Eq. 13). Otherwise rows are sub-expert pairs against the weights'
+    native expert axis (``n_minor_start`` = the full width). Returns
+    ``(kernel_kwargs, plan, weights (T*K,), K, overflow)``; overflow is in
+    SUB-pair units on both layouts."""
+    if mode_grouped and p > 1:
+        E = params["w1"].shape[0] // p
+        fused = dispatch_mod.fuse_sub_pairs(pairs, p)
+        K = fused.group.shape[1]
+        plan = dispatch_mod.sort_dispatch(fused.group, fused.keep,
+                                          n_groups=E, capacity=capacity,
+                                          major_only=fused.major_only)
+        w = fused.combine * fused.keep.to(fused.combine.dtype)
+        overflow = _sub_pair_overflow(plan, pairs, fused, capacity)
+        p_factor, n_minor_start = p, None
+    else:
+        E = params["w1"].shape[0]
+        K = pairs.idx.shape[1]
+        plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
+                                          n_groups=E, capacity=capacity)
+        w = pairs.combine * pairs.keep.to(pairs.combine.dtype)
+        overflow = plan.overflow
+        p_factor, n_minor_start = 1, params["w1"].shape[-1]
+    cf, cm = plan.kernel_counts(capacity)
+    kwargs = dict(x=dispatch_mod.gather_rows(x, plan, capacity, index_div=K),
+                  w1=params["w1"], w3=params["w3"], w2=params["w2"],
+                  counts_full=cf, counts_major=cm, p_factor=p_factor,
+                  n_minor_start=n_minor_start)
+    return kwargs, plan, w.reshape(-1), K, overflow
+
+
 def moe_forward_dispatch(params: Dict, x, cfg,
                          pairs: Optional[SubExpertPairs] = None,
                          capacity_factor: float = 1.25,
@@ -192,15 +232,17 @@ def moe_forward_dispatch(params: Dict, x, cfg,
     weighted combine); ``None`` resolves via
     ``core.dispatch.prefer_fused_pipeline`` — fused on a CUDA device, fused
     iff ``use_kernel`` on the CPU. Otherwise the buffer path gathers into
-    (E, C, d), runs the einsum FFN over full sub-experts and unpermutes.
+    (E, C, d) buffers, runs the FFN and unpermutes: with ``use_kernel`` the
+    FFN is the grouped SwiGLU kernel — over ORIGINAL-expert buffers with
+    minor-half skipping under ``mode_grouped`` (P > 1), over sub-expert
+    buffers otherwise — and without it an einsum over full sub-experts.
     ``return_overflow`` also returns the overflow count (sub-pair units)."""
     T, d = x.shape
     E = params["w1"].shape[0]
     if pairs is None:
         pairs = route_plain(params, x, cfg, n_experts=E)
-    K = pairs.idx.shape[1]
     if capacity is None:
-        capacity = capacity_for(T, K, E, capacity_factor)
+        capacity = capacity_for(T, pairs.idx.shape[1], E, capacity_factor)
 
     p = _pairs_partition_p(pairs)
     if fused_pipeline is None:
@@ -213,13 +255,17 @@ def moe_forward_dispatch(params: Dict, x, cfg,
         out = y.to(x.dtype) + _shared_out(params, x)
         return (out, overflow) if return_overflow else out
 
-    plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
-                                      n_groups=E, capacity=capacity)
-    buf = dispatch_mod.gather_rows(x, plan, capacity, index_div=K)
-    out_buf = expert_ffn(params["w1"], params["w3"], params["w2"], buf)
+    kwargs, plan, w, K, overflow = grouped_swiglu_args(
+        params, x, pairs, p, capacity,
+        mode_grouped=use_kernel and mode_grouped and p > 1)
+    if use_kernel:
+        from ..kernels import ops as kops
+        out_buf = kops.grouped_swiglu(**kwargs)
+    else:
+        out_buf = expert_ffn(params["w1"], params["w3"], params["w2"],
+                             kwargs["x"])
     gathered = dispatch_mod.unpermute(out_buf, plan)            # (T*K, d)
-    w = (pairs.combine * pairs.keep.to(pairs.combine.dtype)).reshape(-1)
     y = gathered * w[:, None].to(gathered.dtype)
     y = y.reshape(T, K, d).sum(dim=1)
     out = y.to(x.dtype) + _shared_out(params, x)
-    return (out, plan.overflow) if return_overflow else out
+    return (out, overflow) if return_overflow else out

@@ -10,6 +10,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclasses.dataclass
 class SyntheticLM:
@@ -47,12 +49,14 @@ class SyntheticLM:
 
 def calibration_activations(rng: np.random.Generator, n_tokens: int,
                             d_model: int, scale: float = 0.7,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
     """(n_tokens, d_model) float32 activations entering a MoE layer, with a
-    power-law feature spectrum plus a few dominant directions."""
+    power-law feature spectrum plus a few dominant directions, on
+    ``device`` (default the card)."""
     scales = np.arange(1, d_model + 1) ** -0.3
     x = rng.standard_normal((n_tokens, d_model)) * scales[None, :]
     dirs = rng.standard_normal((4, d_model)) / np.sqrt(d_model)
     coef = rng.standard_normal((n_tokens, 4))
     out = (x + coef @ dirs * 3.0) * scale
-    return torch.from_numpy(out.astype(np.float32)).to(device)
+    return torch.from_numpy(out.astype(np.float32)).to(
+        resolve_device(device))

@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, which ``ctypes`` loads. All
 sources that still need building are compiled together (one ``nvcc`` per
 source, started at once). Libraries land in ``build/kernels/`` at the root
-of the checkout, named by a hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is reused. A missing ``nvcc`` or a
-failed build raises.
+of the checkout, named by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. A missing ``nvcc`` or a failed build
+raises.
 """
 from __future__ import annotations
 
@@ -44,7 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,67 @@
+// Grouped SwiGLU over pre-gathered expert buffers for Hopper (sm_90a), with
+// dual-sparse minor-half skipping: the expert FFN of the MoE buffer path
+// (gather_rows -> this kernel -> unpermute + combine).
+//
+// Replaces the TPU kernel src/repro/kernels/dualsparse_ffn.py::
+// grouped_swiglu_pallas (body _kernel). Same function: x (E, C, d) buffers,
+// group e's rows r < counts_full[e] use every neuron of the virtual width
+// P*f (sub-expert e*P + j holds neurons [j*f, (j+1)*f)), rows in
+// [counts_full, counts_full + counts_major) only the MAJOR neurons, rows at
+// or past both come out as exact zeros (the TPU kernel zero-inits every
+// output tile before it accumulates).
+//
+// What bounds it on an H100 (f32 weights): at decode capacity (C = 8) each
+// live expert streams 3 * d * V * 4 B of weights for a few rows, so it is
+// bound by device-memory bytes; at prefill capacity (C ~ 128) each weight
+// tile is reused by up to 64 rows, so it is bound by f32 operations on the
+// CUDA cores. What the design does about that: the up and down tiles of
+// swiglu_tiles.cuh in its buffer row layout — every weight tile is read once
+// per (group, row block) and reused from shared memory; row blocks past a
+// group's live rows load nothing, and MAJOR-only row blocks skip the MINOR
+// up tiles and stop the down contraction at n_major. Unlike the fused
+// pipeline it reads x from the (E, C, d) buffer and writes the (E, C, d)
+// output directly (no gather, no combine). One writer per output element,
+// a fixed k order: runs are bit-identical.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "swiglu_tiles.cuh"
+
+extern "C" {
+
+// Enqueues the up and down launches on ``stream``. ``h`` is an (E*C, P*f)
+// float32 scratch; ``out`` the (E, C, d) float32 result. Returns the
+// cudaGetLastError() code after the first failing launch, or 0.
+int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
+                          const void* w2, const void* counts_full,
+                          const void* counts_major, void* h, void* out,
+                          int E, int C, int d, int f, int P, int n_major,
+                          void* stream) {
+  swiglu_tiles::Problem pb;
+  pb.x = static_cast<const float*>(x);
+  pb.w1 = static_cast<const float*>(w1);
+  pb.w3 = static_cast<const float*>(w3);
+  pb.w2 = static_cast<const float*>(w2);
+  pb.offs = nullptr;
+  pb.cf = static_cast<const int*>(counts_full);
+  pb.cm = static_cast<const int*>(counts_major);
+  pb.tok = nullptr;
+  pb.comb = nullptr;
+  pb.h = static_cast<float*>(h);
+  pb.y = static_cast<float*>(out);
+  pb.d = d;
+  pb.f = f;
+  pb.P = P;
+  pb.n_major = n_major;
+  pb.n_tiles_sub = (f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
+  pb.capacity = C;
+  return static_cast<int>(swiglu_tiles::launch_swiglu<true>(
+      pb, E, static_cast<cudaStream_t>(stream)));
+}
+
+const char* grouped_swiglu_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

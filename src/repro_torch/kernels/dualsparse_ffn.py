@@ -1,14 +1,17 @@
-"""The fused MoE pipeline kernel for Hopper: geometry shared with its plain
-version, the combine order, and the launch of the CUDA kernel
-(``csrc/fused_moe_pipeline.cu``) through ``ctypes``.
+"""The dual-sparse SwiGLU kernels for Hopper: geometry shared with their
+plain versions, the combine order, and the launches of the CUDA kernels
+through ``ctypes``.
 
-It computes what ``src/repro/kernels/dualsparse_ffn.py::
-fused_moe_pipeline_pallas`` computes on the TPU: gather each expert
-segment's token rows through the sort permutation, run the grouped SwiGLU
-with f32 accumulation (rows below ``counts_full`` use every neuron, rows in
-``[cf, cf+cm)`` only the MAJOR neurons, tiles with no live row are
-skipped), and add ``combine * row`` into an f32 ``(T, d)`` output in
-increasing sorted-position order.
+* ``csrc/fused_moe_pipeline.cu`` computes what ``src/repro/kernels/
+  dualsparse_ffn.py::fused_moe_pipeline_pallas`` computes on the TPU:
+  gather each expert segment's token rows through the sort permutation,
+  run the grouped SwiGLU with f32 accumulation (rows below ``counts_full``
+  use every neuron, rows in ``[cf, cf+cm)`` only the MAJOR neurons, tiles
+  with no live row are skipped), and add ``combine * row`` into an f32
+  ``(T, d)`` output in increasing sorted-position order.
+* ``csrc/grouped_swiglu.cu`` computes what ``grouped_swiglu_pallas``
+  computes: the same masked grouped SwiGLU over pre-gathered ``(E, C, d)``
+  buffers, with rows at or past ``cf+cm`` returned as exact zeros.
 """
 from __future__ import annotations
 
@@ -66,17 +69,31 @@ def combine_order(tok_sorted, group_offsets, counts_full, counts_major,
     return order, start.to(I32), count.to(I32)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = {
+    "fused_moe_pipeline": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p]),
+    "grouped_swiglu": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p]),
+}
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("fused_moe_pipeline")
-    if lib.fused_moe_pipeline_launch.argtypes is None:
-        lib.fused_moe_pipeline_launch.argtypes = _ARGTYPES
-        lib.fused_moe_pipeline_launch.restype = ctypes.c_int
-        lib.fused_moe_pipeline_error_string.argtypes = [ctypes.c_int]
-        lib.fused_moe_pipeline_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu`` library with its C signatures set."""
+    lib = _build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
+        launch.argtypes = _ARGTYPES[name]
+        launch.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
 def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
@@ -84,7 +101,7 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                               capacity: int, p_factor: int, n_major: int):
     """Enqueue the CUDA kernel on the current stream; returns the (T, d)
     float32 output. Inputs must already be checked (``ops`` does that)."""
-    lib = _library()
+    lib = _library("fused_moe_pipeline")
     T, d = x.shape
     f = w1.shape[-1]
     E = group_offsets.shape[0]
@@ -103,8 +120,27 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
         combine_sorted.data_ptr(), h.data_ptr(), y.data_ptr(),
         order.data_ptr(), start.data_ptr(), count.data_ptr(),
         out.data_ptr(), T, d, f, E, p_factor, n_major, capacity, stream)
-    if err != 0:
-        msg = lib.fused_moe_pipeline_error_string(err).decode()
-        raise RuntimeError(f"fused_moe_pipeline launch failed: CUDA error "
-                           f"{err} ({msg})")
+    _raise_on_error(lib, "fused_moe_pipeline", err)
+    return out
+
+
+def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
+                          p_factor: int, n_major: int):
+    """Enqueue the grouped SwiGLU kernel on the current stream; returns the
+    (E, C, d) float32 output, dead rows exact zeros. Inputs must already be
+    checked (``ops`` does that)."""
+    E, C, d = x.shape
+    f = w1.shape[-1]
+    out = torch.empty((E, C, d), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _library("grouped_swiglu")
+    h = torch.empty((E * C, p_factor * f), dtype=torch.float32,
+                    device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.grouped_swiglu_launch(
+        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        counts_full.data_ptr(), counts_major.data_ptr(), h.data_ptr(),
+        out.data_ptr(), E, C, d, f, p_factor, n_major, stream)
+    _raise_on_error(lib, "grouped_swiglu", err)
     return out

@@ -12,9 +12,32 @@ import torch
 
 from . import dualsparse_ffn, ref
 
-__all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref"]
+__all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref",
+           "grouped_swiglu", "grouped_swiglu_ref"]
 
 fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
+grouped_swiglu_ref = ref.grouped_swiglu_ref
+
+
+def _check_devices_and_layout(op: str, named, ref_device):
+    for name, t in named.items():
+        if t.device != ref_device:
+            raise ValueError(f"{op}: {name} is on {t.device}, x on "
+                             f"{ref_device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+
+
+def _check_dtypes(op: str, named, floats, ints):
+    for name in floats:
+        if named[name].dtype != torch.float32:
+            raise TypeError(f"{op}: {name} must be float32 (got "
+                            f"{named[name].dtype}); other weight types are "
+                            "not supported yet")
+    for name in ints:
+        if named[name].dtype != torch.int32:
+            raise TypeError(f"{op}: {name} must be int32 (got "
+                            f"{named[name].dtype})")
 
 
 def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
@@ -23,22 +46,11 @@ def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
     named = dict(x=x, w1=w1, w3=w3, w2=w2, group_offsets=group_offsets,
                  counts_full=counts_full, counts_major=counts_major,
                  tok_sorted=tok_sorted, combine_sorted=combine_sorted)
-    for name, t in named.items():
-        if t.device != x.device:
-            raise ValueError(f"fused_moe_pipeline: {name} is on {t.device}, "
-                             f"x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_moe_pipeline: {name} is not contiguous")
-    for name in ("x", "w1", "w3", "w2", "combine_sorted"):
-        if named[name].dtype != torch.float32:
-            raise TypeError(f"fused_moe_pipeline: {name} must be float32 "
-                            f"(got {named[name].dtype}); other weight types "
-                            "are not supported yet")
-    for name in ("group_offsets", "counts_full", "counts_major",
-                 "tok_sorted"):
-        if named[name].dtype != torch.int32:
-            raise TypeError(f"fused_moe_pipeline: {name} must be int32 "
-                            f"(got {named[name].dtype})")
+    _check_devices_and_layout("fused_moe_pipeline", named, x.device)
+    _check_dtypes("fused_moe_pipeline", named,
+                  ("x", "w1", "w3", "w2", "combine_sorted"),
+                  ("group_offsets", "counts_full", "counts_major",
+                   "tok_sorted"))
     if x.ndim != 2 or w1.ndim != 3:
         raise ValueError("fused_moe_pipeline: x must be (T, d) and w1/w3 "
                          "(E*P, d, f)")
@@ -101,3 +113,73 @@ def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
 
 
 fused_moe_pipeline.launches = 0
+
+
+def _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
+                          p_factor: int):
+    named = dict(x=x, w1=w1, w3=w3, w2=w2, counts_full=counts_full,
+                 counts_major=counts_major)
+    _check_devices_and_layout("grouped_swiglu", named, x.device)
+    _check_dtypes("grouped_swiglu", named, ("x", "w1", "w3", "w2"),
+                  ("counts_full", "counts_major"))
+    if x.ndim != 3 or w1.ndim != 3:
+        raise ValueError("grouped_swiglu: x must be (E, C, d) and w1/w3 "
+                         "(E*P, d, f)")
+    E, C, d = x.shape
+    Es, dw, f = w1.shape
+    if dw != d or w3.shape != w1.shape or tuple(w2.shape) != (Es, f, d):
+        raise ValueError(f"grouped_swiglu: weight shapes w1 "
+                         f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
+                         f"{tuple(w2.shape)} do not fit x {tuple(x.shape)}")
+    if p_factor < 1 or Es != E * p_factor:
+        raise ValueError(f"grouped_swiglu: weights carry {Es} sub-experts; "
+                         f"buffers have {E} groups x p_factor {p_factor}")
+    if counts_full.shape != (E,) or counts_major.shape != (E,):
+        raise ValueError("grouped_swiglu: counts must be (E,)")
+
+
+def clamp_counts(counts_full, counts_major, capacity: int):
+    """Counts within the capacity (``cf + cm <= C``), as the kernel takes
+    them: a group's rows past C would be the next group's. The function
+    does not change (the plain version clamps by indexing)."""
+    counts_full = counts_full.clamp(max=capacity)
+    counts_major = (counts_full + counts_major).clamp(max=capacity) \
+        - counts_full
+    return counts_full, counts_major
+
+
+def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
+                   p_factor: int = 1, n_minor_start=None,
+                   block_c: int = 128, block_f: int = 128):
+    """Grouped SwiGLU expert FFN over pre-gathered buffers, with 2T-Drop
+    row/neuron masking.
+
+    x: (E, C, d) float32; w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d);
+    ``counts_full``/``counts_major``: (E,) int32 or ``None`` (all C rows
+    FULL / no MAJOR-only row). ``p_factor > 1`` fuses the sub-experts of
+    each group back to the full width by indexing. Returns (E, C, d) in x's
+    dtype, rows at or past ``cf + cm`` exact zeros. ``block_c`` is kept for
+    signature parity with the JAX wrapper; ``block_f`` only places an
+    explicit ``n_minor_start`` as the TPU kernel reads it."""
+    counts_full, counts_major = ref._counts_or_default(
+        counts_full, counts_major, x.shape[0], x.shape[1], x.device)
+    _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
+                          p_factor)
+    if x.device.type == "cpu":
+        return ref.grouped_swiglu_ref(
+            x, w1, w3, w2, counts_full, counts_major, p_factor=p_factor,
+            n_minor_start=n_minor_start, block_c=block_c, block_f=block_f)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_swiglu: no kernel for device {x.device}")
+    n_major = dualsparse_ffn.resolve_n_major(w1.shape[-1], p_factor,
+                                             n_minor_start, block_f)
+    counts_full, counts_major = clamp_counts(counts_full, counts_major,
+                                             x.shape[1])
+    out = dualsparse_ffn.launch_grouped_swiglu(
+        x, w1, w3, w2, counts_full, counts_major, p_factor=p_factor,
+        n_major=n_major)
+    grouped_swiglu.launches += 1
+    return out
+
+
+grouped_swiglu.launches = 0

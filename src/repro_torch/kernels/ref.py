@@ -64,3 +64,54 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
 
 
 fused_moe_pipeline_ref.calls = 0
+
+
+def _counts_or_default(counts_full, counts_major, E: int, C: int, device):
+    """The TPU kernel's defaults: ``counts_full=None`` means all C rows are
+    FULL, ``counts_major=None`` means no MAJOR-only row."""
+    if counts_full is None:
+        counts_full = torch.full((E,), C, dtype=torch.int32, device=device)
+    if counts_major is None:
+        counts_major = torch.zeros((E,), dtype=torch.int32, device=device)
+    return counts_full, counts_major
+
+
+def grouped_swiglu_ref(x, w1, w3, w2, counts_full=None, counts_major=None,
+                       p_factor: int = 1, n_minor_start=None,
+                       block_c: int = 128, block_f: int = 128):
+    """Grouped SwiGLU over pre-gathered buffers, plainly, with the TPU
+    kernel's semantics (``grouped_swiglu_pallas``).
+
+    x: (E, C, d); w1/w3: (E*P, d, f); w2: (E*P, f, d). Group e runs over the
+    virtual width ``P * f`` (sub-expert ``e*P + j`` holds neurons
+    ``[j*f, (j+1)*f)``): rows below ``counts_full[e]`` use every neuron,
+    rows in ``[cf, cf + cm)`` only the MAJOR ones, rows at or past
+    ``cf + cm`` are exact zeros. ``n_minor_start`` is read in the kernel's
+    padded virtual coordinate (``block_f`` places it); ``block_c`` does not
+    change the function. Returns (E, C, d) in x's dtype."""
+    del block_c
+    grouped_swiglu_ref.calls += 1
+    E, C, d = x.shape
+    f = w1.shape[-1]
+    P = p_factor
+    V = P * f
+    dev = x.device
+    cf, cm = _counts_or_default(counts_full, counts_major, E, C, dev)
+    n_major = resolve_n_major(f, P, n_minor_start, block_f)
+    w1v = w1.reshape(E, P, d, f).permute(0, 2, 1, 3).reshape(E, d, V)
+    w3v = w3.reshape(E, P, d, f).permute(0, 2, 1, 3).reshape(E, d, V)
+    w2v = w2.reshape(E, V, d)
+    xf = x.float()
+    h = F.silu(torch.einsum("ecd,edv->ecv", xf, w1v.float()))
+    h = h * torch.einsum("ecd,edv->ecv", xf, w3v.float())
+    rows = torch.arange(C, device=dev)[None, :, None]             # (1,C,1)
+    live = (cf + cm).long()[:, None, None]                        # (E,1,1)
+    major = (torch.arange(V, device=dev) < n_major)[None, None, :]
+    limit = torch.where(major, live, cf.long()[:, None, None])    # (E,1,V)
+    zero = torch.zeros((), device=dev)
+    h = torch.where(rows < limit, h, zero)
+    out = torch.einsum("ecv,evd->ecd", h, w2v.float())
+    return torch.where(rows < live, out, zero).to(x.dtype)
+
+
+grouped_swiglu_ref.calls = 0

@@ -1,11 +1,16 @@
-"""Serving driver of the PyTorch port: requests through the synchronized
-``ServingEngine`` on the card (``--device cpu`` to run on the CPU).
+"""Serving CLI of the PyTorch port: requests through one of the serving
+engines on the card (``--device cpu`` to run on the CPU): synchronized
+batches (``--engine sync``), slot-based continuous batching with
+mid-decode admission (``continuous``), or the paged KV cache with chunked
+prefill and prefix caching (``paged``).
 
 Sparsity is selected with ``--policy``: none | 1t | 2t.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
       --reduced --requests 8 --prompt-len 64 --new-tokens 32 --policy 2t
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+      --reduced --device cpu --engine paged --slots 4 --policy 2t
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ from repro_torch.core.policy import POLICIES, make_policy
 from repro_torch.data.pipeline import SyntheticLM, calibration_activations
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serving import GenerationConfig, ServingEngine
+from repro_torch.serving import (ContinuousBatchingEngine, GenerationConfig,
+                                 PagedEngine, ServingEngine)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,12 +37,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: the card)")
     ap.add_argument("--engine", default="sync",
                     choices=("sync", "continuous", "paged"),
-                    help="synchronized batches (continuous and paged are "
-                         "not ported yet)")
+                    help="synchronized batches, slot-based continuous "
+                         "batching with mid-decode admission, or paged KV "
+                         "(page-table cache + chunked prefill + prefix cache)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="sync batch size / continuous slot count")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="continuous/paged engine slot count "
+                         "(0 = --batch-size)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged engine: tokens per KV page")
+    ap.add_argument("--chunk-size", type=int, default=32,
+                    help="paged engine: prompt tokens per prefill chunk")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="paged engine: disable cross-request prefix reuse")
     ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
                     help="sparsity policy (default: none)")
     ap.add_argument("--drop-target", type=float, default=None,
@@ -73,9 +90,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.engine != "sync":
-        raise SystemExit(f"--engine {args.engine} is not ported yet; "
-                         "use --engine sync")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -107,10 +121,20 @@ def main(argv=None):
     prompts = [src.sample_batch(rng, 1, args.prompt_len)["tokens"][0]
                for _ in range(args.requests)]
 
-    eng = ServingEngine(cfg, model, batch_size=args.batch_size,
-                        max_prompt_len=args.prompt_len,
-                        max_new_tokens=args.new_tokens, policy=policy,
-                        metrics=not args.no_metrics, device=device)
+    metrics = not args.no_metrics
+    common = dict(max_prompt_len=args.prompt_len,
+                  max_new_tokens=args.new_tokens, policy=policy,
+                  metrics=metrics, device=device)
+    if args.engine == "continuous":
+        eng = ContinuousBatchingEngine(
+            cfg, model, n_slots=args.slots or args.batch_size, **common)
+    elif args.engine == "paged":
+        eng = PagedEngine(
+            cfg, model, n_slots=args.slots or args.batch_size,
+            page_size=args.page_size, chunk_size=args.chunk_size,
+            prefix_cache=not args.no_prefix_cache, **common)
+    else:
+        eng = ServingEngine(cfg, model, batch_size=args.batch_size, **common)
 
     server = None
     if args.metrics_port is not None:
@@ -147,6 +171,15 @@ def main(argv=None):
           f"({timing['compile_steps']} warm-up steps) "
           f"steady_step={timing['steady_step_s'] * 1e3:.1f}ms "
           f"over {timing['steady_steps']} steps")
+    if args.engine == "continuous":
+        print(f"  slots={eng.n_slots} admitted={eng.n_admitted} "
+              f"decode_steps={eng.decode_steps} "
+              f"max_concurrency={eng.max_concurrency}")
+    elif args.engine == "paged":
+        print(f"  slots={eng.n_slots} admitted={eng.n_admitted} "
+              f"chunk_steps={eng.chunk_steps} "
+              f"decode_steps={eng.decode_steps} "
+              f"prefix_hit_rate={eng.prefix_hit_rate:.2f}")
     for r in results[:4]:
         print(f"  req{r.uid}: {r.tokens[:12]}...")
 

@@ -1,8 +1,10 @@
-"""GQA attention and the contiguous KV cache.
+"""GQA attention and the KV cache layouts.
 
 Attention has no TPU kernel in the JAX package, so plain PyTorch matmuls
 compute it here. Layouts follow the JAX package: q (B, S, Hkv, G, D),
-k/v (B, S, Hkv, D), the KV cache {"k", "v"}: (B, cap, Hkv, D).
+k/v (B, S, Hkv, D); the cache is per-slot contiguous rows
+(``ContiguousLayout``, {"k", "v"}: (B, cap, Hkv, D)) or a shared page pool
+behind a per-slot page table (``PagedLayout``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import layers
 
 NEG_INF = -1e30
@@ -114,14 +117,23 @@ def gqa_prefill_attention(attn: Attention, x, positions, cfg, *, window=0,
 class ContiguousLayout:
     """Per-slot contiguous KV rows {"k", "v"}: (B, cap, Hkv, D); a ring
     buffer when ``window`` > 0. Writes update the cache tensors in place
-    (the JAX layout returns new arrays); nothing keeps the old ones."""
+    (the JAX layout returns new arrays); nothing keeps the old ones.
+
+    ``pos`` is a host int (the whole batch at one position) or a (B,) int
+    tensor of per-slot positions on the cache's device (continuous
+    batching). A per-slot cache (``sink``) ends each slot's rows with one
+    extra SINK row at index cap that reads never see: writes the JAX layout
+    drops (past the capacity, masked off by ``write_mask``, chunk rows past
+    ``valid_len``) land there, so nothing is range-checked on the host."""
     window: int = 0
+    sink: bool = False
 
     def init(self, batch: int, length: int, n_kv: int, head_dim: int,
-             dtype=torch.bfloat16, device="cpu"):
-        shape = (batch, length, n_kv, head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+             dtype=torch.bfloat16, device="cuda"):
+        shape = (batch, length + self.sink, n_kv, head_dim)
+        dev = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
     def from_seq(self, k, v, cap: int, dtype=torch.bfloat16):
         """Full-sequence K/V (B,S,H,D) -> decode cache of capacity ``cap``."""
@@ -140,30 +152,185 @@ class ContiguousLayout:
             vc[:, :S] = v.to(dtype)
         return {"k": kc, "v": vc}
 
-    def slot_index(self, pos: int, capacity: int) -> int:
+    def capacity(self, cache) -> int:
+        """Rows per slot, the sink row not counted."""
+        return cache["k"].shape[1] - self.sink
+
+    def slot_index(self, pos, capacity: int):
         """Physical row of absolute position ``pos`` (ring when windowed)."""
         return pos % capacity if self.window > 0 else pos
 
-    def append(self, cache, k_new, v_new, pos: int):
-        """Insert one step (B,1,Hkv,D) at absolute position ``pos`` (a host
-        int shared by the batch)."""
-        cap = cache["k"].shape[1]
-        idx = self.slot_index(pos, cap)
-        if not 0 <= idx < cap:
-            raise ValueError(f"decode position {pos} is past the cache "
-                             f"capacity {cap}")
-        cache["k"][:, idx] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, idx] = v_new[:, 0].to(cache["v"].dtype)
+    def read(self, cache, page_table=None, read_len=None):
+        """(B, cap, Hkv, D) views, trimmed to ``read_len`` rows when given."""
+        n = self.capacity(cache) if read_len is None else read_len
+        if n == cache["k"].shape[1]:
+            return cache["k"], cache["v"]
+        return cache["k"][:, :n], cache["v"][:, :n]
+
+    def read_slot(self, cache, slot: int, page_table=None, read_len=None):
+        """One slot's (cap, Hkv, D) views (chunked prefill)."""
+        n = self.capacity(cache) if read_len is None else read_len
+        return cache["k"][slot, :n], cache["v"][slot, :n]
+
+    def _check_sink(self):
+        if not self.sink:
+            raise ValueError("per-slot writes need a cache with a sink row "
+                             "(ContiguousLayout(sink=True))")
+
+    def append(self, cache, k_new, v_new, pos, page_table=None,
+               write_mask=None):
+        """Insert one step (B,1,Hkv,D) at absolute position ``pos``."""
+        cap = self.capacity(cache)
+        if not isinstance(pos, torch.Tensor):
+            idx = self.slot_index(pos, cap)
+            if not 0 <= idx < cap:
+                raise ValueError(f"decode position {pos} is past the cache "
+                                 f"capacity {cap}")
+            cache["k"][:, idx] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][:, idx] = v_new[:, 0].to(cache["v"].dtype)
+            return cache
+        self._check_sink()
+        idx = self.slot_index(pos.long(), cap)
+        ok = idx < cap
+        if write_mask is not None:
+            ok = ok & write_mask
+        rows = torch.where(ok, idx, torch.full_like(idx, cap))
+        b = torch.arange(k_new.shape[0], device=idx.device)
+        cache["k"][b, rows] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][b, rows] = v_new[:, 0].to(cache["v"].dtype)
         return cache
 
-    def validity(self, pos_after: int, capacity: int, device):
-        """(capacity,) bool: the cache slots that hold a position before
-        ``pos_after`` (and inside the window when windowed)."""
+    def append_chunk(self, cache, k_chunk, v_chunk, slot: int, start: int,
+                     valid_len: int, page_table=None):
+        """Insert a (C,Hkv,D) prompt chunk of one slot at absolute positions
+        ``start..start+C-1``; rows at or past ``valid_len`` (or the
+        capacity) write to the sink row."""
+        if self.window:
+            raise ValueError("chunked prefill needs a non-ring layout")
+        self._check_sink()
+        cap = self.capacity(cache)
+        i = torch.arange(k_chunk.shape[0], device=k_chunk.device)
+        ok = (i < valid_len) & (start + i < cap)
+        rows = torch.where(ok, start + i, torch.full_like(i, cap))
+        cache["k"][slot, rows] = k_chunk.to(cache["k"].dtype)
+        cache["v"][slot, rows] = v_chunk.to(cache["v"].dtype)
+        return cache
+
+    def validity(self, pos_after, capacity: int, device):
+        """Bool mask of the cache rows that hold a position before
+        ``pos_after`` (inside the window when windowed): (capacity,) for a
+        host int, (B, capacity) for a (B,) tensor of per-slot positions."""
         slots = torch.arange(capacity, device=device)
-        if self.window > 0:
-            abs_pos = pos_after - 1 - ((pos_after - 1 - slots) % capacity)
-            return (abs_pos >= 0) & (abs_pos > pos_after - 1 - self.window)
-        return slots < pos_after
+        return _cache_validity(pos_after, slots, capacity, self.window)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """Block-granular KV cache: a pool of ``page_size``-token pages shared
+    by all slots, addressed through a per-slot page table (B, pages_per_slot)
+    of physical page ids on the device.
+
+    The pool {"k", "v"}: (n_pages + 1, page_size, Hkv, D) holds one extra
+    SINK page at index ``n_pages`` that no page table maps: writes the JAX
+    layout drops (slots past their table, ``write_mask``-ed slots, chunk
+    rows past ``valid_len``) land there, so nothing is range-checked on the
+    host. Page 0 is the engine's retired-slot page and is never handed out.
+    Windowed (ring) caches are not supported — paging already bounds
+    memory."""
+    page_size: int
+
+    def init(self, n_pages: int, n_kv: int, head_dim: int,
+             dtype=torch.bfloat16, device="cuda"):
+        shape = (n_pages + 1, self.page_size, n_kv, head_dim)
+        dev = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def slot_index(self, pos):
+        """(logical page, in-page offset) of absolute position ``pos``."""
+        return pos // self.page_size, pos % self.page_size
+
+    def _gather(self, a, ids, read_len):
+        """Pages ``ids`` (..., n) of pool ``a`` as (..., n*page_size, H, D)
+        rows, only the pages ``read_len`` needs, trimmed to it."""
+        if read_len is not None:
+            ids = ids[..., :-(-read_len // self.page_size)]
+        g = a[ids.long()]                           # (..., n, ps, H, D)
+        g = g.reshape(ids.shape[:-1] + (ids.shape[-1] * self.page_size,)
+                      + a.shape[2:])
+        if read_len is not None:
+            g = g[..., :read_len, :, :]
+        return g
+
+    def read(self, cache, page_table=None, read_len=None):
+        """(B, pages_per_slot * page_size, Hkv, D) gathered views, trimmed to
+        ``read_len`` rows when given (so the softmax reduces over the same
+        width as a contiguous cache of that capacity)."""
+        return (self._gather(cache["k"], page_table, read_len),
+                self._gather(cache["v"], page_table, read_len))
+
+    def read_slot(self, cache, slot: int, page_table=None, read_len=None):
+        row = page_table[slot]
+        return (self._gather(cache["k"], row, read_len),
+                self._gather(cache["v"], row, read_len))
+
+    def _sink(self, cache) -> int:
+        return cache["k"].shape[0] - 1
+
+    def append(self, cache, k_new, v_new, pos, page_table=None,
+               write_mask=None):
+        """One decode step at per-slot positions ``pos`` (B,): the write
+        lands at ``page_table[b, pos // ps]`` row ``pos % ps``; slots past
+        their table or outside ``write_mask`` write to the sink page."""
+        n_logical = page_table.shape[1]
+        page, off = self.slot_index(pos.long())
+        phys = torch.gather(page_table.long(), 1,
+                            page.clamp(max=n_logical - 1)[:, None])[:, 0]
+        ok = page < n_logical
+        if write_mask is not None:
+            ok = ok & write_mask
+        phys = torch.where(ok, phys, torch.full_like(phys, self._sink(cache)))
+        cache["k"][phys, off] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][phys, off] = v_new[:, 0].to(cache["v"].dtype)
+        return cache
+
+    def append_chunk(self, cache, k_chunk, v_chunk, slot: int, start: int,
+                     valid_len: int, page_table=None):
+        """A (C,Hkv,D) prompt chunk of one slot at positions
+        ``start..start+C-1``; rows at or past ``valid_len`` (or past the
+        slot's table) write to the sink page."""
+        row = page_table[slot].long()
+        n_logical = row.shape[0]
+        i = torch.arange(k_chunk.shape[0], device=row.device)
+        page, off = self.slot_index(start + i)
+        phys = row[page.clamp(max=n_logical - 1)]
+        ok = (i < valid_len) & (page < n_logical)
+        phys = torch.where(ok, phys, torch.full_like(phys, self._sink(cache)))
+        cache["k"][phys, off] = k_chunk.to(cache["k"].dtype)
+        cache["v"][phys, off] = v_chunk.to(cache["v"].dtype)
+        return cache
+
+    def validity(self, pos_after, capacity: int, device):
+        slots = torch.arange(capacity, device=device)
+        return _cache_validity(pos_after, slots, capacity, 0)
+
+
+def _cache_validity(pos_after, slots, capacity: int, window: int):
+    """Rows holding a position before ``pos_after`` (ring when windowed);
+    a (B,) tensor of per-slot positions gives a (B, capacity) mask."""
+    if isinstance(pos_after, torch.Tensor):
+        pos_after = pos_after.long()[:, None]
+    if window > 0:
+        abs_pos = pos_after - 1 - ((pos_after - 1 - slots) % capacity)
+        return (abs_pos >= 0) & (abs_pos > pos_after - 1 - window)
+    return slots < pos_after
+
+
+def _valid_mask(valid, rank: int):
+    """(cap,) or (B,cap) validity -> a mask broadcastable against a score
+    tensor of ``rank`` dims whose first axis is batch and last the cache."""
+    lead = valid.shape[:1] if valid.ndim == 2 else (1,)
+    return valid.reshape(lead + (1,) * (rank - 2) + valid.shape[-1:])
 
 
 def _attend_cache(q, k_view, v_view, mask):
@@ -179,17 +346,58 @@ def _attend_cache(q, k_view, v_view, mask):
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v_view)
 
 
-def gqa_decode_attention(attn: Attention, x, cache, pos: int, cfg,
-                         window: int = 0):
+def gqa_decode_attention(attn: Attention, x, cache, pos, cfg,
+                         window: int = 0, *, layout=None, page_table=None,
+                         write_mask=None, read_len=None):
     """One-token decode: x (B,1,d) against the cache at absolute position
-    ``pos``. Returns (out, cache) — the cache updated in place."""
-    layout = ContiguousLayout(window)
+    ``pos`` — a host int, or a (B,) tensor of per-slot positions. Returns
+    (out, cache) — the cache updated in place.
+
+    ``layout`` selects the storage (default ``ContiguousLayout(window)``,
+    with the sink row for per-slot positions);
+    a ``PagedLayout`` needs ``page_table`` (B, pages_per_slot). ``write_mask``
+    (B,) bool suppresses the KV write of inactive slots; ``read_len`` trims
+    the attended width (see ``PagedLayout.read``)."""
+    if layout is None:
+        layout = ContiguousLayout(window, sink=isinstance(pos, torch.Tensor))
     B = x.shape[0]
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        posb = pos[:, None]
+    else:
+        posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = gqa_project_qkv(attn, x, posb, cfg)
-    cache = layout.append(cache, k_new, v_new, pos)
-    valid = layout.validity(pos + 1, cache["k"].shape[1], x.device)
-    o = _attend_cache(q, cache["k"], cache["v"],
-                      valid.reshape(1, 1, 1, 1, -1))
+    cache = layout.append(cache, k_new, v_new, pos, page_table=page_table,
+                          write_mask=write_mask)
+    k_view, v_view = layout.read(cache, page_table=page_table,
+                                 read_len=read_len)
+    valid = layout.validity(pos + 1, k_view.shape[1], x.device)
+    o = _attend_cache(q, k_view, v_view, _valid_mask(valid, 5))
+    o = o.to(attn.wo.dtype)
+    return torch.einsum("bshgk,hgkd->bsd", o, attn.wo), cache
+
+
+def gqa_chunk_attention(attn: Attention, x, cache, slot: int, start: int,
+                        valid_len: int, cfg, *, layout, page_table=None,
+                        read_len=None):
+    """Chunked-prefill attention for ONE slot: x (1,C,d) holds prompt tokens
+    at absolute positions ``start..start+C-1`` (rows at or past
+    ``valid_len`` are padding). Appends the chunk's K/V to the cache, then
+    attends each chunk query over the slot's cache prefix (earlier chunks
+    and this one, causally). Returns (out (1,C,d), cache)."""
+    C = x.shape[1]
+    positions = start + torch.arange(C, dtype=torch.int32,
+                                     device=x.device)[None, :]
+    q, k_new, v_new = gqa_project_qkv(attn, x, positions, cfg)
+    cache = layout.append_chunk(cache, k_new[0], v_new[0], slot, start,
+                                valid_len, page_table=page_table)
+    k_slot, v_slot = layout.read_slot(cache, slot, page_table=page_table,
+                                      read_len=read_len)
+    # query i (position start+i) sees the rows at positions <= start+i;
+    # rows of this chunk past valid_len were dropped, so the query's own
+    # position bounds what it reads
+    q_abs = positions[0].long()
+    k_abs = torch.arange(k_slot.shape[0], device=x.device)
+    mask = (k_abs[None, :] <= q_abs[:, None])[None, :, None, None, :]
+    o = _attend_cache(q, k_slot[None], v_slot[None], mask)
     o = o.to(attn.wo.dtype)
     return torch.einsum("bshgk,hgkd->bsd", o, attn.wo), cache

@@ -64,7 +64,20 @@ def context_len_for(cfg: ModelConfig, prompt_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, context_len: int, *,
                window: int = 0, dtype=torch.bfloat16,
+               per_slot_pos: bool = False,
                metrics_spec: Optional[tuple] = None, device="cuda"):
+    """Empty contiguous decode cache on ``device`` (default the card);
+    ``per_slot_pos`` gives each of the ``batch`` slots its own position."""
     return transformer.init_cache(cfg, batch, context_len, window=window,
-                                  dtype=dtype, metrics_spec=metrics_spec,
-                                  device=resolve_device(device))
+                                  dtype=dtype, per_slot_pos=per_slot_pos,
+                                  metrics_spec=metrics_spec, device=device)
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     n_slots: int, *, dtype=torch.bfloat16,
+                     metrics_spec: Optional[tuple] = None, device="cuda"):
+    """Empty paged decode cache on ``device`` (default the card)."""
+    return transformer.init_paged_cache(cfg, n_pages, page_size, n_slots,
+                                        dtype=dtype,
+                                        metrics_spec=metrics_spec,
+                                        device=device)

@@ -1,14 +1,16 @@
 """Decoder-only transformer for the ``moe`` and ``dense`` families.
 
-Two entry modes, as in the JAX package: a full-sequence prefill that also
-fills the decode cache, and a one-token decode step against that cache.
-Layers run in a Python loop (the JAX package scans a layer-stacked tree).
+Three entry modes, as in the JAX package: a full-sequence prefill that
+also fills the decode cache, a one-token decode step against that cache,
+and a fixed-size prompt chunk of one slot (chunked prefill). Layers run in
+a Python loop (the JAX package scans a layer-stacked tree).
 
-The decode cache is a dict: ``"layers"`` (one {"k", "v"} (B, cap, Hkv, D)
-dict per layer, updated in place by decode steps), ``"pos"`` (a host int:
-the synchronized engine decodes the whole batch at one position) and
-``"metrics"`` (an ``obs.MetricsState``) or, with metrics off, a
-``"moe_overflow"`` running count.
+The decode cache is a dict: ``"layers"`` (one {"k", "v"} dict per layer in
+the layout's storage, updated in place by decode and chunk steps),
+``"pos"`` (a host int when the whole batch decodes at one position, or a
+(B,) int32 tensor of per-slot positions on the device for continuous
+batching) and ``"metrics"`` (an ``obs.MetricsState``) or, with metrics
+off, a ``"moe_overflow"`` running count.
 
 MoE sparsity is configured by one ``core.policy.SparsityPolicy`` argument
 (``None`` means ``NoDrop``); the JAX package carries it in a DistContext.
@@ -23,6 +25,7 @@ from torch import nn
 from ..core import drop as drop_mod
 from ..core import gating
 from ..core import moe as moe_mod
+from ..device import resolve_device
 from ..obs import MetricsState
 from . import attention as attn
 from . import layers as L
@@ -127,34 +130,33 @@ def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
             cache_dtype=cache_dtype)
     else:
         y = attn.gqa_attention(bp.attn, h, positions, cfg, window=window)
-    x = x + y
-    h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
-    overflow = _no_overflow(x)
-    if bp.moe is not None:
-        y, _, overflow = _moe_forward(bp.moe, h, cfg, policy,
-                                      collect=collect_stats)
-        x = x + y
-    else:
-        x = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
     return (x, cache_layer, overflow) if capture_cap else x
 
 
-def block_decode(bp: Block, x, cache_layer, pos: int, cfg, *,
-                 window: int = 0, policy=None, collect_stats: bool = False):
-    """One-token decode. Returns ``(x, cache_layer, moe_overflow)`` — the
-    obs stats dict in the third slot under ``collect_stats``."""
-    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-    y, cache_layer = attn.gqa_decode_attention(bp.attn, h, cache_layer, pos,
-                                               cfg, window)
-    x = x + y
+def _ffn(bp: Block, x, cfg, policy, collect_stats: bool):
+    """The block's second half: norm, then MoE or MLP, residual added.
+    Returns ``(x, moe_overflow or obs stats dict)``."""
     h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
-    overflow = _no_overflow(x)
-    if bp.moe is not None:
-        y, _, overflow = _moe_forward(bp.moe, h, cfg, policy,
-                                      collect=collect_stats)
-        x = x + y
-    else:
-        x = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
+    if bp.moe is None:
+        return x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind), _no_overflow(x)
+    y, _, overflow = _moe_forward(bp.moe, h, cfg, policy,
+                                  collect=collect_stats)
+    return x + y, overflow
+
+
+def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
+                 policy=None, layout=None, page_table=None, write_mask=None,
+                 read_len=None, collect_stats: bool = False):
+    """One-token decode at ``pos`` (host int or (B,) tensor). Returns
+    ``(x, cache_layer, moe_overflow)`` — the obs stats dict in the third
+    slot under ``collect_stats``. ``layout``/``page_table``/``write_mask``/
+    ``read_len`` select the KV storage (see ``gqa_decode_attention``)."""
+    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    y, cache_layer = attn.gqa_decode_attention(
+        bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
+        page_table=page_table, write_mask=write_mask, read_len=read_len)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
     return x, cache_layer, overflow
 
 
@@ -187,23 +189,33 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
     return x, cache
 
 
-def stack_decode(model: Transformer, x, cache, pos: int, cfg, *,
-                 window: int = 0, policy=None):
+def _with_step_stats(cache, new, outs):
+    """Fold one step's per-layer MoE outputs (obs stats dicts or overflow
+    counts) into the running total ``new`` carries on from ``cache`` —
+    device-side adds, no host sync."""
+    if "metrics" in cache:
+        new["metrics"] = cache["metrics"].accumulate(outs)
+    elif "moe_overflow" in cache:
+        new["moe_overflow"] = cache["moe_overflow"] + \
+            torch.stack(outs).sum(dtype=torch.int32)
+    return new
+
+
+def stack_decode(model: Transformer, x, cache, pos, cfg, *,
+                 window: int = 0, policy=None, layout=None, page_table=None,
+                 write_mask=None, read_len=None):
     """One-token decode through all blocks."""
     collect = "metrics" in cache
     new_layers, outs = [], []
     for bp, cl in zip(model.blocks, cache["layers"]):
         x, cl, of = block_decode(bp, x, cl, pos, cfg, window=window,
-                                 policy=policy, collect_stats=collect)
+                                 policy=policy, layout=layout,
+                                 page_table=page_table,
+                                 write_mask=write_mask, read_len=read_len,
+                                 collect_stats=collect)
         new_layers.append(cl)
         outs.append(of)
-    new = {"layers": new_layers}
-    if collect:                   # device-side accumulation, no host sync
-        new["metrics"] = cache["metrics"].accumulate(outs)
-    elif "moe_overflow" in cache:
-        new["moe_overflow"] = cache["moe_overflow"] + \
-            torch.stack(outs).sum(dtype=torch.int32)
-    return x, new
+    return x, _with_step_stats(cache, {"layers": new_layers}, outs)
 
 
 def _positions_for(B: int, S: int, offset: int, device):
@@ -241,32 +253,114 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
 
 
 def decode_step(model: Transformer, token, cache, cfg, *, window: int = 0,
-                policy=None):
-    """token: (B,1) -> (logits (B,1,vocab), new cache)."""
+                policy=None, layout=None, page_table=None, write_mask=None,
+                read_len=None):
+    """token: (B,1) -> (logits (B,1,vocab), new cache). ``cache["pos"]`` is
+    a host int shared by the batch or a (B,) tensor of per-slot positions;
+    ``layout``/``page_table`` select the KV storage and ``write_mask`` (B,)
+    suppresses the KV writes of inactive slots (their ``pos`` still
+    advances here: the engine owns per-slot positions)."""
     pos = cache["pos"]
     x = L.embed(model.embed, token)
     x, new_cache = stack_decode(model, x, cache, pos, cfg, window=window,
-                                policy=policy)
+                                policy=policy, layout=layout,
+                                page_table=page_table, write_mask=write_mask,
+                                read_len=read_len)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = L.unembed(model.embed, x)
     new_cache["pos"] = pos + 1
     return logits, new_cache
 
 
-def init_cache(cfg, batch: int, context_len: int, *, window: int = 0,
-               dtype=torch.bfloat16, metrics_spec=None, device="cpu"):
-    """Empty decode cache of KV capacity ``context_len`` (== window when
-    windowed); ``metrics_spec`` = (n_layers, n_sub_experts) adds a zeroed
-    ``MetricsState``."""
-    cap = min(window, context_len) if window else context_len
-    layout = attn.ContiguousLayout(window)
-    cache = {"layers": [layout.init(batch, cap, cfg.n_kv_heads,
-                                    cfg.resolved_head_dim, dtype, device)
-                        for _ in range(cfg.n_layers)],
-             "pos": 0}
+def chunk_block(bp: Block, x, cache_layer, slot: int, start: int,
+                valid_len: int, cfg, *, layout, page_table=None,
+                read_len=None, policy=None, collect_stats: bool = False):
+    """One block over a (1,C,d) prompt chunk of one slot, appending its K/V
+    to the cache. Returns ``(x, cache_layer, moe_overflow)`` — the obs
+    stats dict in the third slot under ``collect_stats``. Padding rows pass
+    through the MoE layer as in the JAX package (they route and count)."""
+    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    y, cache_layer = attn.gqa_chunk_attention(
+        bp.attn, h, cache_layer, slot, start, valid_len, cfg, layout=layout,
+        page_table=page_table, read_len=read_len)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
+    return x, cache_layer, overflow
+
+
+def chunk_step(model: Transformer, tokens, slot: int, start: int,
+               valid_len: int, cache, cfg, *, layout, page_table=None,
+               read_len=None, policy=None):
+    """Advance ONE slot's prompt by a fixed-size chunk.
+
+    tokens: (1, C) prompt tokens at absolute positions ``start..start+C-1``
+    (rows at or past ``valid_len`` are padding: their K/V writes are
+    dropped, their logits are garbage the caller ignores). Returns
+    ``(logits (1, C, vocab), cache)`` with ``cache["pos"][slot]`` set to
+    ``start + valid_len`` (a device-side write). gqa attention only."""
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError("chunked prefill requires gqa attention")
+    collect = "metrics" in cache
+    x = L.embed(model.embed, tokens)
+    new_layers, outs = [], []
+    for bp, cl in zip(model.blocks, cache["layers"]):
+        x, cl, of = chunk_block(bp, x, cl, slot, start, valid_len, cfg,
+                                layout=layout, page_table=page_table,
+                                read_len=read_len, policy=policy,
+                                collect_stats=collect)
+        new_layers.append(cl)
+        outs.append(of)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = L.unembed(model.embed, x)
+    cache["pos"][slot] = start + valid_len
+    new = _with_step_stats(cache, {"layers": new_layers, "pos": cache["pos"]},
+                           outs)
+    return logits, new
+
+
+def _obs_seam(cache, metrics_spec, device):
+    """A zeroed ``MetricsState`` (``metrics_spec`` = (n_layers, n_sub)) or,
+    without one, the ``moe_overflow`` running count."""
     if metrics_spec is not None:
         cache["metrics"] = MetricsState.zeros(*metrics_spec, device=device)
     else:
         cache["moe_overflow"] = torch.zeros((), dtype=torch.int32,
                                             device=device)
     return cache
+
+
+def init_cache(cfg, batch: int, context_len: int, *, window: int = 0,
+               dtype=torch.bfloat16, per_slot_pos: bool = False,
+               metrics_spec=None, device="cuda"):
+    """Empty decode cache of KV capacity ``context_len`` (== window when
+    windowed) on ``device`` (default the card). ``per_slot_pos`` makes
+    ``cache["pos"]`` a (batch,) int32 tensor so each slot decodes at its
+    own position, and gives each slot the layout's sink row (see
+    ``ContiguousLayout``); ``metrics_spec`` = (n_layers, n_sub_experts)
+    adds a zeroed ``MetricsState``."""
+    dev = resolve_device(device)
+    cap = min(window, context_len) if window else context_len
+    layout = attn.ContiguousLayout(window, sink=per_slot_pos)
+    cache = {"layers": [layout.init(batch, cap, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, dtype, dev)
+                        for _ in range(cfg.n_layers)],
+             "pos": (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                     if per_slot_pos else 0)}
+    return _obs_seam(cache, metrics_spec, dev)
+
+
+def init_paged_cache(cfg, n_pages: int, page_size: int, n_slots: int, *,
+                     dtype=torch.bfloat16, metrics_spec=None, device="cuda"):
+    """Empty PAGED decode cache on ``device`` (default the card): one
+    ``PagedLayout`` pool of ``n_pages`` pages (plus its sink page) per
+    layer, shared by all slots through the engine's page table (one
+    logical -> physical mapping for every layer). Page 0 is the
+    retired-slot page, never handed out. ``cache["pos"]`` is per slot."""
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError("paged KV requires gqa attention")
+    dev = resolve_device(device)
+    layout = attn.PagedLayout(page_size)
+    cache = {"layers": [layout.init(n_pages, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, dtype, dev)
+                        for _ in range(cfg.n_layers)],
+             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+    return _obs_seam(cache, metrics_spec, dev)

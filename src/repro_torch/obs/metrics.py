@@ -16,10 +16,12 @@ until ``snapshot()``, which engines call only at step boundaries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 STAT_KEYS = ("expert_load", "kept_full", "kept_major", "dropped_pairs",
              "overflow_pairs")
@@ -36,7 +38,9 @@ class MetricsState:
 
     @classmethod
     def zeros(cls, n_layers: int, n_sub: int,
-              device="cpu") -> "MetricsState":
+              device="cuda") -> "MetricsState":
+        """A zeroed accumulator on ``device`` (default the card)."""
+        device = resolve_device(device)
         z = torch.zeros((4,), dtype=torch.int32, device=device)
         return cls(expert_load=torch.zeros((n_layers, n_sub),
                                            dtype=torch.int32, device=device),
@@ -69,3 +73,13 @@ class MetricsState:
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Values on the host (the only device -> host transfer)."""
         return {k: getattr(self, k).cpu().numpy() for k in STAT_KEYS}
+
+
+def metrics_spec(cfg, model) -> Optional[Tuple[int, int]]:
+    """(n_layers, n_sub_experts) of a model's MoE stack — the shape of the
+    engine-wide ``MetricsState`` its steps add into (prepared weights
+    count their sub-experts) — or None for a model without MoE layers."""
+    if not cfg.is_moe:
+        return None
+    moes = [b.moe for b in model.blocks if b.moe is not None]
+    return (len(moes), int(moes[0].w1.shape[0])) if moes else None

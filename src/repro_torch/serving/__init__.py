@@ -1,6 +1,10 @@
-"""Serving: the unified request API and the synchronized-batch engine."""
+"""Serving: the unified request API, the synchronized-batch engine, the
+continuous-batching engine and the paged-KV engine."""
 from .api import EngineBase, GenerationConfig, Request, Result
-from .engine import ServingEngine
+from .engine import (ContinuousBatchingEngine, ServingEngine,
+                     exact_moe_policy, merge_policy_override)
+from .paged import PageAllocator, PagedEngine
 
 __all__ = ["EngineBase", "GenerationConfig", "Request", "Result",
-           "ServingEngine"]
+           "ServingEngine", "ContinuousBatchingEngine", "PagedEngine",
+           "PageAllocator", "exact_moe_policy", "merge_policy_override"]

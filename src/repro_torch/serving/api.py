@@ -120,10 +120,10 @@ class EngineBase:
       * ``_ready()`` — worth calling ``step()`` right now (default:
         ``_has_work()``); engines that batch by convoy return False until
         the convoy fills or ``self._flush`` is set.
-      * ``_trace_count()`` — warm-up calls so far (default 0): lets
-        ``step()`` attribute a step's wall time to warm-up (first calls:
-        kernel build and load, allocator growth) rather than steady
-        state.
+      * ``_warm(kind)`` — call before each prefill/decode/chunk call:
+        the first call of each kind is warm-up (kernel build and load,
+        allocator growth), and ``step()`` counts a step that made one as
+        warm-up time rather than steady state.
       * ``_device_metrics()`` — the engine's device-resident MetricsState
         (or None); ``_metrics_hook(snap)`` — add engine-specific series.
     """
@@ -142,6 +142,7 @@ class EngineBase:
         self._steady_s = 0.0
         self._compile_steps = 0
         self._steady_steps = 0
+        self._warmed: set = set()      # step kinds called at least once
 
     # -- clock ----------------------------------------------------------
 
@@ -164,8 +165,8 @@ class EngineBase:
     def _step(self) -> bool:
         raise NotImplementedError
 
-    def _trace_count(self) -> int:
-        return 0
+    def _warm(self, kind: str) -> None:
+        self._warmed.add(kind)
 
     def _device_metrics(self):
         return None
@@ -184,12 +185,12 @@ class EngineBase:
         """Advance the scheduler one iteration (traced + timed). A step
         that made a warm-up call counts as compile time; all others
         accumulate into the steady-state step time."""
-        n0 = self._trace_count()
+        n0 = len(self._warmed)
         t0 = time.perf_counter()
         with self.tracer.span("step", engine=type(self).__name__):
             out = self._step()
         dt = time.perf_counter() - t0
-        if self._trace_count() > n0:
+        if len(self._warmed) > n0:
             self._compile_s += dt
             self._compile_steps += 1
         else:

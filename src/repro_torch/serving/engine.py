@@ -1,21 +1,35 @@
-"""The synchronized-batch serving engine (paper §4).
+"""Serving engines for the DualSparse-MoE inference system (paper §4).
 
-``ServingEngine``: requests are grouped to a common (left-padded) prompt
-length, prefilled in one call, then decoded together at ONE shared
-absolute position. One ``step()`` serves one convoy batch to completion —
-the setting of the paper's efficiency evaluation.
+``ServingEngine`` — the synchronized-batch baseline: requests are grouped
+to a common (left-padded) prompt length, prefilled in one call, then
+decoded together at ONE shared absolute position. One ``step()`` serves
+one convoy batch to completion — the setting of the paper's efficiency
+evaluation.
+
+``ContinuousBatchingEngine`` — slot-based continuous batching: a fixed
+number of decode slots (the batch dimension of one decode step), an
+admission queue, per-slot positions (``cache["pos"]`` is an (n_slots,)
+tensor on the device), a prefill-insert that writes a new request's KV
+into a free slot, and per-request EOS/budget retirement that frees slots
+mid-decode for waiting requests. One ``step()`` is one admit + decode
+iteration. (``serving.paged.PagedEngine`` adds a paged KV cache, chunked
+prefill and prefix caching.)
 
 MoE sparsity is configured by one ``SparsityPolicy`` (``core.policy``:
 none/1t/2t); requests may override threshold values per request via
-``GenerationConfig.policy`` (same policy family). With ``exact_moe`` the
-MoE dispatch capacity is the token count, so no token-expert pair is ever
-dropped by overflow; overflow drops that do occur are counted and surfaced
-via ``engine.overflow_pairs``.
+``GenerationConfig.policy`` (same policy family). The slot engines stack
+each slot's threshold values into (n_slots,) tensors, so mixed-threshold
+traffic decodes in one step. With ``exact_moe`` (the slot engines'
+default) the MoE dispatch capacity is the token count, so no token-expert
+pair is ever dropped by overflow and each request's tokens are independent
+of what it is batched with; overflow drops that do occur are counted and
+surfaced via ``engine.overflow_pairs``.
 
-PyTorch runs eagerly, so there are no traces to count: the engine's
-``prefill_traces``/``decode_traces`` count first calls (warm-up: kernel
-build and load, allocator growth), so ``timing`` reports the first step as
-warm-up (``compile_s``) and the rest as steady state.
+PyTorch runs eagerly, so there are no traces to count: the first call of
+each step kind (warm-up: kernel build and load, allocator growth) makes
+``timing`` report its step as warm-up (``compile_s``), the rest as steady
+state. Decode steps read back only the greedy tokens; positions, page
+tables and metrics stay on the device.
 """
 from __future__ import annotations
 
@@ -30,8 +44,83 @@ from ..configs.base import ModelConfig
 from ..core.policy import NoDrop, SparsityPolicy, merge_policy_override
 from ..device import resolve_device
 from ..models import model as M
-from ..obs import MetricsSnapshot
+from ..models import transformer
+from ..obs import MetricsSnapshot, metrics_spec
 from .api import EngineBase, GenerationConfig, Request, Result  # noqa: F401
+
+__all__ = ["ServingEngine", "ContinuousBatchingEngine", "exact_moe_policy",
+           "merge_policy_override", "SlotPolicies", "sample_token"]
+
+
+def exact_moe_policy(policy: Optional[SparsityPolicy]) -> SparsityPolicy:
+    """``policy`` (``NoDrop`` when None) with its ``exact_capacity`` hint
+    set: the dispatch capacity is the token count, so no token-expert pair
+    is dropped by overflow and outputs are batch-composition-invariant."""
+    return dataclasses.replace(policy if policy is not None else NoDrop(),
+                               exact_capacity=True)
+
+
+def sample_token(logits_row, gen: GenerationConfig, uid: int, n: int) -> int:
+    """A token sampled at ``gen.temperature`` from one row of logits, with a
+    generator seeded by (seed, uid, n): the same request samples the same
+    tokens in every run (the JAX package's draws differ)."""
+    g = torch.Generator(device=logits_row.device)
+    g.manual_seed(hash((gen.seed, uid, n)) & (2 ** 63 - 1))
+    probs = torch.softmax(logits_row.float() / gen.temperature, dim=-1)
+    return int(torch.multinomial(probs, 1, generator=g)[0])
+
+
+class SlotPolicies:
+    """Per-slot threshold values of an engine's base policy: an
+    (n_thresholds, n_slots) float32 table on the host, uploaded to the
+    device only after a slot's values change. Requests may override the
+    values (same policy family), never the base policy's hints."""
+
+    def __init__(self, base: SparsityPolicy, n_slots: int,
+                 device: torch.device):
+        self.base = base
+        self.device = device
+        self._base_vals = self._values(base)
+        self._vals = np.tile(self._base_vals[:, None], (1, n_slots))
+        self._dev = None
+
+    @staticmethod
+    def _values(policy: SparsityPolicy) -> np.ndarray:
+        return np.asarray([float(v) for v in policy.thresholds()],
+                          np.float32)
+
+    def validate(self, gen: GenerationConfig) -> None:
+        if gen.policy is not None:
+            merge_policy_override(self.base, gen.policy)   # same family
+
+    def values(self, gen: GenerationConfig) -> np.ndarray:
+        """A request's threshold values (the base values without an
+        override)."""
+        if gen.policy is None:
+            return self._base_vals
+        return self._values(gen.policy)
+
+    def _with(self, leaves) -> SparsityPolicy:
+        return dataclasses.replace(self.base, **dict(zip(
+            self.base._dynamic, leaves)))
+
+    def request_policy(self, gen: GenerationConfig) -> SparsityPolicy:
+        """The base policy with the request's values as 0-d device tensors
+        (prefill of one request)."""
+        vals = torch.from_numpy(self.values(gen)).to(self.device)
+        return self._with(list(vals))
+
+    def assign(self, slot: int, gen: Optional[GenerationConfig]) -> None:
+        """Set a slot's values to a request's (the base values for None)."""
+        self._vals[:, slot] = (self._base_vals if gen is None
+                               else self.values(gen))
+        self._dev = None
+
+    def stacked(self) -> SparsityPolicy:
+        """The base policy with (n_slots,) threshold tensors (decode)."""
+        if self._dev is None:
+            self._dev = torch.from_numpy(self._vals.copy()).to(self.device)
+        return self._with(list(self._dev))
 
 
 class ServingEngine(EngineBase):
@@ -46,18 +135,14 @@ class ServingEngine(EngineBase):
                  metrics: bool = True, device="cuda"):
         super().__init__(metrics=metrics)
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model is on {model.device}, engine device is "
-                             f"{self.device}")
+        _check_model_device(model, self.device)
         self.cfg = cfg
         self.model = model
         self.batch_size = batch_size
         self.window = window
         self.pad_token = pad_token
         if exact_moe and cfg.is_moe:
-            policy = dataclasses.replace(
-                policy if policy is not None else NoDrop(),
-                exact_capacity=True)
+            policy = exact_moe_policy(policy)
         self.policy = policy
         self.cache_dtype = cache_dtype
         # device-resident MetricsState summed over served batches (one add
@@ -66,21 +151,16 @@ class ServingEngine(EngineBase):
         self._dev_metrics = None
         self.context_len = M.context_len_for(cfg, max_prompt_len,
                                              max_new_tokens)
-        # first-call (warm-up) counters; see the module docstring
-        self.prefill_traces = 0
-        self.decode_traces = 0
 
     def _prefill(self, batch, policy):
-        if self.prefill_traces == 0:
-            self.prefill_traces = 1
+        self._warm("prefill")
         return M.make_prefill_step(
             self.cfg, cache_len=self.context_len, window=self.window,
             policy=policy, cache_dtype=self.cache_dtype,
             metrics=self.metrics_enabled)(self.model, batch)
 
     def _serve(self, token, cache, policy):
-        if self.decode_traces == 0:
-            self.decode_traces = 1
+        self._warm("decode")
         return M.make_serve_step(self.cfg, window=self.window,
                                  policy=policy)(self.model, token, cache)
 
@@ -121,9 +201,6 @@ class ServingEngine(EngineBase):
         return (type(gen.policy),
                 tuple(torch.as_tensor(v).tolist()
                       for v in gen.policy.thresholds()))
-
-    def _trace_count(self) -> int:
-        return self.prefill_traces + self.decode_traces
 
     def _device_metrics(self):
         return self._dev_metrics
@@ -206,9 +283,277 @@ class ServingEngine(EngineBase):
         toks = greedy.clone()
         for i, g in enumerate(gens):
             if g.temperature > 0:
-                gen = torch.Generator(device=logits.device)
-                gen.manual_seed(hash((g.seed, uids[i], step)) & (2 ** 63 - 1))
-                probs = torch.softmax(logits[i, -1].float() / g.temperature,
-                                      dim=-1)
-                toks[i, 0] = torch.multinomial(probs, 1, generator=gen)[0]
+                toks[i, 0] = sample_token(logits[i, -1], g, uids[i], step)
         return toks
+
+
+def _check_model_device(model, device: torch.device) -> None:
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, engine device is "
+                         f"{device}")
+
+
+@dataclasses.dataclass
+class _SlotState:
+    uid: int
+    gen: GenerationConfig
+    n_emitted: int = 0
+
+
+class SlotEngineBase(EngineBase):
+    """What the slot engines share: slots, per-slot policies, emission,
+    retirement, the batched decode step and its sampling."""
+
+    def __init__(self, cfg: ModelConfig, model, *, n_slots: int,
+                 max_prompt_len: int, max_new_tokens: int, pad_token: int,
+                 policy: Optional[SparsityPolicy], exact_moe: bool,
+                 metrics: bool, device):
+        super().__init__(metrics=metrics)
+        self.device = resolve_device(device)
+        _check_model_device(model, self.device)
+        self.cfg = cfg
+        self.model = model
+        self.n_slots = n_slots
+        self.pad_token = pad_token
+        self.max_prompt_len = max_prompt_len
+        self.max_new_tokens = max_new_tokens
+        if exact_moe and cfg.is_moe:
+            policy = exact_moe_policy(policy)
+        self.policy = policy
+        self._slot_pol = (SlotPolicies(policy, n_slots, self.device)
+                          if policy is not None else None)
+        self._metrics_spec = metrics_spec(cfg, model) if metrics else None
+        self._slots: List = [None] * n_slots
+        self._last = np.full((n_slots, 1), pad_token, np.int32)
+        self._active = np.zeros((n_slots,), bool)
+        # scheduler stats
+        self.n_admitted = 0
+        self.n_retired = 0
+        self.max_concurrency = 0
+        self.decode_steps = 0
+
+    def _validate(self, req: Request) -> None:
+        if len(np.asarray(req.prompt)) > self.max_prompt_len:
+            raise ValueError(
+                f"prompt length {len(np.asarray(req.prompt))} exceeds engine "
+                f"max_prompt_len {self.max_prompt_len}")
+        if req.gen.max_new_tokens > self.max_new_tokens:
+            raise ValueError(
+                f"request max_new_tokens {req.gen.max_new_tokens} "
+                f"exceeds engine budget {self.max_new_tokens}")
+        if req.gen.policy is not None:
+            if self._slot_pol is None:
+                raise ValueError("per-request policy override requires an "
+                                 "engine built with a base policy")
+            self._slot_pol.validate(req.gen)
+
+    def _request_policy(self, gen: GenerationConfig):
+        if self._slot_pol is None:
+            return self.policy
+        return self._slot_pol.request_policy(gen)
+
+    def _stacked_policy(self):
+        if self._slot_pol is None:
+            return self.policy
+        return self._slot_pol.stacked()
+
+    def _tokens(self, values) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(values)).long().to(self.device)
+
+    def _free_slot_hook(self, slot: int) -> None:
+        """Release a retiring slot's engine-specific resources."""
+
+    def _retire(self, slot: int) -> None:
+        st = self._slots[slot]
+        self._results[st.uid].finished_s = self._now()
+        self.tracer.instant("retire", uid=st.uid, slot=slot,
+                            n_tokens=st.n_emitted)
+        self._free_slot_hook(slot)
+        self._slots[slot] = None
+        self._active[slot] = False
+        self._last[slot, 0] = self.pad_token
+        if self._slot_pol is not None:
+            self._slot_pol.assign(slot, None)
+        self.n_retired += 1
+
+    def _emit(self, slot: int, token: int) -> None:
+        """Record one generated token for the slot's request; retire on EOS
+        or budget exhaustion (the EOS token itself is emitted)."""
+        st = self._slots[slot]
+        self._record_token(st.uid, token)
+        st.n_emitted += 1
+        if token == st.gen.eos_token or st.n_emitted >= st.gen.max_new_tokens:
+            self._retire(slot)
+
+    def _decode_call(self, **layout_kw):
+        """One batched decode step over every slot (inactive slots hold
+        their position). Returns (last logits (n_slots, vocab), greedy)."""
+        self._warm("decode")
+        cache = self._cache
+        active = torch.from_numpy(self._active).to(self.device)
+        with torch.no_grad():
+            logits, new = transformer.decode_step(
+                self.model, self._tokens(self._last), cache, self.cfg,
+                policy=self._stacked_policy(), **layout_kw)
+        new["pos"] = torch.where(active, new["pos"], cache["pos"])
+        self._cache = new
+        return logits[:, -1], torch.argmax(logits[:, -1], dim=-1)
+
+    def _decode_active(self, decoding, **layout_kw) -> None:
+        """Decode one step and emit a token for every slot in
+        ``decoding`` — greedy, or sampled at the request's temperature."""
+        with self.tracer.span("decode", batch=int(self._active.sum())):
+            logits, greedy = self._decode_call(**layout_kw)
+            greedy_np = greedy.cpu().numpy()    # the step's one read-back
+        self.decode_steps += 1
+        for slot in decoding:
+            st = self._slots[slot]
+            if st.gen.temperature > 0:
+                tok = sample_token(logits[slot], st.gen, st.uid,
+                                   st.n_emitted)
+            else:
+                tok = int(greedy_np[slot])
+            self._last[slot, 0] = tok
+            self._emit(slot, tok)
+
+    def reset_stats(self):
+        """Zero the scheduler statistics (after a warm-up run, say)."""
+        self.n_admitted = self.n_retired = 0
+        self.max_concurrency = 0
+        self.decode_steps = 0
+
+    def _device_metrics(self):
+        return self._cache.get("metrics")
+
+    @property
+    def overflow_pairs(self) -> int:
+        """Token-expert pairs dropped by capacity overflow since the engine
+        was built (0 under ``exact_moe``): one scalar read-back."""
+        m = self._device_metrics()
+        if m is not None:
+            return int(m.overflow_pairs)
+        if "moe_overflow" in self._cache:
+            return int(self._cache["moe_overflow"])
+        return 0
+
+    @property
+    def free_slots(self) -> int:
+        return sum(s is None for s in self._slots)
+
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
+
+class ContinuousBatchingEngine(SlotEngineBase):
+    """Slot-based continuous-batching engine on ``device`` (default the
+    card; the model must live there).
+
+    * ``n_slots`` decode slots form the fixed batch of one decode step.
+    * Prompts are right-padded to ``max_prompt_len`` and prefilled one
+      request at a time by a prefill-insert that writes the request's KV
+      into a free slot's rows of the shared cache and emits its first
+      greedy token; ``cache["pos"]`` holds per-slot positions, so requests
+      at different depths decode together.
+    * A request retires on EOS or budget exhaustion, freeing its slot for
+      the next queued request — mid-decode admission.
+
+    Right-padding is exact for causal attention (pad K/V sits after every
+    real token and is masked by per-slot validity until overwritten), so
+    sliding-window (ring) caches are not supported here.
+    """
+
+    def __init__(self, cfg: ModelConfig, model, *, n_slots: int = 8,
+                 max_prompt_len: int = 512, max_new_tokens: int = 128,
+                 pad_token: int = 0, policy: Optional[SparsityPolicy] = None,
+                 exact_moe: bool = True, cache_dtype=torch.bfloat16,
+                 metrics: bool = True, device="cuda"):
+        super().__init__(cfg, model, n_slots=n_slots,
+                         max_prompt_len=max_prompt_len,
+                         max_new_tokens=max_new_tokens, pad_token=pad_token,
+                         policy=policy, exact_moe=exact_moe, metrics=metrics,
+                         device=device)
+        self.cache_dtype = cache_dtype
+        self.context_len = M.context_len_for(cfg, max_prompt_len,
+                                             max_new_tokens)
+        self._cache = M.init_cache(cfg, n_slots, self.context_len,
+                                   per_slot_pos=True, dtype=cache_dtype,
+                                   metrics_spec=self._metrics_spec,
+                                   device=self.device)
+
+    def _has_work(self) -> bool:
+        return bool(self._queue) or bool(self._active.any())
+
+    def _prefill_insert(self, tokens, valid_len: int, slot: int, policy):
+        """Prefill one right-padded prompt and insert its KV rows into
+        ``slot``; the request's MoE stats add into the engine's. Returns
+        the first greedy token (a device scalar)."""
+        self._warm("prefill")
+        with torch.no_grad():
+            logits, small = transformer.prefill(
+                self.model, {"tokens": tokens}, self.cfg,
+                cache_len=self.context_len, policy=policy,
+                cache_dtype=self.cache_dtype, metrics=self.metrics_enabled)
+        cache = self._cache
+        n = self.context_len                 # the slot's rows, sink row off
+        for big, sm in zip(cache["layers"], small["layers"]):
+            big["k"][slot, :n] = sm["k"][0]
+            big["v"][slot, :n] = sm["v"][0]
+        cache["pos"][slot] = valid_len
+        if "metrics" in cache and "metrics" in small:
+            cache["metrics"] = cache["metrics"] + small["metrics"]
+        elif "moe_overflow" in cache and "moe_overflow" in small:
+            cache["moe_overflow"] = cache["moe_overflow"] + \
+                small["moe_overflow"]
+        return torch.argmax(logits[0, valid_len - 1])
+
+    def _admit(self) -> int:
+        """Move queued requests into free slots (one prefill-insert each).
+        A request whose first token already ends it retires at once."""
+        admitted = 0
+        for slot in range(self.n_slots):
+            if not self._queue:
+                break
+            if self._slots[slot] is not None:
+                continue
+            uid, req = self._queue.popleft()
+            toks = np.full((1, self.max_prompt_len), self.pad_token,
+                           np.int32)
+            toks[0, :len(req.prompt)] = req.prompt
+            if self._slot_pol is not None:
+                self._slot_pol.assign(slot, req.gen)
+            t0 = time.perf_counter()
+            with self.tracer.span("prefill_insert", uid=uid, slot=slot,
+                                  prompt_len=len(req.prompt)):
+                first = int(self._prefill_insert(
+                    self._tokens(toks), len(req.prompt), slot,
+                    self._request_policy(req.gen)))
+            self._results[uid].prefill_s = time.perf_counter() - t0
+            self._slots[slot] = _SlotState(uid=uid, gen=req.gen)
+            self._active[slot] = True
+            self._last[slot, 0] = first
+            self._emit(slot, first)
+            admitted += 1
+            self.n_admitted += 1
+        self.max_concurrency = max(self.max_concurrency,
+                                   int(self._active.sum()))
+        return admitted
+
+    def _step(self) -> bool:
+        """One scheduler iteration: admit waiting requests into free slots,
+        then one batched decode step over all slots. Returns True while
+        there is (or may be) work left."""
+        self._admit()
+        if not self._active.any():
+            return bool(self._queue)
+        self._decode_active([s for s in range(self.n_slots)
+                             if self._slots[s] is not None])
+        return True
+
+    def _metrics_hook(self, snap) -> None:
+        snap.gauge("repro_engine_slots", float(self.n_slots))
+        snap.gauge("repro_engine_free_slots", float(self.free_slots))
+        snap.counter("repro_engine_decode_steps_total",
+                     float(self.decode_steps))
+        snap.counter("repro_requests_admitted_total", float(self.n_admitted))
+        snap.counter("repro_requests_retired_total", float(self.n_retired))

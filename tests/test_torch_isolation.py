@@ -41,8 +41,10 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_package_found():
     assert len(PORT_FILES) > 20
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-            / "fused_moe_pipeline.cu").exists()
+    for name in ("fused_moe_pipeline.cu", "grouped_swiglu.cu",
+                 "swiglu_tiles.cuh"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / name).exists()
 
 
 @pytest.fixture
@@ -52,10 +54,15 @@ def no_cuda(monkeypatch):
 
 def test_default_device_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import calibration_activations
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    from repro_torch.serving import GenerationConfig, ServingEngine
+    from repro_torch.models import transformer as TT
+    from repro_torch.obs import MetricsState
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationConfig, PagedEngine,
+                                     ServingEngine)
     cfg = get_config("qwen3-moe-30b-a3b").reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
@@ -63,15 +70,26 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         M.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_cache(cfg, 1, 8)
-    model = M.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        ServingEngine(cfg, model)
+        M.init_paged_cache(cfg, 4, 4, 1)
+    for helper in (lambda: TT.init_cache(cfg, 1, 8),
+                   lambda: TT.init_paged_cache(cfg, 4, 4, 1),
+                   lambda: MetricsState.zeros(1, 4),
+                   lambda: calibration_activations(
+                       np.random.default_rng(0), 4, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            helper()
+    model = M.init_params(cfg, device="cpu")
+    for engine in (ServingEngine, ContinuousBatchingEngine, PagedEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine(cfg, model)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--requests", "1"])
-    eng = ServingEngine(cfg, model, device="cpu", max_prompt_len=4,
-                        max_new_tokens=2)
-    out = eng.generate([np.arange(4)], GenerationConfig(max_new_tokens=2))
-    assert len(out[0].tokens) == 2
+    for engine in (ServingEngine, ContinuousBatchingEngine, PagedEngine):
+        eng = engine(cfg, model, device="cpu", max_prompt_len=4,
+                     max_new_tokens=2)
+        out = eng.generate([np.arange(4)], GenerationConfig(max_new_tokens=2))
+        assert len(out[0].tokens) == 2
 
 
 def test_kernel_wrapper_has_no_fallback():
@@ -89,6 +107,11 @@ def test_kernel_wrapper_has_no_fallback():
                                torch.zeros((4,), device="meta"),
                                capacity=2, p_factor=1)
     assert ops.fused_moe_pipeline_ref.calls == calls
+    calls = ops.grouped_swiglu_ref.calls
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.grouped_swiglu(torch.zeros((2, 3, 4), device="meta"), w, w, w,
+                           i, i)
+    assert ops.grouped_swiglu_ref.calls == calls
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -187,4 +187,18 @@ def test_serve_cli_reduced_on_cpu(capsys, tmp_path):
     assert '"repro_moe_subpairs_total{outcome=\\"kept_major\\"}"' in out
     assert trace.exists()
     with pytest.raises(SystemExit):
-        serve.main(["--reduced", "--device", "cpu", "--engine", "paged"])
+        serve.main(["--reduced", "--device", "cpu", "--engine", "convoy"])
+
+
+@pytest.mark.parametrize("engine", ["continuous", "paged"])
+def test_serve_cli_slot_engines_on_cpu(capsys, engine):
+    from repro_torch.launch import serve
+    results = serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                          "--device", "cpu", "--engine", engine,
+                          "--requests", "3", "--prompt-len", "8",
+                          "--new-tokens", "3", "--slots", "2",
+                          "--page-size", "4", "--chunk-size", "4",
+                          "--policy", "2t"])
+    out = capsys.readouterr().out
+    assert len(results) == 3 and all(len(r.tokens) == 3 for r in results)
+    assert "served 3 requests" in out and "slots=2 admitted=3" in out

@@ -197,3 +197,35 @@ def test_per_token_and_capacity_hints():
     for cap_args in [(64, 16, 256, 2.0), (8, 16, 256, 2.0), (100, 6, 64, 1.25),
                      (1, 2, 8, 1.25)]:
         assert tmoe.capacity_for(*cap_args) == jmoe.capacity_for(*cap_args)
+
+
+@pytest.mark.parametrize("mode_grouped", [True, False])
+@pytest.mark.parametrize("capacity", [None, 8])
+def test_moe_buffer_kernel_path_matches_jax(mode_grouped, capacity):
+    """The buffer path through the grouped SwiGLU kernel
+    (``use_kernel=True, fused_pipeline=False``: the port's plain version vs
+    the JAX kernel in interpret mode), over ORIGINAL-expert buffers with
+    minor-half skipping (``mode_grouped``) or sub-expert buffers; capacity
+    8 overflows, and the overflow counts (sub-pair units) must be equal."""
+    cfg, jcfg = _cfgs("olmoe-lite")
+    params, x, calib = _layer(cfg, seed=31, sharp=12.0)
+    jp, prep_j, tp, prep_t = _prepared("2t", cfg, jcfg, params, calib)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    pairs_j = jp.route(prep_j, xj, jcfg)
+    pairs_t = tp.route(prep_t, xt, cfg)
+    kw = dict(capacity_factor=jp.capacity_factor, capacity=capacity,
+              return_overflow=True, mode_grouped=mode_grouped,
+              use_kernel=True, fused_pipeline=False)
+    y_j, of_j = jmoe.moe_forward_dispatch(prep_j, xj, jcfg, pairs=pairs_j,
+                                          **kw)
+    from repro_torch.kernels import ops as tops
+    calls = tops.grouped_swiglu_ref.calls
+    y_t, of_t = tmoe.moe_forward_dispatch(prep_t, xt, cfg, pairs=pairs_t,
+                                          **kw)
+    assert tops.grouped_swiglu_ref.calls == calls + 1
+    assert int(of_t) == int(of_j)
+    assert (int(of_t) > 0) == (capacity == 8)
+    _close(y_t, y_j)
+    if capacity is None:
+        y_ref = tmoe.moe_forward_ref(prep_t, xt, cfg, pairs=pairs_t)
+        _close(y_t, y_ref)
