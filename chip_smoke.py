@@ -19,9 +19,22 @@
    expert FFN is the grouped SwiGLU kernel; then the same requests on the
    fused route, and the share of greedy tokens the two routes agree on.
 
+6. Kernels: the intra-chunk SSD of Mamba2 (``ssd_chunk``) against its
+   plain version at the shapes the Mamba2 and Zamba2 prefills give it,
+   at Q = 128 and at the JAX kernel tests' odd shape.
+7. Serve: Mamba2-370m at full width and full depth (48 layers, seeded
+   random weights) through ``ServingEngine``: 8 requests x 512-token
+   prompts x 16 new tokens, greedy. Every layer's prefill SSD goes through
+   the kernel; decode is the plain O(1) state update.
+8. Serve: Zamba2-7B at full width and full depth (81 Mamba2 layers, the
+   shared attention + MLP block before every 6th: 14 occurrences) through
+   ``ServingEngine``: 8 requests x 384-token prompts x 16 new tokens.
+
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
-kernel's plain version and the dense oracle.
+kernel's plain version and the dense oracle; phases 7 and 8 hold the first
+Mamba2 layer's SSD on real hidden states, through the kernel, against the
+plain chunked SSD and the sequential-scan oracle.
 
 Each serving path runs with every kernel's launch count and every plain
 version's call count set to 0 just before it and read just after.
@@ -50,8 +63,13 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 REL_TOL = 1e-5          # float32: the same products summed in another order
+DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
+# the first Mamba2 layer's SSD through the kernel against the sequential
+# scan: 384-512 float32 decay products per step against exp of cumsums
+# accumulated in float64 (1.5e-6 to 4.5e-6 measured on the CPU)
+ORACLE_TOL = 5e-5
 N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
-KERNELS = ("fused_moe_pipeline", "grouped_swiglu")
+KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk")
 
 
 def log(msg: str) -> None:
@@ -744,6 +762,226 @@ def paged_phase(dev, cfg, model, calib):
     return st
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the intra-chunk SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def ssd_bound(BH: int, nc: int, Q: int, P: int, N: int):
+    """(bound_ms, bound_by, flops, bytes) of one ssd_chunk call: each
+    input read once and each output written once over the HBM rate; the
+    lower triangle's C·Bᵀ and M·x products (Q(Q+1)/2 pairs, 2(N+P) FLOPs
+    each) and the states product (2·N·P·Q) per chunk over the float32
+    rate; the larger of the two."""
+    chunks = BH * nc
+    nbytes = 4 * (chunks * Q * (2 * P + 2 * N + 1) + BH
+                  + chunks * (N * P + 1))
+    flops = chunks * (Q * (Q + 1) // 2 * 2 * (N + P) + 2 * N * P * Q)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def norm_rel(got, want) -> float:
+    """Norm-relative error; 0 when both are all zeros (inputs whose chunk
+    decays fall below float32's range)."""
+    scale = float(want.double().norm())
+    diff = float((got.double() - want.double()).norm())
+    if scale == 0:
+        return 0.0 if diff == 0 else float("inf")
+    return diff / scale
+
+
+def ssd_phase(dev):
+    """``ssd_chunk`` against its plain version at the prefill shapes of
+    the two serve phases (8 x 512 tokens of Mamba2-370m: BH 8 x 32 heads,
+    2 chunks of 256, P 64, N 128; 8 x 384 tokens of Zamba2-7B: BH 8 x 112,
+    one whole and one padded chunk, N 64), at Q = 128, and at the JAX
+    kernel tests' odd shape. Inputs as those tests draw them:
+    dt = softplus(N(0, 1)), a = -exp(0.5 N(0, 1))."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    cases = [("mamba2-370m", (256, 2, 256, 64, 128)),
+             ("zamba2-7b", (896, 2, 256, 64, 64)),
+             ("q128", (256, 4, 128, 64, 128)),
+             ("jax_odd", (1, 5, 16, 8, 8))]
+    results = []
+    for name, (BH, nc, Q, P, N) in cases:
+        args = (randn(BH, nc, Q, P), F.softplus(randn(BH, nc, Q)),
+                -torch.exp(randn(BH) * 0.5), randn(BH, nc, Q, N),
+                randn(BH, nc, Q, N))
+        out1 = ops.ssd_chunk(*args)
+        out2 = ops.ssd_chunk(*args)
+        ref = ops.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        rel = {k: norm_rel(o, r) for k, o, r in zip(
+            ("y", "states", "decay"), out1, ref)}
+        max_abs = max(float((o - r).abs().max()) for o, r in zip(out1, ref))
+        stable = all(torch.equal(a, b) for a, b in zip(out1, out2))
+        finite = all(bool(torch.isfinite(o).all()) for o in out1)
+        ms = cuda_ms(lambda: ops.ssd_chunk(*args), 20)
+        plain_ms = cuda_ms(lambda: ops.ssd_chunk_ref(*args), 5)
+        bound_ms, bound_by, flops, nbytes = ssd_bound(BH, nc, Q, P, N)
+        res = dict(case=name, BH=BH, nc=nc, Q=Q, P=P, N=N, rel_err=rel,
+                   max_abs_err=max_abs, bit_stable=stable, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=flops, bytes=nbytes)
+        results.append(res)
+        log(f"  ssd_chunk[{name}] BH={BH} nc={nc} Q={Q} P={P} N={N} "
+            f"rel_err y={rel['y']:.3e} states={rel['states']:.3e} "
+            f"decay={rel['decay']:.3e} max_abs={max_abs:.3e} "
+            f"bit_stable={stable} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if not (rel["y"] <= REL_TOL and rel["states"] <= REL_TOL
+                and rel["decay"] <= DECAY_TOL and stable and finite):
+            raise AssertionError(f"ssd_chunk[{name}] disagrees with its "
+                                 f"plain version: {rel} (bars {REL_TOL} / "
+                                 f"decay {DECAY_TOL}) bit_stable={stable} "
+                                 f"finite={finite}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: serve Mamba2-370m and Zamba2-7B
+# ---------------------------------------------------------------------------
+
+def mamba_layer0_check(label: str, model, cfg, tokens) -> dict:
+    """The first Mamba2 layer's SSD on the real hidden states of ``tokens``
+    (for the hybrid: after the first shared-block occurrence), at the
+    prefill's chunk of 256: through the kernel (``ssd_chunked_kernel``)
+    against the plain chunked SSD (bar REL_TOL) and the sequential-scan
+    oracle (bar ORACLE_TOL), on y and the final state."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as mm
+    from repro_torch.models import transformer as T_
+    with torch.no_grad():
+        x, pos = T_.embed_inputs(model, {"tokens": tokens}, cfg)
+        if cfg.family == "hybrid":
+            sh = model.shared_attn
+            x = x + attention.gqa_attention(
+                sh.attn, L.rms_norm(x, sh.ln1, cfg.norm_eps), pos, cfg)
+            x = x + L.apply_mlp(sh.mlp, L.rms_norm(x, sh.ln2, cfg.norm_eps),
+                                cfg.mlp_kind)
+            blk = model.mamba_blocks[0]
+        else:
+            blk = model.blocks[0]
+        _, _, args = mm.ssd_inputs(blk.mamba, L.rms_norm(x, blk.ln1,
+                                                         cfg.norm_eps), cfg)
+        y_k, h_k = mm.ssd_chunked_kernel(*args, chunk=256)
+        y_p, h_p = mm.ssd_chunked(*args, chunk=256)
+        y_r, h_r = mm.ssd_reference(*args)
+    res = dict(S=int(tokens.shape[1]),
+               rel_err_vs_plain=max(norm_rel(y_k, y_p), norm_rel(h_k, h_p)),
+               rel_err_vs_oracle=max(norm_rel(y_k, y_r), norm_rel(h_k, h_r)),
+               max_abs_err_vs_plain=max(float((y_k - y_p).abs().max()),
+                                        float((h_k - h_p).abs().max())))
+    log(f"  layer-0 SSD on {label}: kernel route vs ssd_chunked rel_err "
+        f"{res['rel_err_vs_plain']:.3e}, vs the sequential oracle "
+        f"{res['rel_err_vs_oracle']:.3e} (y and final state)")
+    if not (res["rel_err_vs_plain"] <= REL_TOL
+            and res["rel_err_vs_oracle"] <= ORACLE_TOL
+            and torch.isfinite(y_k).all()):
+        raise AssertionError(f"layer-0 SSD on {label} disagrees with its "
+                             f"references")
+    return res
+
+
+def recurrent_serve_phase(dev, arch: str, S: int):
+    """``arch`` at full width and depth through ``ServingEngine``: 8
+    requests x ``S``-token prompts (equal lengths: no left padding) x 16
+    new tokens, greedy; a warm-up engine first, then the measured run with
+    the counts zeroed just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.serving import GenerationConfig, ServingEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  config {arch}: d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} SSM heads x P {cfg.ssm_head_dim}, N "
+        f"{cfg.ssm_state}, {cfg.n_layers} Mamba2 layers"
+        + (f", shared block ({cfg.n_heads} heads x {cfg.resolved_head_dim}, "
+           f"d_ff {cfg.d_ff}) before every {cfg.attn_every}th"
+           if cfg.family == "hybrid" else "")
+        + f", vocab {cfg.vocab_size}; full depth, seeded random weights; "
+        f"init {time.perf_counter() - t0:.2f}s, {n_params / 1e9:.2f} B "
+        f"float32 parameters")
+    B, NEW = 8, 16
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [src.sample_batch(rng, 1, S)["tokens"][0] for _ in range(B)]
+    kw = dict(batch_size=B, max_prompt_len=S, max_new_tokens=NEW, device=dev)
+    ServingEngine(cfg, model, **kw).generate(
+        prompts, GenerationConfig(max_new_tokens=2))          # warm-up
+    eng = ServingEngine(cfg, model, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, GenerationConfig(max_new_tokens=NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["ssd_chunk"]["launches"]
+    plain_calls = sum(c["plain_calls"] for c in counts.values())
+    n_tok = sum(len(r.tokens) for r in results)
+    decode_steps = NEW - 1
+    serve = dict(
+        arch=arch, layers=cfg.n_layers, requests=B, prompt_len=S,
+        new_tokens=NEW, tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+        prefill_ms=results[0].prefill_s * 1e3,
+        decode_step_ms=results[0].decode_s / decode_steps * 1e3,
+        launches=launches, plain_calls=plain_calls, counts=counts,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  served {B} requests x {S}-token prompts x {NEW} new tokens: "
+        f"{n_tok} tokens in {wall:.3f}s ({serve['tok_per_s']:.1f} tok/s), "
+        f"prefill {serve['prefill_ms']:.2f} ms, decode step "
+        f"{serve['decode_step_ms']:.3f} ms (mean of {decode_steps}); "
+        f"ssd_chunk launches={launches}, plain-version calls={plain_calls}; "
+        f"peak memory {serve['peak_mem_gb']:.2f} GB")
+    if not all(len(r.tokens) == NEW for r in results):
+        raise AssertionError("a request did not return every token")
+    # one prefill (one convoy batch) launches the kernel once per Mamba2
+    # layer; decode launches none
+    if launches != cfg.n_layers or plain_calls != 0 or \
+            counts["fused_moe_pipeline"]["launches"] or \
+            counts["grouped_swiglu"]["launches"]:
+        raise AssertionError(f"{arch}: ssd_chunk launched {launches} times "
+                             f"(expected {cfg.n_layers}); counts {counts}")
+    batch = {"tokens": torch.from_numpy(np.stack(prompts)).long().to(dev)}
+    logits, cache = M.make_prefill_step(cfg, cache_len=S + NEW)(model, batch)
+    states = cache["mamba"] if cfg.family == "hybrid" else cache["layers"]
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(st["ssm"]).all()) for st in states)
+    log(f"  prefill logits {tuple(logits.shape)}, {len(states)} Mamba "
+        f"states, finite={finite}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not finite:
+        raise AssertionError("prefill logits or states are not finite or "
+                             "misshaped")
+    del logits, cache, states
+    serve["layer0"] = mamba_layer0_check(f"the {B}x{S} prefill batch", model,
+                                         cfg, batch["tokens"])
+    serve["profile"] = profile_run(
+        "1 prefill + 3 decode steps",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+    return serve
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -785,16 +1023,27 @@ def main() -> int:
     log(f"phase 5: paged engine (page 16, chunk 64, {SLOTS} slots, {N_REQ} "
         f"requests, buffer path on grouped_swiglu)")
     paged = paged_phase(dev, cfg, model, calib)
+    del model, policy, calib
+    torch.cuda.empty_cache()
+    log("phase 6: ssd_chunk against its plain version")
+    ssd = ssd_phase(dev)
+    log("phase 7: serve Mamba2-370m (48 layers), 8 x 512 x 16")
+    mamba = recurrent_serve_phase(dev, "mamba2-370m", 512)
+    torch.cuda.empty_cache()
+    log("phase 8: serve Zamba2-7B (81 layers, 14 shared-block occurrences), "
+        "8 x 384 x 16")
+    zamba = recurrent_serve_phase(dev, "zamba2-7b", 384)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     with open(out_dir / "chip_smoke.json", "w") as fh:
         json.dump({"device": smi, "torch": torch.__version__,
                    "kernel_cases": cases, "grouped_cases": grouped,
-                   "serve": serve, "continuous": cont, "paged": paged},
+                   "serve": serve, "continuous": cont, "paged": paged,
+                   "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba},
                   fh, indent=1)
 
-    def kernel_entry(name, replaces, case_list, case, launches):
+    def kernel_entry(name, replaces, case_list, case, launches, at=None):
         """The kernel's line, timed at the main path's shape ``case``."""
         main_case = next(c for c in case_list if c["case"] == case)
         return {"name": name, "route": "cuda",
@@ -804,8 +1053,9 @@ def main() -> int:
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": None,
-                "at": f"{case} T={main_case['T']} "
-                      f"C={main_case['capacity']}, Qwen3-30B-A3B widths"}
+                "at": at or f"{case} T={main_case['T']} "
+                            f"C={main_case['capacity']}, Qwen3-30B-A3B "
+                            f"widths"}
     print(json.dumps({"kernels": [
         kernel_entry("fused_moe_pipeline",
                      "src/repro/kernels/dualsparse_ffn.py:498", cases,
@@ -813,7 +1063,12 @@ def main() -> int:
         kernel_entry("grouped_swiglu",
                      "src/repro/kernels/dualsparse_ffn.py:192", grouped,
                      "chunk",
-                     paged["counts"]["grouped_swiglu"]["launches"])]}))
+                     paged["counts"]["grouped_swiglu"]["launches"]),
+        # no single PyTorch call computes the intra-chunk SSD either
+        kernel_entry("ssd_chunk", "src/repro/kernels/ssd_chunk.py:59", ssd,
+                     "mamba2-370m", mamba["launches"] + zamba["launches"],
+                     at="Mamba2-370m prefill BH=256 nc=2 Q=256 P=64 N=128; "
+                        "launches of phases 7 and 8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,13 +4,16 @@ arrays, into the port's modules.
 The tree is ``repro.models.model.init_params`` output after
 ``jax.tree.map(np.asarray, ...)``: ``{"embed": {"embedding", "lm_head"},
 "final_norm", "blocks": {...}}`` with every block leaf stacked over a
-leading layers axis, which this splits into the per-layer modules. Trees of
+leading layers axis, which this splits into the per-layer modules (for
+``ssm`` a block is ``{"ln1", "mamba": {...}}``). The hybrid tree holds
+``"mamba_blocks"`` (stacked) and ``"shared_attn"`` (one block, unstacked)
+in place of ``"blocks"``. Trees of
 prepared (partitioned) MoE weights load as well: the expert tensors take
 the tree's shapes. Nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,7 +28,10 @@ def _param(a, device) -> nn.Parameter:
                         .to(device), requires_grad=False)
 
 
-def _load(module: nn.Module, tree: Mapping, layer: int, device) -> None:
+def _load(module: nn.Module, tree: Mapping, layer: Optional[int],
+          device) -> None:
+    """Load ``tree`` into ``module``: each leaf's slice ``layer`` of its
+    stacked layers axis, or the whole leaf when ``layer`` is None."""
     for name, value in tree.items():
         if isinstance(value, Mapping):
             _load(getattr(module, name), value, layer, device)
@@ -33,7 +39,8 @@ def _load(module: nn.Module, tree: Mapping, layer: int, device) -> None:
         if getattr(module, name, None) is None and name not in dict(
                 module.named_parameters(recurse=False)):
             raise KeyError(f"{type(module).__name__} has no weight {name!r}")
-        setattr(module, name, _param(value[layer], device))
+        setattr(module, name,
+                _param(value if layer is None else value[layer], device))
 
 
 def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
@@ -44,6 +51,11 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
     if "lm_head" in tree["embed"]:
         model.embed.lm_head = _param(tree["embed"]["lm_head"], dev)
     model.final_norm = _param(tree["final_norm"], dev)
+    if cfg.family == "hybrid":
+        for i, block in enumerate(model.mamba_blocks):
+            _load(block, tree["mamba_blocks"], i, dev)
+        _load(model.shared_attn, tree["shared_attn"], None, dev)
+        return model
     for i, block in enumerate(model.blocks):
         _load(block, tree["blocks"], i, dev)
     return model

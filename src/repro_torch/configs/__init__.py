@@ -1,12 +1,14 @@
-"""Config registry of the PyTorch port: the MoE architectures the port
-serves (its own copy of the JAX package's dataclasses, so the port never
-imports that package)."""
+"""Config registry of the PyTorch port: the architectures the port
+serves, MoE decoders, Mamba2 and the Zamba2 hybrid (its own copy of the
+JAX package's dataclasses, so the port never imports that package)."""
 from __future__ import annotations
 
 from .base import ModelConfig, DualSparseConfig, InputShape, INPUT_SHAPES
 
 from . import qwen3_moe_30b_a3b
 from . import paper_models
+from . import mamba2_370m
+from . import zamba2_7b
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -18,7 +20,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-for _mod in (qwen3_moe_30b_a3b, paper_models):
+for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b):
     for _cfg in _mod.CONFIGS:
         register(_cfg)
 

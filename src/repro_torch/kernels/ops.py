@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from . import dualsparse_ffn, ref
+from . import dualsparse_ffn, ref, ssd_chunk as ssd_chunk_kernel
 
 __all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref",
-           "grouped_swiglu", "grouped_swiglu_ref"]
+           "grouped_swiglu", "grouped_swiglu_ref", "ssd_chunk",
+           "ssd_chunk_ref"]
 
 fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
 grouped_swiglu_ref = ref.grouped_swiglu_ref
+ssd_chunk_ref = ref.ssd_chunk_ref
 
 
 def _check_devices_and_layout(op: str, named, ref_device):
@@ -183,3 +185,42 @@ def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
 
 
 grouped_swiglu.launches = 0
+
+
+def _check_ssd_inputs(x, dt, a, bm, cm):
+    named = dict(x=x, dt=dt, a=a, bm=bm, cm=cm)
+    _check_devices_and_layout("ssd_chunk", named, x.device)
+    _check_dtypes("ssd_chunk", named, tuple(named), ())
+    if x.ndim != 4 or bm.ndim != 4:
+        raise ValueError("ssd_chunk: x must be (BH, nc, Q, P) and bm/cm "
+                         "(BH, nc, Q, N)")
+    BH, nc, Q, P = x.shape
+    N = bm.shape[-1]
+    if (tuple(dt.shape) != (BH, nc, Q) or tuple(a.shape) != (BH,)
+            or tuple(bm.shape) != (BH, nc, Q, N) or cm.shape != bm.shape):
+        raise ValueError(f"ssd_chunk: shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} a {tuple(a.shape)} bm "
+                         f"{tuple(bm.shape)} cm {tuple(cm.shape)} do not "
+                         "fit (BH, nc, Q, P) / (BH, nc, Q) / (BH,) / "
+                         "(BH, nc, Q, N)")
+    if min(Q, P, N) < 1:
+        raise ValueError("ssd_chunk: Q, P and N must be >= 1")
+
+
+def ssd_chunk(x, dt, a, bm, cm):
+    """Intra-chunk SSD of Mamba2 (``ssd_chunk_pallas``'s function).
+
+    x: (BH, nc, Q, P); dt: (BH, nc, Q) (softplus'd, > 0); a: (BH,) (< 0);
+    bm, cm: (BH, nc, Q, N); all float32. Returns (y_intra (BH, nc, Q, P),
+    states (BH, nc, N, P), decay (BH, nc)) in float32."""
+    _check_ssd_inputs(x, dt, a, bm, cm)
+    if x.device.type == "cpu":
+        return ref.ssd_chunk_ref(x, dt, a, bm, cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    out = ssd_chunk_kernel.launch_ssd_chunk(x, dt, a, bm, cm)
+    ssd_chunk.launches += 1
+    return out
+
+
+ssd_chunk.launches = 0

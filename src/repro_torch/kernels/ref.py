@@ -115,3 +115,45 @@ def grouped_swiglu_ref(x, w1, w3, w2, counts_full=None, counts_major=None,
 
 
 grouped_swiglu_ref.calls = 0
+
+
+def chunk_cumsum(x):
+    """Float32 prefix sums along the last axis, accumulated in float64.
+
+    Near the diagonal ``exp(cum_i - cum_j)`` differences two large sums,
+    so one float32 rounding apart in ``cum`` shows as ~1e-5 relative in
+    the decay. Accumulated in float64 and rounded once, the sums do not
+    depend on the order a device adds in: the CUDA kernel, the plain
+    versions and PyTorch's CPU cumsum (which accumulates float32 in
+    float64) agree bit for bit."""
+    return torch.cumsum(x.double(), dim=-1).float()
+
+
+def ssd_chunk_ref(x, dt, a, bm, cm):
+    """Intra-chunk SSD (Mamba2), plainly, with the signature of the TPU
+    kernel's oracle (``src/repro/kernels/ssd_chunk.py::ssd_chunk_ref``).
+
+    x: (BH, nc, Q, P); dt: (BH, nc, Q); a: (BH,); bm, cm: (BH, nc, Q, N).
+    Per (batch·head, chunk): ``cum = cumsum(dt·a)``, ``L[i, j] =
+    exp(cum_i - cum_j)`` for i >= j else 0, ``y = (C·Bᵀ ∘ L ∘ dt_j)·x``,
+    ``states = (B ∘ dt ∘ exp(cum_end - cum))ᵀ·x``, ``decay =
+    exp(cum_end)``. Returns (y (BH, nc, Q, P), states (BH, nc, N, P),
+    decay (BH, nc)), float32."""
+    ssd_chunk_ref.calls += 1
+    dA = dt * a[:, None, None]                                  # (BH, nc, Q)
+    cum = chunk_cumsum(dA)
+    seg = cum[..., :, None] - cum[..., None, :]
+    Q = x.shape[2]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    # exp of the upper triangle overflows to inf; where() drops it
+    L = torch.where(mask, torch.exp(seg), torch.zeros((), device=x.device))
+    scores = torch.einsum("bcqn,bckn->bcqk", cm, bm)
+    M = scores * L * dt[..., None, :]
+    y = torch.einsum("bcqk,bckp->bcqp", M, x)
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    w = bm * (dt * decay_to_end)[..., None]
+    st = torch.einsum("bcqn,bcqp->bcnp", w, x)
+    return y, st, torch.exp(cum[..., -1])
+
+
+ssd_chunk_ref.calls = 0

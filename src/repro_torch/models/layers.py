@@ -28,6 +28,11 @@ def ones(shape: Sequence[int], *, device: torch.device) -> nn.Parameter:
                                    device=device), requires_grad=False)
 
 
+def zeros(shape: Sequence[int], *, device: torch.device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(tuple(shape), dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

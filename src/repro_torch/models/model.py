@@ -15,9 +15,11 @@ from .transformer import Transformer
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Transformer:
     """The model with weights drawn from ``seed`` on ``device`` (default the
-    card): every matrix ``0.02 * N(0, 1)`` in float32, norms ones. The
-    draws are PyTorch's, so they differ from the JAX package's init of the
-    same seed; ``checkpoint.from_numpy`` loads the JAX weights instead."""
+    card), in float32 from the JAX package's distributions: every matrix
+    ``0.02 * N(0, 1)``, norms ones, the Mamba2 leaves as
+    ``models.mamba2.Mamba2`` lists them. The draws are PyTorch's, so they
+    differ from the JAX package's init of the same seed;
+    ``checkpoint.from_numpy`` loads the JAX weights instead."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

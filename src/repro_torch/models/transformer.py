@@ -1,12 +1,18 @@
-"""Decoder-only transformer for the ``moe`` and ``dense`` families.
+"""Decoder-only stack for the ``moe``, ``dense``, ``ssm`` (Mamba2) and
+``hybrid`` (Zamba2: Mamba2 blocks with one shared attention + MLP block
+applied before every ``attn_every``-th of them) families.
 
 Three entry modes, as in the JAX package: a full-sequence prefill that
 also fills the decode cache, a one-token decode step against that cache,
-and a fixed-size prompt chunk of one slot (chunked prefill). Layers run in
-a Python loop (the JAX package scans a layer-stacked tree).
+and a fixed-size prompt chunk of one slot (chunked prefill, attention
+families only). Layers run in a Python loop (the JAX package scans a
+layer-stacked tree).
 
 The decode cache is a dict: ``"layers"`` (one {"k", "v"} dict per layer in
-the layout's storage, updated in place by decode and chunk steps),
+the layout's storage, updated in place by decode and chunk steps; one
+float32 {"conv", "ssm"} Mamba state per layer for ``ssm``; the hybrid
+holds ``"mamba"``, one state per Mamba layer, and ``"attn"``, one
+{"k", "v"} cache per shared-block occurrence),
 ``"pos"`` (a host int when the whole batch decodes at one position, or a
 (B,) int32 tensor of per-slot positions on the device for continuous
 batching) and ``"metrics"`` (an ``obs.MetricsState``) or, with metrics
@@ -29,6 +35,7 @@ from ..device import resolve_device
 from ..obs import MetricsState
 from . import attention as attn
 from . import layers as L
+from . import mamba2 as mm
 
 
 class Block(nn.Module):
@@ -49,23 +56,54 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, **kw)
 
 
-class Transformer(nn.Module):
-    """Embedding, the decoder blocks and the final norm."""
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 block (``ssm`` layers, the hybrid's backbone)."""
 
     def __init__(self, cfg, *, device: torch.device,
                  generator: Optional[torch.Generator]):
         super().__init__()
-        if cfg.family not in ("moe", "dense") or cfg.attn_kind != "gqa" \
-                or cfg.frontend or cfg.mrope_sections:
+        self.ln1 = L.ones((cfg.d_model,), device=device)
+        self.mamba = mm.Mamba2(cfg, device=device, generator=generator)
+
+
+def _ported(cfg) -> bool:
+    if cfg.family == "ssm":
+        return True
+    return (cfg.family in ("moe", "dense", "hybrid") and cfg.attn_kind == "gqa"
+            and not cfg.frontend and not cfg.mrope_sections)
+
+
+def n_shared_occurrences(cfg) -> int:
+    """How often the hybrid's shared block runs: before every
+    ``attn_every``-th Mamba layer."""
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
+class Transformer(nn.Module):
+    """Embedding, the blocks and the final norm. ``blocks`` holds the
+    decoder blocks (``Block``, or ``MambaBlock`` for ``ssm``); the hybrid
+    holds ``mamba_blocks`` and one ``shared_attn`` ``Block`` (attention +
+    MLP), as the JAX tree does."""
+
+    def __init__(self, cfg, *, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        if not _ported(cfg):
             raise NotImplementedError(
-                f"{cfg.arch_id}: only gqa decoders of the moe/dense families "
-                "are ported yet")
+                f"{cfg.arch_id}: only gqa decoders of the moe/dense/hybrid "
+                "families and the ssm family are ported yet")
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
         self.embed = L.Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                              **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.mamba_blocks = nn.ModuleList(MambaBlock(cfg, **kw)
+                                              for _ in range(cfg.n_layers))
+            self.shared_attn = Block(cfg, **kw)
+        else:
+            block = MambaBlock if cfg.family == "ssm" else Block
+            self.blocks = nn.ModuleList(block(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
         self.final_norm = L.ones((cfg.d_model,), device=device)
 
     @property
@@ -121,8 +159,14 @@ def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
                   cache_dtype=torch.bfloat16, collect_stats: bool = False):
     """Full-sequence block forward. With ``capture_cap`` returns
     ``(x, cache_layer, moe_overflow)`` for the prefill -> decode handoff
-    (the obs stats dict in the third slot under ``collect_stats``)."""
+    (the obs stats dict in the third slot under ``collect_stats``; a Mamba
+    block's cache layer is its {"conv", "ssm"} state)."""
     h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    if isinstance(bp, MambaBlock):
+        if capture_cap:
+            y, st = mm.mamba2_forward(bp.mamba, h, cfg, return_state=True)
+            return x + y, st, _no_overflow(x)
+        return x + mm.mamba2_forward(bp.mamba, h, cfg)
     cache_layer = None
     if capture_cap:
         y, cache_layer = attn.gqa_prefill_attention(
@@ -153,6 +197,10 @@ def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
     slot under ``collect_stats``. ``layout``/``page_table``/``write_mask``/
     ``read_len`` select the KV storage (see ``gqa_decode_attention``)."""
     h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    if isinstance(bp, MambaBlock):
+        state = mm.MambaState(cache_layer["conv"], cache_layer["ssm"])
+        y, st = mm.mamba2_decode(bp.mamba, h, state, cfg)
+        return x + y, st._asdict(), _no_overflow(x)
     y, cache_layer = attn.gqa_decode_attention(
         bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
         page_table=page_table, write_mask=write_mask, read_len=read_len)
@@ -166,6 +214,10 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
     """x: (B,S,d) -> (B,S,d) through all blocks. With ``capture_cap`` also
     returns the decode cache; ``metrics`` (MoE + capture only) puts a
     ``MetricsState`` in it in place of the ``moe_overflow`` scalar."""
+    if cfg.family == "hybrid":
+        return _hybrid_forward(model, x, positions, cfg, window=window,
+                               capture_cap=capture_cap,
+                               cache_dtype=cache_dtype)
     collect = bool(metrics and capture_cap and cfg.is_moe)
     layers, outs = [], []
     for bp in model.blocks:
@@ -189,6 +241,59 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
     return x, cache
 
 
+def _hybrid_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
+                    capture_cap: int = 0, cache_dtype=torch.bfloat16):
+    """Zamba2: the shared attention + MLP block before every
+    ``attn_every``-th Mamba layer. With ``capture_cap`` also returns the
+    decode cache ({"mamba", "attn", "moe_overflow"}, as the JAX one)."""
+    every, shared = cfg.attn_every, model.shared_attn
+    attn_caches, mamba_caches = [], []
+    for occ in range(n_shared_occurrences(cfg)):
+        h = L.rms_norm(x, shared.ln1, cfg.norm_eps)
+        if capture_cap:
+            y, ac = attn.gqa_prefill_attention(
+                shared.attn, h, positions, cfg, window=window,
+                cap=capture_cap, cache_dtype=cache_dtype)
+            attn_caches.append(ac)
+        else:
+            y = attn.gqa_attention(shared.attn, h, positions, cfg,
+                                   window=window)
+        x, _ = _ffn(shared, x + y, cfg, None, False)
+        for bp in model.mamba_blocks[occ * every:(occ + 1) * every]:
+            if capture_cap:
+                x, st, _ = block_forward(bp, x, positions, cfg,
+                                         capture_cap=capture_cap)
+                mamba_caches.append(st)
+            else:
+                x = block_forward(bp, x, positions, cfg)
+    if not capture_cap:
+        return x
+    return x, {"mamba": mamba_caches, "attn": attn_caches,
+               "moe_overflow": _no_overflow(x)}
+
+
+def _hybrid_decode(model: Transformer, x, cache, pos, cfg, *,
+                   window: int = 0):
+    """One-token decode of the hybrid: each shared-block occurrence
+    attends over its own KV cache at the host position ``pos``."""
+    every, shared = cfg.attn_every, model.shared_attn
+    new_attn, new_mamba = [], []
+    for occ in range(n_shared_occurrences(cfg)):
+        h = L.rms_norm(x, shared.ln1, cfg.norm_eps)
+        y, ac = attn.gqa_decode_attention(shared.attn, h, cache["attn"][occ],
+                                          pos, cfg, window)
+        new_attn.append(ac)
+        x, _ = _ffn(shared, x + y, cfg, None, False)
+        lo, hi = occ * every, (occ + 1) * every
+        for bp, cl in zip(model.mamba_blocks[lo:hi], cache["mamba"][lo:hi]):
+            x, cl, _ = block_decode(bp, x, cl, pos, cfg)
+            new_mamba.append(cl)
+    new = {"mamba": new_mamba, "attn": new_attn}
+    if "moe_overflow" in cache:
+        new["moe_overflow"] = cache["moe_overflow"]
+    return x, new
+
+
 def _with_step_stats(cache, new, outs):
     """Fold one step's per-layer MoE outputs (obs stats dicts or overflow
     counts) into the running total ``new`` carries on from ``cache`` —
@@ -205,6 +310,8 @@ def stack_decode(model: Transformer, x, cache, pos, cfg, *,
                  window: int = 0, policy=None, layout=None, page_table=None,
                  write_mask=None, read_len=None):
     """One-token decode through all blocks."""
+    if cfg.family == "hybrid":
+        return _hybrid_decode(model, x, cache, pos, cfg, window=window)
     collect = "metrics" in cache
     new_layers, outs = [], []
     for bp, cl in zip(model.blocks, cache["layers"]):
@@ -297,7 +404,7 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
     dropped, their logits are garbage the caller ignores). Returns
     ``(logits (1, C, vocab), cache)`` with ``cache["pos"][slot]`` set to
     ``start + valid_len`` (a device-side write). gqa attention only."""
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError("chunked prefill requires gqa attention")
     collect = "metrics" in cache
     x = L.embed(model.embed, tokens)
@@ -336,15 +443,28 @@ def init_cache(cfg, batch: int, context_len: int, *, window: int = 0,
     ``cache["pos"]`` a (batch,) int32 tensor so each slot decodes at its
     own position, and gives each slot the layout's sink row (see
     ``ContiguousLayout``); ``metrics_spec`` = (n_layers, n_sub_experts)
-    adds a zeroed ``MetricsState``."""
+    adds a zeroed ``MetricsState``. Mamba states are float32 whatever
+    ``dtype`` the KV cache has."""
     dev = resolve_device(device)
     cap = min(window, context_len) if window else context_len
     layout = attn.ContiguousLayout(window, sink=per_slot_pos)
-    cache = {"layers": [layout.init(batch, cap, cfg.n_kv_heads,
-                                    cfg.resolved_head_dim, dtype, dev)
-                        for _ in range(cfg.n_layers)],
-             "pos": (torch.zeros((batch,), dtype=torch.int32, device=dev)
-                     if per_slot_pos else 0)}
+
+    def attn_caches(n):
+        return [layout.init(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
+                            dtype, dev) for _ in range(n)]
+
+    def mamba_states():
+        return [mm.init_mamba_state(batch, cfg, device=dev)._asdict()
+                for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        cache = {"mamba": mamba_states(),
+                 "attn": attn_caches(n_shared_occurrences(cfg))}
+    elif cfg.family == "ssm":
+        cache = {"layers": mamba_states()}
+    else:
+        cache = {"layers": attn_caches(cfg.n_layers)}
+    cache["pos"] = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                    if per_slot_pos else 0)
     return _obs_seam(cache, metrics_spec, dev)
 
 
@@ -355,7 +475,7 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, n_slots: int, *,
     layer, shared by all slots through the engine's page table (one
     logical -> physical mapping for every layer). Page 0 is the
     retired-slot page, never handed out. ``cache["pos"]`` is per slot."""
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError("paged KV requires gqa attention")
     dev = resolve_device(device)
     layout = attn.PagedLayout(page_size)

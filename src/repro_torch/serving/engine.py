@@ -468,6 +468,13 @@ class ContinuousBatchingEngine(SlotEngineBase):
                  pad_token: int = 0, policy: Optional[SparsityPolicy] = None,
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
                  metrics: bool = True, device="cuda"):
+        if cfg.family in ("audio", "ssm", "hybrid"):
+            # ssm/hybrid: the Mamba recurrence runs over the trailing pads
+            # of a right-padded prefill and pollutes the captured decode
+            # state; per-slot validity masking has no recurrent analog
+            raise NotImplementedError(
+                f"continuous batching supports attention-based decoder-only "
+                f"families, not {cfg.family!r}")
         super().__init__(cfg, model, n_slots=n_slots,
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,

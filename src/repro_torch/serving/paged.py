@@ -151,9 +151,11 @@ class PagedEngine(SlotEngineBase):
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
                  prefix_cache: bool = True, metrics: bool = True,
                  device="cuda"):
-        if cfg.attn_kind != "gqa":
-            raise NotImplementedError("paged serving supports gqa attention "
-                                      "decoder-only text models")
+        if cfg.attn_kind != "gqa" or cfg.family in ("audio", "ssm",
+                                                     "hybrid"):
+            raise NotImplementedError(
+                "paged serving supports GQA attention decoder-only text "
+                "models (chunked prefill has no recurrent-state analog yet)")
         super().__init__(cfg, model, n_slots=n_slots,
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,

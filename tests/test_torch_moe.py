@@ -164,7 +164,24 @@ def test_moe_overflow_counts_match_jax(name):
     _close(y_t, y_j)
 
 
+@pytest.mark.parametrize("target", [0.0, 0.2, 0.25, 0.3, 1.0])
+def test_calibrate_threshold_exact_on_same_scores(target):
+    """Fed the same float32 scores, both ``calibrate_threshold``s pick the
+    same element: equal bit for bit."""
+    from repro.core import drop as jdrop
+    from repro_torch.core import drop as tdrop
+    scores = np.random.default_rng(11).random((96, 8)).astype(np.float32)
+    got = float(tdrop.calibrate_threshold(torch.from_numpy(scores), target))
+    want = float(jdrop.calibrate_threshold(jnp.asarray(scores), target))
+    assert got == want
+
+
 def test_calibrated_thresholds_match_jax():
+    """End to end: the thresholds each package calibrates from its own
+    router scores. The routers' float32 matmuls sum in other orders, so
+    the normalized scores differ by up to 3.3e-6 relative here and a
+    threshold (one of those scores) by as much: the bar is the port's
+    float32 bar, rtol 1e-5."""
     cfg, jcfg = _cfgs("olmoe-lite")
     params, _, calib = _layer(cfg, seed=3)
     for name in ("1t", "2t"):
@@ -177,7 +194,7 @@ def test_calibrated_thresholds_match_jax():
                            torch.from_numpy(calib))
         for n in tc._dynamic:
             np.testing.assert_allclose(float(getattr(tc, n)),
-                                       float(getattr(jc, n)), rtol=1e-6)
+                                       float(getattr(jc, n)), rtol=RTOL)
 
 
 def test_per_token_and_capacity_hints():
