@@ -5,8 +5,13 @@
    and the build of every kernel from the sources in this checkout.
 2. Kernels: the fused MoE pipeline (2) and the grouped SwiGLU (2b)
    against their plain PyTorch versions on the card, at the shapes the
-   serving paths give them, with their times, their plain versions' times
-   and their bounds.
+   serving paths give them (decode, the paged engine's 64-token chunk,
+   prefill, P=1 layouts, overflow, empty experts), at a skewed routing
+   whose groups need both row tiles, and at two odd widths (one off the
+   16-byte path), with their times, their plain versions' times, their
+   bounds and shares of them, which row tile served each group, the row
+   slots multiplied against the live rows, and a profile splitting each
+   call into its launches and the wrapper's own ops.
 3. Serve: Qwen3-30B-A3B at full width (depth cut from 48 to 4 layers,
    seeded random weights) through ``ServingEngine`` under 2T-Drop: 8
    requests x 128-token prompts x 16 new tokens, greedy. Checks the result
@@ -72,6 +77,39 @@ N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
 KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk")
 
 
+def ptxas_report(text: str):
+    """(kernel, registers, spilled bytes, static shared-memory bytes) of
+    each entry function in an ``nvcc -Xptxas -v`` log."""
+    import re
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                             name)
+            if tile:
+                label = (f"{tile.group(1)}_kernel<{tile.group(2)}x"
+                         f"{tile.group(3)}, "
+                         f"{'buffer' if tile.group(4) == '1' else 'pipeline'}>")
+            else:
+                kern = re.search(r"([a-z_]*kernel)", name)
+                label = kern.group(1) if kern else name[:60]
+            rows.append((label, int(m.group(1)), spill,
+                         int(smem.group(1)) if smem else 0))
+            name = None
+    return rows
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -124,53 +162,202 @@ def fused_bound(kw, T: int, d: int):
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
 
-def kernel_phase(dev):
-    """The fused MoE pipeline against its plain version at Qwen3-30B-A3B
-    widths (d 2048, 128 experts, P 2, 384 neurons per sub-expert, top-8),
-    with routing from a router and 2T thresholds calibrated to a 25% drop
-    target, so that rows are FULL, MAJOR-only and dropped."""
+# the skewed cases: a direction added to every token and to the router
+# columns of HOT_EXPERTS experts lifts their logits by SKEW ** 2, so a few
+# groups hold far more than FEW_ROWS rows and the rest a handful
+HOT_EXPERTS = 6
+SKEW = 4.0
+# (name, d, E, P, f, top_k): the widths of the odd-width cases; the second
+# is no multiple of 4 floats, so it takes the tiles' scalar edge path
+ODD_WIDTHS = (("odd_width", 200, 8, 2, 100, 2),
+              ("odd_width_scalar", 202, 8, 2, 98, 2))
+
+
+def moe_params(gen, dev, d: int, E: int, P: int, f: int) -> dict:
+    """Seeded router and sub-expert weights: wg (d, E), w1/w3 (E*P, d, f),
+    w2 (E*P, f, d)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import gating, moe
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    return dict(wg=randn(d, E, scale=0.1), w1=randn(E * P, d, f, scale=0.02),
+                w3=randn(E * P, d, f, scale=0.02),
+                w2=randn(E * P, f, d, scale=0.02))
+
+
+def routed_case(gen, dev, cfg, params, T: int, P: int, n_empty: int = 0,
+                hot: int = 0):
+    """x (T, d) and its 2T sub-expert pairs: a router's routing under
+    thresholds calibrated to a 25% drop target, so that rows are FULL,
+    MAJOR-only and dropped. With ``n_empty`` the router covers experts
+    n_empty.. only, so the first n_empty experts receive no row; with
+    ``hot`` the experts n_empty..n_empty+hot draw most pairs (the load
+    imbalance of the paper's Fig. 11)."""
+    import torch
+    from repro_torch.core import gating
     from repro_torch.core.drop import expand_pairs_2t
     from repro_torch.core.policy import TwoTDrop
-    from repro_torch.kernels import ops
+    d = params["wg"].shape[0]
+    x = torch.randn((T, d), generator=gen, device=dev)
+    wg = params["wg"][:, n_empty:]
+    if hot:
+        v = torch.randn((d,), generator=gen, device=dev)
+        v = v / v.norm()
+        x = x + SKEW * v
+        wg = wg.clone()
+        wg[:, :hot] += SKEW * v[:, None]
+    pol = TwoTDrop(drop_target=0.25)._calibrated([wg], cfg, x)
+    r = gating.route(x, wg, cfg.top_k, cfg.router_norm_topk)
+    pairs = expand_pairs_2t(r.idx + n_empty, r.combine, r.norm_score, P,
+                            pol.t_major, pol.t_minor)
+    return x, pairs
+
+
+def _dev_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def launch_profile(fn, runs: int = 5) -> dict:
+    """Device µs per call of ``fn`` by launch, from ``torch.profiler``:
+    each row tile's up and down launches, the combine, and the wrapper's own
+    torch ops (every other kernel), apart; and the host's enqueue time per
+    call."""
+    import re
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.dualsparse_ffn import FEW_ROWS
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_us = (time.perf_counter() - t0) / runs * 1e6
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():     # the profiler's per-cycle notice
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+    split, wrapper_kernels = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or _dev_us(ev) <= 0:
+            continue
+        m = re.search(r"(up|down)_kernel<(\d+)", ev.key)
+        if m:
+            key = m.group(1) + ("_few" if int(m.group(2)) == FEW_ROWS
+                                else "_many")
+        elif "combine_kernel" in ev.key:
+            key = "combine"
+        elif "position_key_kernel" in ev.key:
+            key = "keys"
+        else:
+            key = "wrapper_ops"
+            wrapper_kernels += ev.count
+        split[key] = split.get(key, 0.0) + _dev_us(ev) / runs
+    return dict(device_us=split, wrapper_kernels=wrapper_kernels / runs,
+                host_enqueue_us=host_us)
+
+
+def tile_stats(launch, counts_full, counts_major, capacity: int) -> dict:
+    """Which row tile served each group, as the kernel reports it
+    (``launch(regime)`` fills an (E,) int32 buffer), checked against
+    ``tile_plan``; the row slots the tiles multiply beside the live rows and
+    beside the slots of a row tile chosen from the capacity alone (16 rows
+    at C <= 16, else blocks of 64)."""
+    import torch
+    from repro_torch.kernels.dualsparse_ffn import tile_plan
+    regime = torch.zeros(counts_full.shape, dtype=torch.int32,
+                         device=counts_full.device)
+    launch(regime)
+    torch.cuda.synchronize()
+    want, slots = tile_plan(counts_full, counts_major, capacity)
+    n_rows = torch.clamp(counts_full.long() + counts_major.long(),
+                         max=capacity)
+    got = regime.long()
+    by_cap = 16 if capacity <= 16 else 64
+    return dict(
+        few_groups=int((got == 1).sum()), many_groups=int((got == 2).sum()),
+        few_live_groups=int(((got == 1) & (n_rows > 0)).sum()),
+        few_rows=int(n_rows[got == 1].sum()),
+        many_rows=int(n_rows[got == 2].sum()), live_rows=int(n_rows.sum()),
+        row_slots=int(slots.sum()),
+        row_slots_capacity_tile=int(((n_rows + by_cap - 1) // by_cap
+                                     * by_cap).sum()),
+        max_rows=int(n_rows.max()), matches_plan=bool(torch.equal(got, want)))
+
+
+def case_report(label: str, ms: float, bound, tiles: dict, prof: dict
+                ) -> dict:
+    """Logs a case's share of its bound, achieved rate, row tiles and
+    launch profile; returns them."""
+    bound_ms, bound_by, flops, nbytes = bound
+    share = bound_ms / ms
+    rate = (f"{nbytes / ms / 1e6:.1f} GB/s" if bound_by == "bytes"
+            else f"{flops / ms / 1e9:.2f} TFLOP/s")
+    dev = ", ".join(f"{k} {v:.1f}" for k, v in
+                    sorted(prof["device_us"].items()))
+    log(f"    {label}: {100 * share:.1f}% of the bound, {rate}; tiles: few "
+        f"{tiles['few_groups']} groups ({tiles['few_rows']} rows), many "
+        f"{tiles['many_groups']} ({tiles['many_rows']} rows), max "
+        f"{tiles['max_rows']}; row slots {tiles['row_slots']} for "
+        f"{tiles['live_rows']} live rows (capacity-chosen tile: "
+        f"{tiles['row_slots_capacity_tile']}); device µs per call: {dev}; "
+        f"{prof['wrapper_kernels']:.0f} wrapper kernels; host enqueue "
+        f"{prof['host_enqueue_us']:.1f} µs")
+    if not tiles["matches_plan"]:
+        raise AssertionError(f"{label}: the kernel's row tiles differ from "
+                             "tile_plan")
+    return dict(bound_share=share, rate=rate, tiles=tiles, profile=prof)
+
+
+def kernel_phase(dev):
+    """The fused MoE pipeline against its plain version at Qwen3-30B-A3B
+    widths (d 2048, 128 experts, P 2, 384 neurons per sub-expert, top-8)
+    and at two odd widths (d 200 / f 100 and d 202 / f 98, 8 experts,
+    top-2), with routing from a router and 2T thresholds calibrated to a
+    25% drop target, so that rows are FULL, MAJOR-only and dropped."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe
+    from repro_torch.kernels import dualsparse_ffn, ops
 
     cfg = get_config("qwen3-moe-30b-a3b")
     d, E, K, P = cfg.d_model, cfg.n_experts, cfg.top_k, 2
     f = cfg.d_expert // P
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    params = dict(wg=randn(d, E, scale=0.1), w1=randn(E * P, d, f, scale=0.02),
-                  w3=randn(E * P, d, f, scale=0.02),
-                  w2=randn(E * P, f, d, scale=0.02))
+    params = moe_params(gen, dev, d, E, P, f)
     # the layer's capacity: capacity_for(T, K*P sub-pairs, E*P sub-experts)
     cap_decode = moe.capacity_for(8, K * P, E * P, 2.0)
     cap_prefill = moe.capacity_for(1024, K * P, E * P, 2.0)
     cases = [
-        # name, T, capacity, mode_grouped, experts left empty
-        ("decode", 8, cap_decode, True, 0),
-        ("prefill", 1024, cap_prefill, True, 0),
-        ("overflow", 1024, 16, True, 0),
-        ("empty_experts", 1024, cap_prefill, True, E // 8),
-        ("p1_sub_pairs", 1024, cap_prefill, False, 0),
-    ]
+        # name, T, capacity, mode_grouped, experts left empty, hot experts
+        ("decode", 8, cap_decode, True, 0, 0),
+        ("prefill", 1024, cap_prefill, True, 0, 0),
+        ("overflow", 1024, 16, True, 0, 0),
+        ("empty_experts", 1024, cap_prefill, True, E // 8, 0),
+        ("p1_sub_pairs", 1024, cap_prefill, False, 0, 0),
+        # the paged engine's fused route: a 64-token chunk, exact capacity
+        ("chunk", 64, 64, True, 0, 0),
+        ("skewed", 256, 256, True, 0, HOT_EXPERTS),
+    ] + [(name, 64, 64, True, 0, 0) for name, *_ in ODD_WIDTHS]
+    odd = {name: rest for name, *rest in ODD_WIDTHS}
     results = []
-    for name, T, cap, mode_grouped, n_empty in cases:
-        x = randn(T, d)
-        # with n_empty, the router covers experts n_empty.. only, so the
-        # first n_empty experts receive no row
-        wg = params["wg"][:, n_empty:]
-        pol = TwoTDrop(drop_target=0.25)._calibrated([wg], cfg, x)
-        r = gating.route(x, wg, K, cfg.router_norm_topk)
-        pairs = expand_pairs_2t(r.idx + n_empty, r.combine, r.norm_score, P,
-                                pol.t_major, pol.t_minor)
-        kw, overflow = moe.fused_pipeline_args(params, pairs, P, cap,
+    for name, T, cap, mode_grouped, n_empty, hot in cases:
+        ccfg, cparams, pp = cfg, params, P
+        if name in odd:
+            dd, EE, pp, ff, kk = odd[name]
+            ccfg = dataclasses.replace(cfg, top_k=kk)
+            cparams = moe_params(gen, dev, dd, EE, pp, ff)
+        x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty, hot)
+        kw, overflow = moe.fused_pipeline_args(cparams, pairs, pp, cap,
                                                mode_grouped)
+        d_case = x.shape[1]
         y_ref = ops.fused_moe_pipeline_ref(x, **kw)
         y1 = ops.fused_moe_pipeline(x, **kw)
         y2 = ops.fused_moe_pipeline(x, **kw)
@@ -187,29 +374,55 @@ def kernel_phase(dev):
         plain_ms = cuda_ms(lambda: ops.fused_moe_pipeline_ref(x, **kw), 5)
         kw_full = dict(kw, counts_full=cf + cm, counts_major=torch.zeros_like(cm))
         full_ms = cuda_ms(lambda: ops.fused_moe_pipeline(x, **kw_full), 20)
-        bound_ms, bound_by, flops, nbytes = fused_bound(kw, T, d)
-        res = dict(case=name, T=T, capacity=cap, p_factor=kw["p_factor"],
-                   rows=rows, rel_err=rel, max_abs_err=max_abs,
-                   bit_stable=stable, ms=ms, plain_ms=plain_ms,
-                   all_full_ms=full_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   flops=flops, bytes=nbytes)
+        bound = fused_bound(kw, T, d_case)
+        bound_ms, bound_by, flops, nbytes = bound
+        n_major = dualsparse_ffn.resolve_n_major(
+            kw["w1"].shape[-1], kw["p_factor"], kw["n_minor_start"], 128)
+        tiles = tile_stats(
+            lambda reg: dualsparse_ffn.launch_fused_moe_pipeline(
+                x, kw["w1"], kw["w3"], kw["w2"], kw["group_offsets"], cf, cm,
+                kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
+                p_factor=kw["p_factor"], n_major=n_major, regime=reg),
+            cf, cm, cap)
+        res = dict(case=name, T=T, d=d_case, f=kw["w1"].shape[-1],
+                   capacity=cap, p_factor=kw["p_factor"], rows=rows,
+                   rel_err=rel, max_abs_err=max_abs, bit_stable=stable,
+                   ms=ms, plain_ms=plain_ms, all_full_ms=full_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
         results.append(res)
-        log(f"  fused_moe_pipeline[{name}] T={T} cap={cap} "
+        log(f"  fused_moe_pipeline[{name}] T={T} d={d_case} cap={cap} "
             f"P={kw['p_factor']} rows={rows} rel_err={rel:.3e} "
             f"max_abs={max_abs:.3e} bit_stable={stable} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} all_rows_full_ms={full_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
+        # the kernel's combine gathers each token's rows by these keys
+        keys_ok = bool(torch.equal(
+            dualsparse_ffn.launch_position_keys(
+                kw["tok_sorted"], kw["group_offsets"], cf, cm, cap),
+            dualsparse_ffn.position_keys(kw["tok_sorted"],
+                                         kw["group_offsets"], cf, cm)))
+        res.update(case_report(
+            f"fused_moe_pipeline[{name}]", ms, bound, tiles,
+            launch_profile(lambda: ops.fused_moe_pipeline(x, **kw))),
+            position_keys_equal=keys_ok)
         if name == "overflow" and rows["overflow"] == 0:
             raise AssertionError("overflow case did not overflow")
         if name == "empty_experts" and rows["empty"] < n_empty:
             raise AssertionError("empty-expert case has no empty expert")
+        if name == "skewed" and not (tiles["many_groups"]
+                                     and tiles["few_live_groups"]):
+            raise AssertionError("skewed case: one row tile served every "
+                                 "group")
         if mode_grouped and rows["major"] == 0 and name != "overflow":
             raise AssertionError(f"{name}: no MAJOR-only rows")
-        if not (rel <= REL_TOL and stable and torch.isfinite(y1).all()):
+        if not (rel <= REL_TOL and stable and keys_ok
+                and torch.isfinite(y1).all()):
             raise AssertionError(f"fused_moe_pipeline[{name}] disagrees with "
                                  f"its plain version: rel_err={rel:.3e} "
-                                 f"(bar {REL_TOL}) bit_stable={stable}")
+                                 f"(bar {REL_TOL}) bit_stable={stable} "
+                                 f"position_keys_equal={keys_ok}")
     return results
 
 
@@ -260,16 +473,15 @@ def grouped_bound(kw):
 def grouped_phase(dev):
     """The grouped SwiGLU (the buffer path's expert FFN) against its plain
     version at Qwen3-30B-A3B widths (d 2048, 128 experts, P 2, 384 neurons
-    per sub-expert, top-8), on the buffers and counts the buffer path
-    builds from a router's routing under 2T thresholds calibrated to a 25%
-    drop target. The dead rows of every buffer (at or past cf + cm) are
-    filled with noise first: they must come out as exact zeros."""
+    per sub-expert, top-8) and at the odd widths of phase 2, on the buffers
+    and counts the buffer path builds from a router's routing under 2T
+    thresholds calibrated to a 25% drop target. The dead rows of every
+    buffer (at or past cf + cm) are filled with noise first: they must come
+    out as exact zeros."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import gating, moe
-    from repro_torch.core.drop import expand_pairs_2t
-    from repro_torch.core.policy import TwoTDrop
-    from repro_torch.kernels import ops
+    from repro_torch.core import moe
+    from repro_torch.kernels import dualsparse_ffn, ops
 
     cfg = get_config("qwen3-moe-30b-a3b")
     d, E, K, P = cfg.d_model, cfg.n_experts, cfg.top_k, 2
@@ -280,9 +492,7 @@ def grouped_phase(dev):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    params = dict(wg=randn(d, E, scale=0.1), w1=randn(E * P, d, f, scale=0.02),
-                  w3=randn(E * P, d, f, scale=0.02),
-                  w2=randn(E * P, f, d, scale=0.02))
+    params = moe_params(gen, dev, d, E, P, f)
 
     def full_width(w, axis):
         """(E*P, ...) sub-expert weights -> (E, ...) full-width experts
@@ -291,24 +501,28 @@ def grouped_phase(dev):
         return torch.cat(parts, dim=axis).contiguous()
     cap_prefill = moe.capacity_for(1024, K * P, E * P, 2.0)
     cases = [
-        # name, T, capacity, mode_grouped, experts left empty, full width
-        ("decode", 8, 8, True, 0, False),
-        ("chunk", 64, 64, True, 0, False),       # the paged engine's chunk
-        ("prefill", 1024, cap_prefill, True, 0, False),
-        ("p1_sub_pairs", 1024, cap_prefill, False, 0, False),
-        ("p1_half_split", 1024, cap_prefill, True, 0, True),
-        ("ragged", 1024, 100, True, E // 8, False),
-    ]
+        # name, T, capacity, mode_grouped, experts left empty, full width,
+        # hot experts
+        ("decode", 8, 8, True, 0, False, 0),
+        ("chunk", 64, 64, True, 0, False, 0),    # the paged engine's chunk
+        ("prefill", 1024, cap_prefill, True, 0, False, 0),
+        ("p1_sub_pairs", 1024, cap_prefill, False, 0, False, 0),
+        ("p1_half_split", 1024, cap_prefill, True, 0, True, 0),
+        ("ragged", 1024, 100, True, E // 8, False, 0),
+        ("skewed", 256, 256, True, 0, False, HOT_EXPERTS),
+    ] + [(name, 64, 64, True, 0, False, 0) for name, *_ in ODD_WIDTHS]
+    odd = {name: rest for name, *rest in ODD_WIDTHS}
     results = []
-    for name, T, cap, mode_grouped, n_empty, widen in cases:
-        x = randn(T, d)
-        wg = params["wg"][:, n_empty:]
-        pol = TwoTDrop(drop_target=0.25)._calibrated([wg], cfg, x)
-        r = gating.route(x, wg, K, cfg.router_norm_topk)
-        pairs = expand_pairs_2t(r.idx + n_empty, r.combine, r.norm_score, P,
-                                pol.t_major, pol.t_minor)
+    for name, T, cap, mode_grouped, n_empty, widen, hot in cases:
+        ccfg, cparams, pp = cfg, params, P
+        if name in odd:
+            dd, EE, pp, ff, kk = odd[name]
+            ccfg = dataclasses.replace(cfg, top_k=kk)
+            cparams = moe_params(gen, dev, dd, EE, pp, ff)
+        x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty, hot)
+        d_case = x.shape[1]
         kw, _, _, _, overflow = moe.grouped_swiglu_args(
-            params, x, pairs, P, cap, mode_grouped)
+            cparams, x, pairs, pp, cap, mode_grouped)
         if widen:      # the same experts unpartitioned: P = 1, split f // 2
             kw.update(w1=full_width(kw["w1"], 2), w3=full_width(kw["w3"], 2),
                       w2=full_width(kw["w2"], 1), p_factor=1,
@@ -317,7 +531,7 @@ def grouped_phase(dev):
         G, C = kw["x"].shape[:2]
         dead = (torch.arange(C, device=dev)[None, :]
                 >= (cf + cm)[:, None])                           # (G, C)
-        kw["x"] = torch.where(dead[..., None], randn(G, C, d), kw["x"])
+        kw["x"] = torch.where(dead[..., None], randn(G, C, d_case), kw["x"])
         # the kernel runs before the plain version: its output cannot land
         # in a freed block that already holds the plain version's result
         y1 = ops.grouped_swiglu(**kw)
@@ -336,23 +550,38 @@ def grouped_phase(dev):
         kw_full = dict(kw, counts_full=cf + cm,
                        counts_major=torch.zeros_like(cm))
         full_ms = cuda_ms(lambda: ops.grouped_swiglu(**kw_full), 20)
-        bound_ms, bound_by, flops, nbytes = grouped_bound(kw)
-        res = dict(case=name, T=T, capacity=C, p_factor=kw["p_factor"],
-                   f=kw["w1"].shape[-1], rows=rows, rel_err=rel,
-                   max_abs_err=max_abs, bit_stable=stable, dead_rows_zero=zeros,
-                   ms=ms, plain_ms=plain_ms, all_full_ms=full_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                   bytes=nbytes)
+        bound = grouped_bound(kw)
+        bound_ms, bound_by, flops, nbytes = bound
+        n_major = dualsparse_ffn.resolve_n_major(
+            kw["w1"].shape[-1], kw["p_factor"], kw["n_minor_start"], 128)
+        tiles = tile_stats(
+            lambda reg: dualsparse_ffn.launch_grouped_swiglu(
+                kw["x"], kw["w1"], kw["w3"], kw["w2"], cf, cm,
+                p_factor=kw["p_factor"], n_major=n_major, regime=reg),
+            cf, cm, C)
+        res = dict(case=name, T=T, d=d_case, capacity=C,
+                   p_factor=kw["p_factor"], f=kw["w1"].shape[-1], rows=rows,
+                   rel_err=rel, max_abs_err=max_abs, bit_stable=stable,
+                   dead_rows_zero=zeros, ms=ms, plain_ms=plain_ms,
+                   all_full_ms=full_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=flops, bytes=nbytes)
         results.append(res)
-        log(f"  grouped_swiglu[{name}] T={T} C={C} groups={G} "
+        log(f"  grouped_swiglu[{name}] T={T} d={d_case} C={C} groups={G} "
             f"P={kw['p_factor']} f={kw['w1'].shape[-1]} rows={rows} "
             f"rel_err={rel:.3e} max_abs={max_abs:.3e} bit_stable={stable} "
             f"dead_rows_zero={zeros} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"all_rows_full_ms={full_ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        res.update(case_report(
+            f"grouped_swiglu[{name}]", ms, bound, tiles,
+            launch_profile(lambda: ops.grouped_swiglu(**kw))))
         if name == "ragged" and (C % 64 == 0 or rows["empty"] < n_empty):
             raise AssertionError("ragged case is not ragged or has no "
                                  "empty expert")
+        if name == "skewed" and not (tiles["many_groups"]
+                                     and tiles["few_live_groups"]):
+            raise AssertionError("skewed case: one row tile served every "
+                                 "group")
         if mode_grouped and name != "ragged" and rows["major"] == 0:
             raise AssertionError(f"{name}: no MAJOR-only rows")
         if not (rel <= REL_TOL and stable and zeros
@@ -558,21 +787,18 @@ def profile_run(label: str, serve_once):
         serve_once()
         torch.cuda.synchronize()
 
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and dev_us(ev) > 0]
-    busy_ms = sum(dev_us(ev) for ev in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+               and _dev_us(ev) > 0]
+    busy_ms = sum(_dev_us(ev) for ev in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
     log(f"  profile ({label}): wall {wall_ms:.1f} ms "
         f"unprofiled, CUDA kernels {busy_ms:.1f} ms (device busy "
         f"{100 * busy_ms / wall_ms:.1f}%)")
     for ev in top:
-        log(f"    {dev_us(ev) / 1e3:9.3f} ms  x{ev.count:<5d} {ev.key[:70]}")
+        log(f"    {_dev_us(ev) / 1e3:9.3f} ms  x{ev.count:<5d} {ev.key[:70]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                top=[dict(name=ev.key, device_ms=dev_us(ev) / 1e3,
+                top=[dict(name=ev.key, device_ms=_dev_us(ev) / 1e3,
                           count=ev.count) for ev in top])
 
 
@@ -987,7 +1213,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build     # fails outside a checkout
+    # fails outside a checkout
+    from repro_torch.kernels import _build, dualsparse_ffn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1004,9 +1231,12 @@ def main() -> int:
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f}s "
         f"(nvcc time {sum(_build.BUILD_SECONDS.values()):.2f}s)")
     for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for kernel, regs, spill, smem in ptxas_report(text):
+            log(f"    {name}: {kernel}: {regs} registers, {spill} bytes "
+                f"spilled, {smem} bytes static shared memory")
+    ring = dualsparse_ffn.ring_bytes()
+    log("  swiglu tiles' cp.async rings (dynamic shared memory per CTA): "
+        + ", ".join(f"{k} {v}" for k, v in ring.items()))
 
     log("phase 2: kernels against their plain versions")
     log(f"  bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM, "

@@ -1,41 +1,48 @@
 // Fused MoE pipeline for Hopper (sm_90a): gather -> grouped SwiGLU with
 // dual-sparse minor-half skipping -> deterministic per-token combine.
 //
-// Replaces the TPU kernel src/repro/kernels/dualsparse_ffn.py::
-// fused_moe_pipeline_pallas (streamed body _fused_pipeline_streamed_kernel,
-// resident body _fused_pipeline_kernel; both compute the same function, so
-// this one kernel serves either value of ``streamed``).
+// Replaces the TPU kernel src/repro/kernels/dualsparse_ffn.py:498
+// fused_moe_pipeline_pallas (streamed body _fused_pipeline_streamed_kernel
+// at :353, resident body _fused_pipeline_kernel at :282; both compute the
+// same function, so this one kernel serves either value of ``streamed``).
 //
 // What bounds it on an H100 (f32 weights, the only type the system serves):
-//   * decode (T=8, Qwen3-30B-A3B widths): each touched expert streams
+//   * decode (T=8, Qwen3-30B-A3B widths) and a slot engine's prefill-insert
+//     (T <= 128, ~8 rows per expert): each touched expert streams
 //     3 * 2048 * 768 * 4 B ~= 18.9 MB of weights for a handful of rows, so
 //     the kernel is bound by device-memory bytes (3.35 TB/s);
-//   * prefill (T~1024): ~64 rows per expert reuse each weight tile 64 times,
-//     so the kernel is bound by f32 operations on the CUDA cores (67 TFLOP/s;
+//   * prefill (T~1024): ~45-64 rows per expert reuse each weight tile that
+//     often, so it is bound by f32 FMAs on the CUDA cores (67 TFLOP/s;
 //     tensor cores take f32 only as TF32, which would change the numbers).
-// What this simple design does about that: every weight tile is read once
-// per (expert, row block) and reused from shared memory by all rows of the
-// block; row blocks past an expert's rows exit before loading anything, and
-// MAJOR-only row blocks stop the contraction at the minor half, so 2T-Drop's
-// skipped work is never loaded or computed. What it does not do: no TMA, no
-// wgmma, no software pipelining, no split-K for the few-row decode case.
-// Those are later work.
+// What the design does about that (swiglu_tiles.cuh, pipeline row layout):
+// the up and down launches stream each group's weights through a cp.async
+// ring of shared-memory slots, several steps in flight per CTA, with the
+// rows x[tok[p]] gathered into the same slots; the row tile is chosen on
+// the device from each group's live rows (a few-row tile for groups of at
+// most 16 rows, a 64-row register tile above), so few-row groups spend no
+// FMAs on dead rows. Rows past an expert's count are never loaded, and
+// MAJOR-only row tiles stop the contraction at the minor half, so
+// 2T-Drop's skipped work is neither read nor computed.
 //
-// Three launches on the caller's stream, no atomics (the up and down tiles
-// are swiglu_tiles.cuh's, in its pipeline row layout):
-//   1. up:     h[pos, u]   = silu(x[tok[pos]] . w1[:, u]) * (x[tok[pos]] . w3[:, u])
+// Three steps on the caller's stream, no atomics:
+//   1. up:      h[pos, u] = silu(x[tok[pos]] . w1[:, u]) * (x[tok[pos]] . w3[:, u])
 //               over the virtual width V = P*f (sub-expert j = u / f), masked
 //               per neuron: rows >= counts_full see only u < n_major;
-//   2. down:    y[pos, c]   = combine[pos] * sum_u h[pos, u] * w2[u, c];
-//   3. combine: out[t, c]   = sum of y[pos, c] over token t's computed
+//   2. down:    y[pos, c] = combine[pos] * sum_u h[pos, u] * w2[u, c];
+//   3. combine: out[t, c] = sum of y[pos, c] over token t's computed
 //               positions in increasing sorted order, from 0 (the order the
 //               TPU kernel accumulates in), so runs are bit-identical.
-// The (N', V) h and (N', d) y staging buffers are per sorted pair; positions
-// no row block computes (capacity overflow, dropped pairs, padding) are never
-// written and the combine order built by the wrapper excludes them.
+// Steps 1 and 2 are one launch per row tile each. The (N', V) h and (N', d)
+// y staging buffers are per sorted pair; positions no row tile computes
+// (capacity overflow, dropped pairs, padding) are never written. A first
+// launch marks each position with its token or -1 (not computed), and the
+// combine gathers each token's marked positions in order on the device, so
+// the wrapper runs no torch op of its own besides allocating.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <algorithm>
 
 #include "swiglu_tiles.cuh"
 
@@ -43,35 +50,105 @@ namespace {
 
 using swiglu_tiles::Problem;
 
+constexpr int KEY_THREADS = 256;
 constexpr int COMBINE_THREADS = 256;
+constexpr int COMBINE_LIST = 1024;   // positions summed per pass
 
-// out[t, c] = sum over i < cnt[t] of y[order[start[t] + i], c], in order.
+// key[p] = tok[p] if some row tile computes position p, else -1: p lies in
+// group g = the last group with offs[g] <= p (0 if none), and is computed
+// when p - offs[g] < min(cf[g] + cm[g], capacity).
+__global__ void __launch_bounds__(KEY_THREADS)
+position_key_kernel(const int* tok, const int* offs, const int* cf,
+                    const int* cm, int n_pos, int E, int capacity, int* key) {
+  const int p = blockIdx.x * KEY_THREADS + threadIdx.x;
+  if (p >= n_pos) return;
+  int lo = 0, hi = E;               // the first group with offs > p
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (offs[mid] <= p) lo = mid + 1; else hi = mid;
+  }
+  const int g = max(lo - 1, 0);
+  const int rows = min(cf[g] + cm[g], capacity);
+  key[p] = p - offs[g] < rows ? tok[p] : -1;
+}
+
+// out[t, :] = the sum of y[p, :] over the positions p with key[p] == t, in
+// increasing p, from 0. The CTAs of token t (blockIdx.x; blockIdx.y splits
+// the columns when there are few tokens) scan the keys in order, gather up
+// to COMBINE_LIST matching positions into shared memory (a ballot per warp
+// keeps their order), add those rows, and carry the sum in out[t] to the
+// next pass: each column has one writer and a fixed order.
 __global__ void __launch_bounds__(COMBINE_THREADS)
-combine_kernel(const float* y, const int* order, const int* start,
-               const int* cnt, float* out, int d) {
+combine_kernel(const float* y, const int* key, int n_pos, float* out,
+               int d) {
+  constexpr int WARPS = COMBINE_THREADS / 32;
+  __shared__ int list[COMBINE_LIST];
+  __shared__ int warp_hits[WARPS];
   const int t = blockIdx.x;
-  const int c = blockIdx.y * COMBINE_THREADS + threadIdx.x;
-  if (c >= d) return;
-  const int s = start[t];
-  const int n = cnt[t];
-  float acc = 0.f;
-  for (int i = 0; i < n; ++i) acc += y[(size_t)order[s + i] * d + c];
-  out[(size_t)t * d + c] = acc;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int p0 = 0;
+  bool first = true;
+  while (first || p0 < n_pos) {
+    int n_list = 0;
+    // gather whole chunks while the list has room for one more
+    for (; p0 < n_pos && n_list + COMBINE_THREADS <= COMBINE_LIST;
+         p0 += COMBINE_THREADS) {
+      const int p = p0 + tid;
+      const bool hit = p < n_pos && key[p] == t;
+      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) warp_hits[warp] = __popc(ballot);
+      __syncthreads();
+      int before = n_list;
+      for (int w = 0; w < warp; ++w) before += warp_hits[w];
+      if (hit) list[before + __popc(ballot & ((1u << lane) - 1))] = p;
+      for (int w = 0; w < WARPS; ++w) n_list += warp_hits[w];
+      __syncthreads();
+    }
+    for (int c = blockIdx.y * COMBINE_THREADS + tid; c < d;
+         c += gridDim.y * COMBINE_THREADS) {
+      float acc = first ? 0.f : out[(size_t)t * d + c];
+      for (int i = 0; i < n_list; ++i) acc += y[(size_t)list[i] * d + c];
+      out[(size_t)t * d + c] = acc;
+    }
+    first = false;
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues the three launches on ``stream``. Returns the cudaGetLastError()
-// code after the first failing launch, or 0.
+// Fills key (N',) as position_key_kernel does. Returns the
+// cudaGetLastError() code, or 0.
+int fused_moe_pipeline_position_keys(
+    const void* tok_sorted, const void* group_offsets,
+    const void* counts_full, const void* counts_major, void* key, int n_pos,
+    int E, int capacity, void* stream) {
+  if (n_pos == 0) return 0;
+  const int blocks = (n_pos + KEY_THREADS - 1) / KEY_THREADS;
+  position_key_kernel<<<blocks, KEY_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tok_sorted),
+      static_cast<const int*>(group_offsets),
+      static_cast<const int*>(counts_full),
+      static_cast<const int*>(counts_major), n_pos, E, capacity,
+      static_cast<int*>(key));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Enqueues the launches on ``stream``: the position keys, each row tile's
+// up and down, and the combine. ``h`` (N', P*f), ``y`` (N', d) and ``key``
+// (N',) are scratch; ``regime`` is null or an (E,) int32 buffer that
+// receives, per group, 1 (few-row tile) or 2 (many-row tile). Returns the
+// cudaGetLastError() code after the first failing launch, or 0.
 int fused_moe_pipeline_launch(
     const void* x, const void* w1, const void* w3, const void* w2,
     const void* group_offsets, const void* counts_full,
     const void* counts_major, const void* tok_sorted,
-    const void* combine_sorted, void* h, void* y, const void* order,
-    const void* tok_start, const void* tok_count, void* out, int T, int d,
-    int f, int E, int P, int n_major, int capacity, void* stream) {
+    const void* combine_sorted, void* h, void* y, void* key, void* out,
+    void* regime, int T, int n_pos, int d, int f, int E, int P,
+    int n_major, int capacity, void* stream) {
   Problem pb;
   pb.x = static_cast<const float*>(x);
   pb.w1 = static_cast<const float*>(w1);
@@ -84,6 +161,7 @@ int fused_moe_pipeline_launch(
   pb.comb = static_cast<const float*>(combine_sorted);
   pb.h = static_cast<float*>(h);
   pb.y = static_cast<float*>(y);
+  pb.regime = static_cast<int*>(regime);
   pb.d = d;
   pb.f = f;
   pb.P = P;
@@ -92,17 +170,23 @@ int fused_moe_pipeline_launch(
   pb.capacity = capacity;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  cudaError_t err = swiglu_tiles::launch_swiglu<false>(pb, E, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = fused_moe_pipeline_position_keys(
+      tok_sorted, group_offsets, counts_full, counts_major, key, n_pos, E,
+      capacity, stream);
+  if (err != 0) return err;
+  err = static_cast<int>(swiglu_tiles::launch_swiglu<false>(pb, E, s));
+  if (err != 0) return err;
   if (T > 0) {
-    const dim3 grid(T, (d + COMBINE_THREADS - 1) / COMBINE_THREADS);
-    combine_kernel<<<grid, COMBINE_THREADS, 0, s>>>(
-        static_cast<const float*>(y), static_cast<const int*>(order),
-        static_cast<const int*>(tok_start), static_cast<const int*>(tok_count),
+    // a few tokens spread their columns over more CTAs (~1024 in all)
+    const int col_blocks =
+        std::min((d + COMBINE_THREADS - 1) / COMBINE_THREADS,
+                 std::max(1, 1024 / T));
+    combine_kernel<<<dim3(T, col_blocks), COMBINE_THREADS, 0, s>>>(
+        static_cast<const float*>(y), static_cast<const int*>(key), n_pos,
         static_cast<float*>(out), d);
-    err = cudaGetLastError();
+    err = static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(err);
+  return err;
 }
 
 const char* fused_moe_pipeline_error_string(int code) {

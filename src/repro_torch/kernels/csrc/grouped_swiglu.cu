@@ -2,26 +2,30 @@
 // dual-sparse minor-half skipping: the expert FFN of the MoE buffer path
 // (gather_rows -> this kernel -> unpermute + combine).
 //
-// Replaces the TPU kernel src/repro/kernels/dualsparse_ffn.py::
-// grouped_swiglu_pallas (body _kernel). Same function: x (E, C, d) buffers,
-// group e's rows r < counts_full[e] use every neuron of the virtual width
-// P*f (sub-expert e*P + j holds neurons [j*f, (j+1)*f)), rows in
-// [counts_full, counts_full + counts_major) only the MAJOR neurons, rows at
-// or past both come out as exact zeros (the TPU kernel zero-inits every
-// output tile before it accumulates).
+// Replaces the TPU kernel src/repro/kernels/dualsparse_ffn.py:192
+// grouped_swiglu_pallas (body _kernel at :155). Same function: x (E, C, d)
+// buffers, group e's rows r < counts_full[e] use every neuron of the
+// virtual width P*f (sub-expert e*P + j holds neurons [j*f, (j+1)*f)), rows
+// in [counts_full, counts_full + counts_major) only the MAJOR neurons, rows
+// at or past both come out as exact zeros (the TPU kernel zero-inits every
+// output tile before it accumulates). Counts past C are clamped on the
+// device.
 //
-// What bounds it on an H100 (f32 weights): at decode capacity (C = 8) each
-// live expert streams 3 * d * V * 4 B of weights for a few rows, so it is
-// bound by device-memory bytes; at prefill capacity (C ~ 128) each weight
-// tile is reused by up to 64 rows, so it is bound by f32 operations on the
-// CUDA cores. What the design does about that: the up and down tiles of
-// swiglu_tiles.cuh in its buffer row layout — every weight tile is read once
-// per (group, row block) and reused from shared memory; row blocks past a
-// group's live rows load nothing, and MAJOR-only row blocks skip the MINOR
-// up tiles and stop the down contraction at n_major. Unlike the fused
-// pipeline it reads x from the (E, C, d) buffer and writes the (E, C, d)
-// output directly (no gather, no combine). One writer per output element,
-// a fixed k order: runs are bit-identical.
+// What bounds it on an H100 (f32 weights): at the paged engine's decode
+// (C = 8) and chunk (T = C = 64, ~3-4 live rows per group) each live
+// group streams 3 * d * V * 4 B of weights for a few rows, so it is bound by
+// device-memory bytes; at prefill capacity (C ~ 128, ~45-64 rows per group)
+// each weight tile is reused by that many rows, so it is bound by f32 FMAs
+// on the CUDA cores. What the design does about that: the up and down
+// tiles of swiglu_tiles.cuh in its buffer row layout stream the weights
+// through a ring of cp.async shared-memory slots, and pick the row tile on
+// the device from each group's live rows, not from C: a group of at most 16
+// rows runs one 16-row tile, larger groups 64-row register tiles. Row tiles
+// past a group's live rows load nothing, and MAJOR-only row tiles skip the
+// MINOR up strips and stop the down contraction at n_major. Unlike the fused pipeline it
+// reads x from the (E, C, d) buffer and writes the (E, C, d) output
+// directly (no gather, no combine). One writer per output element, a fixed
+// k order: runs are bit-identical.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -31,13 +35,15 @@
 extern "C" {
 
 // Enqueues the up and down launches on ``stream``. ``h`` is an (E*C, P*f)
-// float32 scratch; ``out`` the (E, C, d) float32 result. Returns the
-// cudaGetLastError() code after the first failing launch, or 0.
+// float32 scratch; ``out`` the (E, C, d) float32 result; ``regime`` null or
+// an (E,) int32 buffer that receives, per group, 1 (few-row tile) or 2
+// (many-row tile). Returns the cudaGetLastError() code after the first
+// failing launch, or 0.
 int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
                           const void* w2, const void* counts_full,
                           const void* counts_major, void* h, void* out,
-                          int E, int C, int d, int f, int P, int n_major,
-                          void* stream) {
+                          void* regime, int E, int C, int d, int f, int P,
+                          int n_major, void* stream) {
   swiglu_tiles::Problem pb;
   pb.x = static_cast<const float*>(x);
   pb.w1 = static_cast<const float*>(w1);
@@ -50,6 +56,7 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
   pb.comb = nullptr;
   pb.h = static_cast<float*>(h);
   pb.y = static_cast<float*>(out);
+  pb.regime = static_cast<int*>(regime);
   pb.d = d;
   pb.f = f;
   pb.P = P;
@@ -58,6 +65,13 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
   pb.capacity = C;
   return static_cast<int>(swiglu_tiles::launch_swiglu<true>(
       pb, E, static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory of one CTA (its cp.async ring) of the up (up != 0)
+// or down launch of the few-row (few != 0) or many-row tile.
+int grouped_swiglu_ring_bytes(int up, int few) {
+  return swiglu_tiles::smem_bytes(
+      up != 0, few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS);
 }
 
 const char* grouped_swiglu_error_string(int code) {

@@ -12,6 +12,11 @@ through ``ctypes``.
 * ``csrc/grouped_swiglu.cu`` computes what ``grouped_swiglu_pallas``
   computes: the same masked grouped SwiGLU over pre-gathered ``(E, C, d)``
   buffers, with rows at or past ``cf+cm`` returned as exact zeros.
+
+Both run the row tiles of ``csrc/swiglu_tiles.cuh``, which choose on the
+device, per group, between a few-row and a many-row tile; ``tile_plan``
+says on the host which tile serves each group and how many row slots it
+multiplies.
 """
 from __future__ import annotations
 
@@ -22,6 +27,15 @@ import torch
 from . import _build
 
 I32 = torch.int32
+
+# the row tiles of csrc/swiglu_tiles.cuh: groups with at most FEW_ROWS live
+# rows take the few-row tile (regime 1), the others the many-row tile
+# (regime 2) in row blocks of MANY_ROWS; 16 threads share a row (64
+# columns, 4 each), so a warp multiplies 2 x rows/16 rows of either tile
+# (ROWS_PER_WARP[regime]), and warps without a live row skip the FMAs
+FEW_ROWS = 16
+MANY_ROWS = 64
+ROWS_PER_WARP = {1: 2 * FEW_ROWS // 16, 2: 2 * MANY_ROWS // 16}
 
 
 def resolve_n_major(f: int, p_factor: int, n_minor_start, block_f: int
@@ -45,22 +59,49 @@ def resolve_n_major(f: int, p_factor: int, n_minor_start, block_f: int
                for j in range(p_factor))
 
 
-def combine_order(tok_sorted, group_offsets, counts_full, counts_major,
-                  n_tokens: int):
-    """Per-token lists of the sorted positions some row block computes.
+def tile_plan(counts_full, counts_major, capacity: int):
+    """The row tile of each group and the row slots it multiplies.
 
-    Returns ``(order, start, count)``: token t's positions are
-    ``order[start[t] : start[t] + count[t]]`` in increasing order (a stable
-    sort of the token keys). Positions past an expert's clamped rows —
-    capacity overflow, dropped pairs, the padding — are left out."""
+    Returns ``(regime, row_slots)``, (E,) int64: regime 1 (the few-row
+    tile) for groups of at most ``FEW_ROWS`` live rows ``min(cf + cm, C)``,
+    2 (the many-row tile) for larger ones; ``row_slots`` counts the rows of
+    a MAJOR strip's warps that have a live row — the live rows rounded up to
+    a warp's rows (the slots of the FMAs, dead or live)."""
+    n_rows = torch.clamp(counts_full.long() + counts_major.long(),
+                         max=capacity)
+    regime = torch.where(n_rows <= FEW_ROWS, 1, 2)
+    step = torch.where(regime == 1, ROWS_PER_WARP[1], ROWS_PER_WARP[2])
+    return regime, (n_rows + step - 1) // step * step
+
+
+def position_keys(tok_sorted, group_offsets, counts_full, counts_major):
+    """Each sorted position's token when some row tile computes it, else
+    -1: position p lies in the last group g with ``offs[g] <= p`` (group 0
+    if none) and is computed when ``p - offs[g] < cf[g] + cm[g]``.
+    Positions past an expert's clamped rows — capacity overflow, dropped
+    pairs, the padding — get -1. The CUDA kernel marks them the same way on
+    the device (``launch_position_keys``)."""
     dev = tok_sorted.device
     pos = torch.arange(tok_sorted.shape[0], dtype=I32, device=dev)
     offs = group_offsets.contiguous()
     g = (torch.searchsorted(offs, pos, right=True) - 1).clamp(min=0)
     rows = (counts_full + counts_major)[g]
     valid = (pos - offs[g]) < rows
-    key = torch.where(valid, tok_sorted, torch.full_like(tok_sorted,
-                                                         n_tokens))
+    return torch.where(valid, tok_sorted, torch.full_like(tok_sorted, -1))
+
+
+def combine_order(tok_sorted, group_offsets, counts_full, counts_major,
+                  n_tokens: int):
+    """Per-token lists of the sorted positions some row tile computes.
+
+    Returns ``(order, start, count)``: token t's positions are
+    ``order[start[t] : start[t] + count[t]]`` in increasing order (a stable
+    sort of the ``position_keys``); positions no tile computes are left
+    out. The plain version's combine order; the CUDA kernel's combine
+    gathers the same lists from the keys on the device."""
+    dev = tok_sorted.device
+    key = position_keys(tok_sorted, group_offsets, counts_full, counts_major)
+    key = torch.where(key >= 0, key, torch.full_like(key, n_tokens))
     order = torch.argsort(key, stable=True).to(I32)
     count = torch.zeros(n_tokens + 1, dtype=I32, device=dev)
     count.scatter_add_(0, key.long(), torch.ones_like(key))
@@ -70,9 +111,9 @@ def combine_order(tok_sorted, group_offsets, counts_full, counts_major,
 
 
 _ARGTYPES = {
-    "fused_moe_pipeline": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+    "fused_moe_pipeline": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p]),
-    "grouped_swiglu": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "grouped_swiglu": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p]),
 }
 
@@ -90,27 +131,45 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _ptr(t) -> int:
+    """A tensor's device pointer, 0 for ``None``."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
+def ring_bytes() -> dict:
+    """The dynamic shared memory (bytes) of one CTA of each row tile's up and
+    down launch, as the built library computes it."""
+    lib = _library("grouped_swiglu")
+    fn = lib.grouped_swiglu_ring_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {f"{launch}_{tile}": fn(launch == "up", tile == "few")
+            for launch in ("up", "down") for tile in ("few", "many")}
+
+
 def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                               counts_major, tok_sorted, combine_sorted, *,
-                              capacity: int, p_factor: int, n_major: int):
+                              capacity: int, p_factor: int, n_major: int,
+                              regime=None):
     """Enqueue the CUDA kernel on the current stream; returns the (T, d)
-    float32 output. Inputs must already be checked (``ops`` does that)."""
+    float32 output. Inputs must already be checked (``ops`` does that).
+    ``regime``: an (E,) int32 CUDA tensor that receives the row tile that
+    served each group (see ``tile_plan``), or ``None``."""
     lib = _library("fused_moe_pipeline")
     T, d = x.shape
     f = w1.shape[-1]
     E = group_offsets.shape[0]
     n_pos = tok_sorted.shape[0]
-    order, start, count = combine_order(tok_sorted, group_offsets,
-                                        counts_full, counts_major, T)
     h = torch.empty((n_pos, p_factor * f), dtype=torch.float32,
                     device=x.device)
     y = torch.empty((n_pos, d), dtype=torch.float32, device=x.device)
+    key = torch.empty((n_pos,), dtype=I32, device=x.device)
     out = torch.empty((T, d), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_moe_pipeline_launch(
@@ -118,17 +177,37 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
         group_offsets.data_ptr(), counts_full.data_ptr(),
         counts_major.data_ptr(), tok_sorted.data_ptr(),
         combine_sorted.data_ptr(), h.data_ptr(), y.data_ptr(),
-        order.data_ptr(), start.data_ptr(), count.data_ptr(),
-        out.data_ptr(), T, d, f, E, p_factor, n_major, capacity, stream)
+        key.data_ptr(), out.data_ptr(), _ptr(regime), T, n_pos, d, f, E,
+        p_factor, n_major, capacity, stream)
     _raise_on_error(lib, "fused_moe_pipeline", err)
     return out
 
 
+def launch_position_keys(tok_sorted, group_offsets, counts_full,
+                         counts_major, capacity: int):
+    """The fused kernel's first launch alone on CUDA tensors: the (N',)
+    int32 ``position_keys``, counts clamped to ``capacity`` as the tiles
+    clamp them."""
+    lib = _library("fused_moe_pipeline")
+    fn = lib.fused_moe_pipeline_position_keys
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    key = torch.empty(tok_sorted.shape, dtype=I32, device=tok_sorted.device)
+    err = fn(tok_sorted.data_ptr(), group_offsets.data_ptr(),
+             counts_full.data_ptr(), counts_major.data_ptr(), key.data_ptr(),
+             tok_sorted.shape[0], group_offsets.shape[0], capacity,
+             torch.cuda.current_stream(tok_sorted.device).cuda_stream)
+    _raise_on_error(lib, "fused_moe_pipeline", err)
+    return key
+
+
 def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
-                          p_factor: int, n_major: int):
+                          p_factor: int, n_major: int, regime=None):
     """Enqueue the grouped SwiGLU kernel on the current stream; returns the
     (E, C, d) float32 output, dead rows exact zeros. Inputs must already be
-    checked (``ops`` does that)."""
+    checked (``ops`` does that); counts past C are clamped on the device.
+    ``regime`` as for ``launch_fused_moe_pipeline``."""
     E, C, d = x.shape
     f = w1.shape[-1]
     out = torch.empty((E, C, d), dtype=torch.float32, device=x.device)
@@ -141,6 +220,7 @@ def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
     err = lib.grouped_swiglu_launch(
         x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
         counts_full.data_ptr(), counts_major.data_ptr(), h.data_ptr(),
-        out.data_ptr(), E, C, d, f, p_factor, n_major, stream)
+        out.data_ptr(), _ptr(regime), E, C, d, f, p_factor, n_major,
+        stream)
     _raise_on_error(lib, "grouped_swiglu", err)
     return out

@@ -140,16 +140,6 @@ def _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
         raise ValueError("grouped_swiglu: counts must be (E,)")
 
 
-def clamp_counts(counts_full, counts_major, capacity: int):
-    """Counts within the capacity (``cf + cm <= C``), as the kernel takes
-    them: a group's rows past C would be the next group's. The function
-    does not change (the plain version clamps by indexing)."""
-    counts_full = counts_full.clamp(max=capacity)
-    counts_major = (counts_full + counts_major).clamp(max=capacity) \
-        - counts_full
-    return counts_full, counts_major
-
-
 def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
                    p_factor: int = 1, n_minor_start=None,
                    block_c: int = 128, block_f: int = 128):
@@ -175,8 +165,6 @@ def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
         raise ValueError(f"grouped_swiglu: no kernel for device {x.device}")
     n_major = dualsparse_ffn.resolve_n_major(w1.shape[-1], p_factor,
                                              n_minor_start, block_f)
-    counts_full, counts_major = clamp_counts(counts_full, counts_major,
-                                             x.shape[1])
     out = dualsparse_ffn.launch_grouped_swiglu(
         x, w1, w3, w2, counts_full, counts_major, p_factor=p_factor,
         n_major=n_major)

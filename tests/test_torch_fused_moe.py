@@ -5,7 +5,11 @@ numpy inputs and plans.
 
 Tolerance: rel_err <= 1e-6 in float32 — both sides compute the same rows
 and the same per-token accumulation order; only the order of the sums
-inside each matrix product differs."""
+inside each matrix product differs. The ``skewed_rows`` case routes its
+tokens so that the groups sit on both sides of the CUDA tiles' few-row
+threshold R: exactly R and R+1 live rows, one group at capacity (with
+overflow), an empty one, two with a few rows, MAJOR-only rows among
+them."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,18 +33,36 @@ CASES = {
     "p2_explicit_minor_start": (5, 32, 2, 4, 2, 32, 96, 32, 0.9, 0.5, 16,
                                 64, 80),
     "overflow": (6, 64, 4, 4, 2, 32, 32, 8, 0.9, 0.3, 8, 128, None),
+    # T follows from the skewed group sizes (_skewed_groups)
+    "skewed_rows": (11, None, 2, 6, 2, 32, 24, tdsf.FEW_ROWS + 8, 1.0, 0.4,
+                    8, 128, None),
 }
 
 
+def _skewed_groups(R: int, cap: int):
+    """(T, 2) expert choices, two distinct experts per token, giving groups
+    0..5 R, R+1, cap+6 (past capacity), 0, 3 and 2-3 pairs."""
+    sizes = [R, R + 1, cap + 6, 0, 3, 2]
+    sizes[-1] += sum(sizes) % 2
+    items = np.repeat(np.arange(len(sizes)), sizes)
+    T = len(items) // 2
+    group = np.stack([items[:T], items[T:]], axis=1).astype(np.int32)
+    assert (group[:, 0] != group[:, 1]).all()
+    return group
+
+
 def _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p, block_c,
-            empty_experts=False):
+            empty_experts=False, group=None):
     rng = np.random.default_rng(seed)
+    if group is not None:
+        T, K = group.shape
     x = rng.standard_normal((T, d)).astype(np.float32)
     w1 = (rng.standard_normal((E * P, d, f)) * 0.1).astype(np.float32)
     w3 = (rng.standard_normal((E * P, d, f)) * 0.1).astype(np.float32)
     w2 = (rng.standard_normal((E * P, f, d)) * 0.1).astype(np.float32)
     hi = 1 if empty_experts else E
-    group = rng.integers(0, hi, (T, K)).astype(np.int32)
+    if group is None:
+        group = rng.integers(0, hi, (T, K)).astype(np.int32)
     keep = rng.random((T, K)) < keep_p
     major = (rng.random((T, K)) < major_p) & keep
     wts = (rng.random((T, K)) * keep).astype(np.float32)
@@ -77,8 +99,15 @@ def _rel_err(a, b):
 def test_fused_pipeline_matches_jax(name):
     (seed, T, K, E, P, d, f, cap, keep_p, major_p, bc, bf,
      nms) = CASES[name]
+    group = (_skewed_groups(tdsf.FEW_ROWS, cap) if name == "skewed_rows"
+             else None)
     arrays, overflow = _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p,
-                               bc)
+                               bc, group=group)
+    if name == "skewed_rows":
+        live = arrays["counts_full"] + arrays["counts_major"]
+        R = tdsf.FEW_ROWS
+        assert live.tolist() == [R, R + 1, cap, 0, 3, live[5]]
+        assert overflow > 0 and arrays["counts_major"][:3].min() > 0
     if name == "overflow":
         assert overflow > 0
     elif major_p > 0:

@@ -3,7 +3,9 @@
 ``grouped_swiglu`` in Pallas interpret mode, on the same numpy inputs: P 1,
 2 and 4, capacities and widths that are not multiples of the tiles, an
 explicit ``n_minor_start`` (in the kernel's padded virtual coordinate),
-zero counts and ``None`` counts.
+zero counts and ``None`` counts, and a skewed case whose groups sit on
+both sides of the CUDA tiles' few-row threshold R (exactly R and R+1 live
+rows, one group at capacity, an empty one, MAJOR-only rows).
 
 Tolerance: rel_err <= 1e-6 in float32 — both sides compute the same masked
 rows; only the order of the sums inside each matrix product differs. Rows
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import dualsparse_ffn as tdsf
 from repro_torch.kernels import ops as tops
 
 REL_TOL = 1e-6
@@ -39,6 +42,8 @@ CASES = {
                             "full_only"),
     "zero_counts": (13, 2, 32, 64, 128, 1, 32, 128, None, "zero"),
     "counts_past_capacity": (14, 3, 16, 32, 64, 2, 8, 32, None, "over"),
+    "skewed_rows": (15, 6, tdsf.FEW_ROWS + 8, 32, 24, 2, 8, 8, None,
+                    "skewed"),
 }
 
 
@@ -60,6 +65,11 @@ def _inputs(seed, E, C, d, f, P, counts):
     elif counts == "over":          # cf + cm past C, and cf past C once
         cf = np.asarray([C + 3, C - 2, 5][:E], np.int32)
         cm = np.asarray([4, 6, C][:E], np.int32)
+    elif counts == "skewed":        # live rows R, R+1, C, 0, 3, 1
+        R = tdsf.FEW_ROWS
+        live = np.asarray([R, R + 1, C, 0, 3, 1], np.int32)
+        cf = np.asarray([R - 5, R + 1, C - 7, 0, 0, 1], np.int32)
+        cm = live - cf
     return x, w1, w3, w2, cf, cm
 
 
@@ -109,12 +119,15 @@ def test_grouped_swiglu_major_rows_skip_minor_neurons():
 
 
 def test_clamped_counts_keep_the_function():
-    """The counts the CUDA path clamps to the capacity give the plain
-    version's result bit for bit."""
+    """The counts the CUDA tiles clamp to the capacity on the device
+    (``swiglu_tiles.cuh::group_rows``: ``min(cf, C)`` FULL rows,
+    ``min(cf + cm, C)`` live rows) give the plain version's result bit for
+    bit."""
     seed, E, C, d, f, P, _, _, _, counts = CASES["counts_past_capacity"]
     x, w1, w3, w2, cf, cm = (None if a is None else torch.from_numpy(a)
                              for a in _inputs(seed, E, C, d, f, P, counts))
-    cf_c, cm_c = tops.clamp_counts(cf, cm, C)
+    cf_c = cf.clamp(max=C)
+    cm_c = (cf + cm).clamp(max=C) - cf_c
     assert ((cf_c + cm_c) <= C).all() and (cm_c >= 0).all()
     want = tops.grouped_swiglu(x, w1, w3, w2, cf, cm, p_factor=P)
     got = tops.grouped_swiglu(x, w1, w3, w2, cf_c, cm_c, p_factor=P)
