@@ -26,7 +26,10 @@
 
 6. Kernels: the intra-chunk SSD of Mamba2 (``ssd_chunk``) against its
    plain version at the shapes the Mamba2 and Zamba2 prefills give it,
-   at Q = 128 and at the JAX kernel tests' odd shape.
+   at Q = 128 and at the JAX kernel tests' odd shape, with B/C per head;
+   at the two prefill shapes with B/C per group, as the models pass them,
+   once more with the Mamba2 layer's own draws of dt and a; with each
+   call's bound, share of it and device time per launch.
 7. Serve: Mamba2-370m at full width and full depth (48 layers, seeded
    random weights) through ``ServingEngine``: 8 requests x 512-token
    prompts x 16 new tokens, greedy. Every layer's prefill SSD goes through
@@ -63,10 +66,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (dense): HBM bytes/s and float32 FLOP/s on the
-# CUDA cores (the kernel does not use the tensor cores)
+# published H100 SXM peaks (dense): HBM bytes/s, float32 FLOP/s on the
+# CUDA cores (the MoE kernels' rate) and TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12     # TF32 on the tensor cores (ssd_chunk's products)
 REL_TOL = 1e-5          # float32: the same products summed in another order
 DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
 # the first Mamba2 layer's SSD through the kernel against the sequential
@@ -220,9 +224,9 @@ def _dev_us(ev) -> float:
 
 def launch_profile(fn, runs: int = 5) -> dict:
     """Device µs per call of ``fn`` by launch, from ``torch.profiler``:
-    each row tile's up and down launches, the combine, and the wrapper's own
-    torch ops (every other kernel), apart; and the host's enqueue time per
-    call."""
+    each row tile's up and down launches, the combine, the SSD's three
+    launches, and the wrapper's own torch ops (every other kernel), apart;
+    and the host's enqueue time per call."""
     import re
     import warnings
     import torch
@@ -255,6 +259,12 @@ def launch_profile(fn, runs: int = 5) -> dict:
             key = "combine"
         elif "position_key_kernel" in ev.key:
             key = "keys"
+        elif "ssd_prep_kernel" in ev.key:
+            key = "ssd_prep"
+        elif "ssd_y_kernel" in ev.key:
+            key = "ssd_y"
+        elif "ssd_states_kernel" in ev.key:
+            key = "ssd_states"
         else:
             key = "wrapper_ops"
             wrapper_kernels += ev.count
@@ -992,20 +1002,27 @@ def paged_phase(dev, cfg, model, calib):
 # Phase 6: the intra-chunk SSD kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def ssd_bound(BH: int, nc: int, Q: int, P: int, N: int):
-    """(bound_ms, bound_by, flops, bytes) of one ssd_chunk call: each
-    input read once and each output written once over the HBM rate; the
-    lower triangle's C·Bᵀ and M·x products (Q(Q+1)/2 pairs, 2(N+P) FLOPs
-    each) and the states product (2·N·P·Q) per chunk over the float32
-    rate; the larger of the two."""
-    chunks = BH * nc
-    nbytes = 4 * (chunks * Q * (2 * P + 2 * N + 1) + BH
-                  + chunks * (N * P + 1))
-    flops = chunks * (Q * (Q + 1) // 2 * 2 * (N + P) + 2 * N * P * Q)
+def ssd_bound(BH: int, nc: int, Q: int, P: int, N: int, G: int):
+    """(bound_ms, bound_by, flops, bytes, f32core_ms) of one ssd_chunk call
+    with B/C in G group rows (G = BH: the TPU layout): the larger of the
+    bytes it must move (each input read once, B and C once per group, each
+    output written once) over the HBM rate and its products over the rate
+    of the units that run them, three TF32 passes on the tensor cores
+    (3·FLOPs / TF32 rate). FLOPs: the C·Bᵀ triangle (Q(Q+1)/2 pairs, 2N
+    each) once per (group, chunk), and per (head, chunk) the triangle's M·x
+    (2P per pair) and the states product (2·N·P·Q). ``f32core_ms``: the
+    same bytes against FLOPs over the float32 CUDA-core rate, the bound
+    before the products moved to the tensor cores."""
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * (BH * nc * Q * (2 * P + 1) + G * nc * Q * 2 * N + BH
+                  + BH * nc * (N * P + 1))
+    flops = G * nc * tri * 2 * N + BH * nc * (tri * 2 * P + 2 * N * P * Q)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = 3 * flops / TF32_FLOPS
+    f32core_ms = max(t_bytes, flops / F32_FLOPS) * 1e3
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            f32core_ms)
 
 
 def norm_rel(got, want) -> float:
@@ -1023,8 +1040,14 @@ def ssd_phase(dev):
     the two serve phases (8 x 512 tokens of Mamba2-370m: BH 8 x 32 heads,
     2 chunks of 256, P 64, N 128; 8 x 384 tokens of Zamba2-7B: BH 8 x 112,
     one whole and one padded chunk, N 64), at Q = 128, and at the JAX
-    kernel tests' odd shape. Inputs as those tests draw them:
-    dt = softplus(N(0, 1)), a = -exp(0.5 N(0, 1))."""
+    kernel tests' odd shape, with B/C per head (the TPU layout); then at
+    the two serve shapes with B/C per group, as the models pass them (one
+    group: leading dimension 8), the second time at the Mamba2 shape with
+    the layer's own draws (dt log-uniform in [1e-3, 1e-1], a = -U[1, 16]:
+    neither L nor the decays fall below float32's range). Other inputs as
+    the JAX kernel tests draw them: dt = softplus(N(0, 1)), a =
+    -exp(0.5 N(0, 1))."""
+    import math
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1033,15 +1056,30 @@ def ssd_phase(dev):
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-    cases = [("mamba2-370m", (256, 2, 256, 64, 128)),
-             ("zamba2-7b", (896, 2, 256, 64, 64)),
-             ("q128", (256, 4, 128, 64, 128)),
-             ("jax_odd", (1, 5, 16, 8, 8))]
+
+    def model_draws(BH, nc, Q):
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(
+            (BH, nc, Q), generator=gen, device=dev))
+        a = -(1.0 + 15.0 * torch.rand((BH,), generator=gen, device=dev))
+        return dt, a
+    cases = [("mamba2-370m", (256, 2, 256, 64, 128, 256), False),
+             ("zamba2-7b", (896, 2, 256, 64, 64, 896), False),
+             ("q128", (256, 4, 128, 64, 128, 256), False),
+             ("jax_odd", (1, 5, 16, 8, 8, 1), False),
+             ("mamba2-370m/grouped", (256, 2, 256, 64, 128, 8), False),
+             ("zamba2-7b/grouped", (896, 2, 256, 64, 64, 8), False),
+             ("mamba2-370m/grouped/model-draw", (256, 2, 256, 64, 128, 8),
+              True)]
     results = []
-    for name, (BH, nc, Q, P, N) in cases:
-        args = (randn(BH, nc, Q, P), F.softplus(randn(BH, nc, Q)),
-                -torch.exp(randn(BH) * 0.5), randn(BH, nc, Q, N),
-                randn(BH, nc, Q, N))
+    for name, (BH, nc, Q, P, N, G), model in cases:
+        if model:
+            dt, a = model_draws(BH, nc, Q)
+        else:
+            dt = F.softplus(randn(BH, nc, Q))
+            a = -torch.exp(randn(BH) * 0.5)
+        args = (randn(BH, nc, Q, P), dt, a, randn(G, nc, Q, N),
+                randn(G, nc, Q, N))
         out1 = ops.ssd_chunk(*args)
         out2 = ops.ssd_chunk(*args)
         ref = ops.ssd_chunk_ref(*args)
@@ -1051,26 +1089,48 @@ def ssd_phase(dev):
         max_abs = max(float((o - r).abs().max()) for o, r in zip(out1, ref))
         stable = all(torch.equal(a, b) for a, b in zip(out1, out2))
         finite = all(bool(torch.isfinite(o).all()) for o in out1)
+        decay_min = float(out1[2].min())
+        decay_live = float((out1[2] > 0).float().mean())
         ms = cuda_ms(lambda: ops.ssd_chunk(*args), 20)
         plain_ms = cuda_ms(lambda: ops.ssd_chunk_ref(*args), 5)
-        bound_ms, bound_by, flops, nbytes = ssd_bound(BH, nc, Q, P, N)
-        res = dict(case=name, BH=BH, nc=nc, Q=Q, P=P, N=N, rel_err=rel,
-                   max_abs_err=max_abs, bit_stable=stable, ms=ms,
+        bound_ms, bound_by, flops, nbytes, f32core_ms = ssd_bound(
+            BH, nc, Q, P, N, G)
+        prof = launch_profile(lambda: ops.ssd_chunk(*args))
+        dev_total_us = sum(prof["device_us"].values()) or float("nan")
+        res = dict(case=name, BH=BH, G=G, nc=nc, Q=Q, P=P, N=N,
+                   model_draw=model, rel_err=rel, max_abs_err=max_abs,
+                   bit_stable=stable, decay_min=decay_min,
+                   decay_nonzero=decay_live, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   flops=flops, bytes=nbytes)
+                   bound_f32core_ms=f32core_ms, bound_share=bound_ms / ms,
+                   bound_share_device=1e3 * bound_ms / dev_total_us,
+                   flops=flops, bytes=nbytes, profile=prof)
         results.append(res)
-        log(f"  ssd_chunk[{name}] BH={BH} nc={nc} Q={Q} P={P} N={N} "
+        dev_us = ", ".join(f"{k} {v:.1f}" for k, v in
+                           sorted(prof["device_us"].items()))
+        log(f"  ssd_chunk[{name}] BH={BH} G={G} nc={nc} Q={Q} P={P} N={N} "
             f"rel_err y={rel['y']:.3e} states={rel['states']:.3e} "
             f"decay={rel['decay']:.3e} max_abs={max_abs:.3e} "
-            f"bit_stable={stable} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"bit_stable={stable} min_decay={decay_min:.3e} (nonzero "
+            f"{100 * decay_live:.1f}%) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (3xTF32 "
+            f"tensor cores, {bound_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of it, "
+            f"{1e5 * bound_ms / dev_total_us:.1f}% of device time; "
+            f"float32 CUDA-core bound {f32core_ms:.4f} ms); device µs per "
+            f"call: {dev_us}; host "
+            f"enqueue {prof['host_enqueue_us']:.1f} µs")
         if not (rel["y"] <= REL_TOL and rel["states"] <= REL_TOL
                 and rel["decay"] <= DECAY_TOL and stable and finite):
             raise AssertionError(f"ssd_chunk[{name}] disagrees with its "
                                  f"plain version: {rel} (bars {REL_TOL} / "
                                  f"decay {DECAY_TOL}) bit_stable={stable} "
                                  f"finite={finite}")
+        # the model's draws keep the decays as values, not zeros (a rare
+        # head with a near -16 and a long dt sum may still underflow)
+        if model and decay_live < 0.99:
+            raise AssertionError(f"ssd_chunk[{name}]: {decay_live:.3f} of "
+                                 "the chunk decays are nonzero")
     return results
 
 
@@ -1256,6 +1316,10 @@ def main() -> int:
     del model, policy, calib
     torch.cuda.empty_cache()
     log("phase 6: ssd_chunk against its plain version")
+    log(f"  bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM, "
+        f"3 x FLOPs / {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 tensor-core "
+        f"peak: the kernel's 3xTF32 products); bars rel_err <= {REL_TOL:g} "
+        f"(y, states), <= {DECAY_TOL:g} (decay), bit-identical")
     ssd = ssd_phase(dev)
     log("phase 7: serve Mamba2-370m (48 layers), 8 x 512 x 16")
     mamba = recurrent_serve_phase(dev, "mamba2-370m", 512)
@@ -1296,9 +1360,11 @@ def main() -> int:
                      paged["counts"]["grouped_swiglu"]["launches"]),
         # no single PyTorch call computes the intra-chunk SSD either
         kernel_entry("ssd_chunk", "src/repro/kernels/ssd_chunk.py:59", ssd,
-                     "mamba2-370m", mamba["launches"] + zamba["launches"],
-                     at="Mamba2-370m prefill BH=256 nc=2 Q=256 P=64 N=128; "
-                        "launches of phases 7 and 8")]}))
+                     "mamba2-370m/grouped",
+                     mamba["launches"] + zamba["launches"],
+                     at="Mamba2-370m prefill BH=256 nc=2 Q=256 P=64 "
+                        "N=128, B/C in 8 group rows; launches of phases 7 "
+                        "and 8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -181,16 +181,19 @@ def _check_ssd_inputs(x, dt, a, bm, cm):
     _check_dtypes("ssd_chunk", named, tuple(named), ())
     if x.ndim != 4 or bm.ndim != 4:
         raise ValueError("ssd_chunk: x must be (BH, nc, Q, P) and bm/cm "
-                         "(BH, nc, Q, N)")
+                         "(BG, nc, Q, N)")
     BH, nc, Q, P = x.shape
-    N = bm.shape[-1]
+    BG, N = bm.shape[0], bm.shape[-1]
     if (tuple(dt.shape) != (BH, nc, Q) or tuple(a.shape) != (BH,)
-            or tuple(bm.shape) != (BH, nc, Q, N) or cm.shape != bm.shape):
+            or tuple(bm.shape) != (BG, nc, Q, N) or cm.shape != bm.shape):
         raise ValueError(f"ssd_chunk: shapes x {tuple(x.shape)} dt "
                          f"{tuple(dt.shape)} a {tuple(a.shape)} bm "
                          f"{tuple(bm.shape)} cm {tuple(cm.shape)} do not "
                          "fit (BH, nc, Q, P) / (BH, nc, Q) / (BH,) / "
-                         "(BH, nc, Q, N)")
+                         "(BG, nc, Q, N)")
+    if BG < 1 or BH % BG:
+        raise ValueError(f"ssd_chunk: bm/cm's {BG} group rows do not "
+                         f"divide the {BH} heads of x")
     if min(Q, P, N) < 1:
         raise ValueError("ssd_chunk: Q, P and N must be >= 1")
 
@@ -199,8 +202,10 @@ def ssd_chunk(x, dt, a, bm, cm):
     """Intra-chunk SSD of Mamba2 (``ssd_chunk_pallas``'s function).
 
     x: (BH, nc, Q, P); dt: (BH, nc, Q) (softplus'd, > 0); a: (BH,) (< 0);
-    bm, cm: (BH, nc, Q, N); all float32. Returns (y_intra (BH, nc, Q, P),
-    states (BH, nc, N, P), decay (BH, nc)) in float32."""
+    bm, cm: (BG, nc, Q, N) with BG dividing BH: head bh reads group row
+    ``bh // (BH // BG)`` (``repeat_interleave`` along the heads; BG = BH is
+    the TPU kernel's own layout); all float32. Returns (y_intra (BH, nc, Q,
+    P), states (BH, nc, N, P), decay (BH, nc)) in float32."""
     _check_ssd_inputs(x, dt, a, bm, cm)
     if x.device.type == "cpu":
         return ref.ssd_chunk_ref(x, dt, a, bm, cm)

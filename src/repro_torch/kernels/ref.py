@@ -133,13 +133,18 @@ def ssd_chunk_ref(x, dt, a, bm, cm):
     """Intra-chunk SSD (Mamba2), plainly, with the signature of the TPU
     kernel's oracle (``src/repro/kernels/ssd_chunk.py::ssd_chunk_ref``).
 
-    x: (BH, nc, Q, P); dt: (BH, nc, Q); a: (BH,); bm, cm: (BH, nc, Q, N).
+    x: (BH, nc, Q, P); dt: (BH, nc, Q); a: (BH,); bm, cm: (BG, nc, Q, N)
+    with BG dividing BH, head bh reading group row ``bh // (BH // BG)``.
     Per (batch·head, chunk): ``cum = cumsum(dt·a)``, ``L[i, j] =
     exp(cum_i - cum_j)`` for i >= j else 0, ``y = (C·Bᵀ ∘ L ∘ dt_j)·x``,
     ``states = (B ∘ dt ∘ exp(cum_end - cum))ᵀ·x``, ``decay =
     exp(cum_end)``. Returns (y (BH, nc, Q, P), states (BH, nc, N, P),
     decay (BH, nc)), float32."""
     ssd_chunk_ref.calls += 1
+    rep = x.shape[0] // bm.shape[0]
+    if rep > 1:
+        bm = bm.repeat_interleave(rep, dim=0)
+        cm = cm.repeat_interleave(rep, dim=0)
     dA = dt * a[:, None, None]                                  # (BH, nc, Q)
     cum = chunk_cumsum(dA)
     seg = cum[..., :, None] - cum[..., None, :]

@@ -150,26 +150,29 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 256):
 def ssd_chunked_kernel(x, dt, A, B, C, chunk: int = 128):
     """``ssd_chunked`` with the intra-chunk terms through
     ``kernels.ops.ssd_chunk``; the recurrence and the inter-chunk term in
-    torch. Same signature and semantics as ``ssd_chunked``."""
+    torch. Same signature and semantics as ``ssd_chunked``. B and C go to
+    the kernel once per group of heads, not repeated per head."""
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     x, dt, B, C = _pad_seq(chunk, x, dt, B, C)
     nc = x.shape[1] // chunk
     rep = H // G
-    # (b, S, H, *) -> (b*H, nc, Q, *), bh = batch * H + head
+    # (b, S, H, *) -> (b*H, nc, Q, *), bh = batch * H + head; B/C (b, S, G,
+    # N) -> (b*G, nc, Q, N), bg = batch * G + group = bh // rep
     xk = x.transpose(1, 2).reshape(b * H, nc, chunk, P).contiguous()
     dtk = dt.transpose(1, 2).reshape(b * H, nc, chunk).contiguous()
-    Bk = B.repeat_interleave(rep, dim=2).transpose(1, 2) \
-        .reshape(b * H, nc, chunk, N).contiguous()
-    Ck = C.repeat_interleave(rep, dim=2).transpose(1, 2) \
-        .reshape(b * H, nc, chunk, N).contiguous()
+    Bk = B.transpose(1, 2).reshape(b * G, nc, chunk, N).contiguous()
+    Ck = C.transpose(1, 2).reshape(b * G, nc, chunk, N).contiguous()
     ak = A.repeat(b).contiguous()
 
     y_intra, states, chunk_decay = ops.ssd_chunk(xk, dtk, ak, Bk, Ck)
 
     h_prev, h_final = _chunk_recurrence(chunk_decay, states)  # (BH,nc,N,P)
     in_decay = torch.exp(chunk_cumsum(dtk * ak[:, None, None]))
-    y_inter = torch.einsum("bcqn,bcq,bcnp->bcqp", Ck, in_decay, h_prev)
+    # C·h_prev of the group's rep heads in one product per (bg, chunk)
+    y_inter = torch.einsum("gcqn,grcnp->grcqp", Ck,
+                           h_prev.reshape(b * G, rep, nc, N, P))
+    y_inter = y_inter.reshape(b * H, nc, chunk, P) * in_decay[..., None]
     y = (y_intra + y_inter).reshape(b, H, nc * chunk, P).transpose(1, 2)
     return y[:, :S], h_final.transpose(-1, -2).reshape(b, H, P, N)
 

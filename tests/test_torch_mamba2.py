@@ -109,6 +109,24 @@ def test_ssd_chunked_paths_match_sequential_oracle(chunk, G):
         np.testing.assert_allclose(h.numpy(), h_r.numpy(), atol=atol)
 
 
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_chunked_kernel_passes_groups_to_the_kernel(monkeypatch, G):
+    """B and C reach ``ops.ssd_chunk`` once per (batch, group), (b*G, nc,
+    Q, N), not repeated over the H/G heads of a group."""
+    seen = []
+    real = TMM.ops.ssd_chunk
+
+    def spy(x, dt, a, bm, cm):
+        seen.append((tuple(x.shape), tuple(bm.shape), tuple(cm.shape)))
+        return real(x, dt, a, bm, cm)
+    monkeypatch.setattr(TMM.ops, "ssd_chunk", spy)
+    b, S, H, N = 2, 130, 4, 8
+    TMM.ssd_chunked_kernel(*_t(_ssd_inputs(3, b=b, S=S, H=H, G=G, N=N)),
+                           chunk=32)
+    assert seen == [((b * H, 5, 32, 16), (b * G, 5, 32, N),
+                     (b * G, 5, 32, N))]
+
+
 @functools.lru_cache(maxsize=None)
 def _layer():
     """JAX Mamba2 layer weights of mamba2-370m --reduced, and the same
