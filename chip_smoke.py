@@ -7,8 +7,10 @@
    against their plain PyTorch versions on the card, at the shapes the
    serving paths give them (decode, the paged engine's 64-token chunk,
    prefill, P=1 layouts, overflow, empty experts), at a skewed routing
-   whose groups need both row tiles, and at two odd widths (one off the
-   16-byte path), with their times, their plain versions' times, their
+   whose groups need both row tiles, at two odd widths (one off the
+   16-byte path), and (2 only) at DBRX-132B's widths (d 6144, 16 experts
+   top-4, P 2, 5376 neurons per sub-expert) at decode T=8 and prefill
+   T=2048, with their times, their plain versions' times, their
    bounds and shares of them, which row tile served each group, the row
    slots multiplied against the live rows, and a profile splitting each
    call into its launches and the wrapper's own ops.
@@ -37,12 +39,30 @@
 8. Serve: Zamba2-7B at full width and full depth (81 Mamba2 layers, the
    shared attention + MLP block before every 6th: 14 occurrences) through
    ``ServingEngine``: 8 requests x 384-token prompts x 16 new tokens.
+9. Serve: DBRX-132B at full width (d_model 6144, 48 heads / 8 kv, 16
+   experts top-4, d_expert 10752, vocab 100352; depth cut from 40 to 3
+   layers, seeded random float32 weights, prepared once by ``per_layer``)
+   through ``ServingEngine``: 4 requests x 1536-token prompts x 16 new
+   tokens (blockwise attention, the fused kernel at T=6144), under ``2t``
+   and ``per_layer`` calibrated to a 25% drop and ``load_aware`` over 4
+   modelled EP devices at the 2T policy's T¹ ± gap. Then the Fig. 11
+   proxy on layer 0 with a skewed router: makespan, drop rate and output
+   error of 2T and load-aware against keep-all (a single-card proxy, not
+   a measured EP speedup).
+10. Serve the dense and VLM decoders through ``ServingEngine``:
+   Qwen2-VL-7B at full width and depth (1024 vision-stub tokens + 256
+   text tokens: blockwise attention; also through
+   ``ContinuousBatchingEngine``), Qwen2-7B and StarCoder2-3B at full depth
+   and Granite-20B at full width with depth cut from 52 to 24 layers, 4
+   requests x 512 x 16; and layer 0's blockwise attention against
+   ``plain_attention`` on the card at S = 1280.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
-kernel's plain version and the dense oracle; phases 7 and 8 hold the first
-Mamba2 layer's SSD on real hidden states, through the kernel, against the
-plain chunked SSD and the sequential-scan oracle.
+kernel's plain version and the dense oracle (phase 9 likewise, per
+policy, at DBRX widths); phases 7 and 8 hold the first Mamba2 layer's SSD
+on real hidden states, through the kernel, against the plain chunked SSD
+and the sequential-scan oracle. Each model is freed before the next.
 
 Each serving path runs with every kernel's launch count and every plain
 version's call count set to 0 just before it and read just after.
@@ -79,6 +99,17 @@ DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
 ORACLE_TOL = 5e-5
 N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
 KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk")
+# (d, E, P, f, top_k) of DBRX-132B's MoE layer, partitioned P=2
+DBRX_WIDTHS = (6144, 16, 2, 5376, 4)
+DBRX_LAYERS = 3         # depth cut of phase 9 (the model has 40)
+
+
+def free_memory() -> None:
+    """Return the freed models' blocks to the card before the next one."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def ptxas_report(text: str):
@@ -327,10 +358,12 @@ def case_report(label: str, ms: float, bound, tiles: dict, prof: dict
 
 def kernel_phase(dev):
     """The fused MoE pipeline against its plain version at Qwen3-30B-A3B
-    widths (d 2048, 128 experts, P 2, 384 neurons per sub-expert, top-8)
-    and at two odd widths (d 200 / f 100 and d 202 / f 98, 8 experts,
-    top-2), with routing from a router and 2T thresholds calibrated to a
-    25% drop target, so that rows are FULL, MAJOR-only and dropped."""
+    widths (d 2048, 128 experts, P 2, 384 neurons per sub-expert, top-8),
+    at two odd widths (d 200 / f 100 and d 202 / f 98, 8 experts, top-2)
+    and at DBRX-132B's (d 6144, 16 experts, P 2, f 5376, top-4: 4.2 GB per
+    weight stack, past 32-bit byte offsets), with routing from a router
+    and 2T thresholds calibrated to a 25% drop target, so that rows are
+    FULL, MAJOR-only and dropped."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
@@ -345,6 +378,7 @@ def kernel_phase(dev):
     # the layer's capacity: capacity_for(T, K*P sub-pairs, E*P sub-experts)
     cap_decode = moe.capacity_for(8, K * P, E * P, 2.0)
     cap_prefill = moe.capacity_for(1024, K * P, E * P, 2.0)
+    dd, de, dp, _, dk = DBRX_WIDTHS
     cases = [
         # name, T, capacity, mode_grouped, experts left empty, hot experts
         ("decode", 8, cap_decode, True, 0, 0),
@@ -355,15 +389,28 @@ def kernel_phase(dev):
         # the paged engine's fused route: a 64-token chunk, exact capacity
         ("chunk", 64, 64, True, 0, 0),
         ("skewed", 256, 256, True, 0, HOT_EXPERTS),
-    ] + [(name, 64, 64, True, 0, 0) for name, *_ in ODD_WIDTHS]
-    odd = {name: rest for name, *rest in ODD_WIDTHS}
+    ] + [(name, 64, 64, True, 0, 0) for name, *_ in ODD_WIDTHS] + [
+        # DBRX-132B: a decode step and a 2048-token prefill at the serving
+        # engine's capacity factor
+        ("dbrx_decode", 8, moe.capacity_for(8, dk * dp, de * dp, 2.0), True,
+         0, 0),
+        ("dbrx_prefill", 2048, moe.capacity_for(2048, dk * dp, de * dp, 2.0),
+         True, 0, 0)]
+    widths = {name: tuple(rest) for name, *rest in ODD_WIDTHS}
+    widths.update(dbrx_decode=DBRX_WIDTHS, dbrx_prefill=DBRX_WIDTHS)
+    case_params = {}
     results = []
     for name, T, cap, mode_grouped, n_empty, hot in cases:
         ccfg, cparams, pp = cfg, params, P
-        if name in odd:
-            dd, EE, pp, ff, kk = odd[name]
+        if name in widths:
+            dd, EE, pp, ff, kk = widths[name]
             ccfg = dataclasses.replace(cfg, top_k=kk)
-            cparams = moe_params(gen, dev, dd, EE, pp, ff)
+            if widths[name] not in case_params:
+                case_params.clear()
+                free_memory()
+                case_params[widths[name]] = moe_params(gen, dev, dd, EE, pp,
+                                                       ff)
+            cparams = case_params[widths[name]]
         x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty, hot)
         kw, overflow = moe.fused_pipeline_args(cparams, pairs, pp, cap,
                                                mode_grouped)
@@ -425,7 +472,10 @@ def kernel_phase(dev):
                                      and tiles["few_live_groups"]):
             raise AssertionError("skewed case: one row tile served every "
                                  "group")
-        if mode_grouped and rows["major"] == 0 and name != "overflow":
+        # (a DBRX decode step holds only 32 pairs: it may have no MAJOR-only
+        # row)
+        if mode_grouped and rows["major"] == 0 and name not in (
+                "overflow", "dbrx_decode"):
             raise AssertionError(f"{name}: no MAJOR-only rows")
         if not (rel <= REL_TOL and stable and keys_ok
                 and torch.isfinite(y1).all()):
@@ -612,7 +662,9 @@ def layer0_check(label: str, model, cfg, policy, tokens, capacity,
     capacity for T tokens), and the served route at capacity T (no
     overflow) against the dense oracle ``moe_forward_ref``. Fails
     beyond REL_TOL. (The sub-pair buffer path seats pairs per sub-expert,
-    so under overflow it keeps other pairs than the kernels do.)"""
+    so under overflow it keeps other pairs than the kernels do.) Also
+    times the served call (median of 3 CUDA-event runs) beside its
+    bound."""
     import torch
     from repro_torch.core import moe
     from repro_torch.kernels import ops
@@ -621,7 +673,7 @@ def layer0_check(label: str, model, cfg, policy, tokens, capacity,
     from repro_torch.models import transformer as T_
     with torch.no_grad():
         blk = model.blocks[0]
-        x, pos = T_.embed_inputs(model, {"tokens": tokens}, cfg)
+        x, pos, _ = T_.embed_inputs(model, {"tokens": tokens}, cfg)
         x = x + attention.gqa_attention(
             blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), pos, cfg)
         h = L.rms_norm(x, blk.ln2, cfg.norm_eps).reshape(-1, cfg.d_model)
@@ -649,16 +701,26 @@ def layer0_check(label: str, model, cfg, policy, tokens, capacity,
             mode_grouped=True, fused_pipeline=fused)
         y_ref = moe.moe_forward_ref(layer, h, cfg, pairs=pairs)
 
+        if fused:
+            ms = cuda_ms(lambda: ops.fused_moe_pipeline(h, **kw), 3)
+            bound_ms, bound_by, _, _ = fused_bound(kw, T, cfg.d_model)
+        else:
+            ms = cuda_ms(lambda: ops.grouped_swiglu(**kw), 3)
+            bound_ms, bound_by, _, _ = grouped_bound(kw)
+
     def rel(a, b):
         return float((a - b).norm() / b.norm())
     res = dict(kernel=name, T=T, capacity=capacity, overflow=int(overflow),
                rel_err_vs_plain=rel(y_k, y_p),
                rel_err_vs_dense_ref=rel(y_exact, y_ref),
-               max_abs_err_vs_plain=float((y_k - y_p).abs().max()))
+               max_abs_err_vs_plain=float((y_k - y_p).abs().max()),
+               ms=ms, bound_ms=bound_ms, bound_by=bound_by)
     log(f"  layer-0 MoE on {label}: {name} vs its plain version at capacity "
         f"{capacity} (T {T}, overflow {res['overflow']}) rel_err "
         f"{res['rel_err_vs_plain']:.3e}; the route at capacity T vs the "
-        f"dense oracle rel_err {res['rel_err_vs_dense_ref']:.3e}")
+        f"dense oracle rel_err {res['rel_err_vs_dense_ref']:.3e}; the "
+        f"served call {ms:.3f} ms against a {bound_ms:.3f} ms bound "
+        f"({bound_by})")
     if not (res["rel_err_vs_plain"] <= REL_TOL
             and res["rel_err_vs_dense_ref"] <= REL_TOL
             and torch.isfinite(y_k).all()):
@@ -1150,7 +1212,7 @@ def mamba_layer0_check(label: str, model, cfg, tokens) -> dict:
     from repro_torch.models import mamba2 as mm
     from repro_torch.models import transformer as T_
     with torch.no_grad():
-        x, pos = T_.embed_inputs(model, {"tokens": tokens}, cfg)
+        x, pos, _ = T_.embed_inputs(model, {"tokens": tokens}, cfg)
         if cfg.family == "hybrid":
             sh = model.shared_attn
             x = x + attention.gqa_attention(
@@ -1268,6 +1330,350 @@ def recurrent_serve_phase(dev, arch: str, S: int):
     return serve
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: DBRX-132B under 2t, load_aware and per_layer
+# ---------------------------------------------------------------------------
+
+def fig11_proxy(dev, cfg, layer, n_devices: int = 4) -> dict:
+    """Paper Fig. 11 on one card, set up as
+    ``benchmarks/bench_fig11_load_aware.py`` does: layer 0's router
+    sharpened x20 and skewed toward the first E/8 experts (one modelled
+    device), 2048 calibration tokens, n_devices contiguous expert blocks,
+    T_max the 30% quantile of the keep-all scores. The skew is a unit
+    direction added x2 to those experts' router columns and to the tokens,
+    as phase 2's skewed case does (the benchmark's constant column offset
+    meets zero-mean activations, so it skews no device). For 2T
+    (T_max ± gap) and load-aware at the same T_max: the makespan (largest
+    modelled device load, in kept sub-pairs) relative to keep-all, the drop
+    rate, and the MoE output's error against keep-all (dense oracle). A
+    single-card proxy of the EP step time, not a measured EP speedup."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gating
+    from repro_torch.core import moe
+    from repro_torch.core.policy import LoadAwareTwoT, TwoTDrop
+    from repro_torch.data.pipeline import calibration_activations
+    E = cfg.n_experts
+    per_dev = E // n_devices
+    layer = dict(layer)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    v = torch.randn((cfg.d_model,), generator=gen, device=dev)
+    v = v / v.norm()
+    layer["wg"] = layer["wg"] * 20.0
+    layer["wg"][:, :E // 8] += 2.0 * v[:, None]
+    x = calibration_activations(np.random.default_rng(4), 2048, cfg.d_model,
+                                device=dev) + 2.0 * v
+    r = gating.route(x, layer["wg"], cfg.top_k, cfg.router_norm_topk)
+    t_max = float(torch.quantile(r.norm_score.reshape(-1), 0.3))
+    gap = max(min(0.01, t_max * 0.2), 1e-4)
+
+    def stats(pairs):
+        dev_of = (pairs.idx.long() // 2) // per_dev
+        loads = torch.zeros(n_devices, device=dev).index_add_(
+            0, dev_of[pairs.keep], torch.ones_like(dev_of[pairs.keep],
+                                                   dtype=torch.float32))
+        with torch.no_grad():
+            y = moe.moe_forward_ref(layer, x, cfg, pairs=pairs)
+        return loads, y
+    keep_all = TwoTDrop(partition_p=2, t_major=-1.0, t_minor=-1.0)
+    loads0, y0 = stats(keep_all.route(layer, x, cfg))
+    ms0 = float(loads0.max())
+    out = dict(t_max=t_max, t_gap=gap, n_devices=n_devices,
+               keep_all_loads=loads0.tolist())
+    for label, pol in (
+            ("2t", TwoTDrop(partition_p=2, t_major=t_max - gap,
+                            t_minor=t_max + gap)),
+            ("load_aware", LoadAwareTwoT(partition_p=2, n_devices=n_devices,
+                                         t_max=t_max, t_gap=gap))):
+        pairs = pol.route(layer, x, cfg)
+        loads, y = stats(pairs)
+        ms = float(loads.max())
+        out[label] = dict(
+            makespan_rel=ms / ms0, speedup=ms0 / ms, loads=loads.tolist(),
+            drop_rate=1.0 - float(pairs.keep.float().mean()),
+            rel_err=float((y - y0).norm() / y0.norm()))
+        log(f"  Fig. 11 proxy (single card, {n_devices} modelled EP devices, "
+            f"keep-all loads {[int(v) for v in loads0.tolist()]}), {label} "
+            f"at T_max {t_max:.4f} ± {gap:.4f}: makespan "
+            f"{out[label]['makespan_rel']:.4f} of keep-all (proxy speedup "
+            f"{out[label]['speedup']:.3f}x), drop rate "
+            f"{out[label]['drop_rate']:.4f}, rel_err vs keep-all "
+            f"{out[label]['rel_err']:.4f}")
+    if not out["load_aware"]["drop_rate"] < out["2t"]["drop_rate"]:
+        raise AssertionError("Fig. 11 proxy: load-aware does not drop less "
+                             "than 2T at the same T_max")
+    return out
+
+
+def served_stats(eng, results, wall, counts, new_tokens: int) -> dict:
+    """tok/s, prefill and decode-step times, drop rate and peak memory of
+    one measured ``ServingEngine`` run (one convoy batch)."""
+    import torch
+    n_tok = sum(len(r.tokens) for r in results)
+    st = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+              prefill_ms=results[0].prefill_s * 1e3,
+              decode_step_ms=results[0].decode_s / (new_tokens - 1) * 1e3,
+              counts=counts,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if eng.metrics_enabled:
+        c = eng.metrics().counters
+        sub = {o: int(c.get(f'repro_moe_subpairs_total{{outcome="{o}"}}', 0))
+               for o in ("kept_full", "kept_major", "dropped")}
+        st.update(sub, drop_rate=sub["dropped"] / max(sum(sub.values()), 1),
+                  overflow_pairs=eng.overflow_pairs)
+    return st
+
+
+def dbrx_phase(dev) -> dict:
+    """DBRX-132B at full width, depth cut to DBRX_LAYERS, served under
+    ``2t``, ``load_aware`` and ``per_layer`` (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data.pipeline import SyntheticLM, calibration_activations
+    from repro_torch.models import model as M
+    from repro_torch.serving import GenerationConfig, ServingEngine
+
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=DBRX_LAYERS)
+    B, S, NEW = 4, 1536, 16
+    log(f"  config {cfg.arch_id}: full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}, d_expert {cfg.d_expert}, vocab {cfg.vocab_size}); "
+        f"depth cut from {full.n_layers} to {cfg.n_layers} layers; seeded "
+        f"random float32 weights; {B} x {S} x {NEW}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 1e9
+    calib = calibration_activations(np.random.default_rng(7), 512,
+                                    cfg.d_model, device=dev)
+    t0 = time.perf_counter()
+    per_layer = make_policy("per_layer", cfg.dualsparse, drop_target=0.25)
+    model, per_layer = per_layer.prepare(model, cfg, calib)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prep_peak = torch.cuda.max_memory_allocated() / 1e9
+    two = make_policy("2t", cfg.dualsparse, drop_target=0.25)
+    two = two.calibrate(model, cfg, calib)
+    tm, tn = float(two.t_major), float(two.t_minor)
+    la = dataclasses.replace(make_policy("load_aware", cfg.dualsparse,
+                                         n_devices=4),
+                             t_max=(tm + tn) / 2, t_gap=(tn - tm) / 2)
+    ths = [[round(float(v), 5) for v in b.moe.thresholds]
+           for b in model.blocks]
+    out = dict(layers=cfg.n_layers, layers_full_model=full.n_layers,
+               requests=B, prompt_len=S, new_tokens=NEW, init_s=init_s,
+               resident_gb=resident, prepare_s=prep_s,
+               prepare_peak_gb=prep_peak, t_major=tm, t_minor=tn,
+               per_layer_thresholds=ths)
+    log(f"  init {init_s:.2f}s ({resident:.2f} GB resident), per_layer "
+        f"prepare {prep_s:.2f}s (peak {prep_peak:.2f} GB); 2t thresholds "
+        f"({tm:.5f}, {tn:.5f}); load_aware T_max {la.t_max:.5f} ± "
+        f"{la.t_gap:.5f} over 4 modelled devices; per-layer thresholds "
+        f"{ths}")
+
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [src.sample_batch(rng, 1, S)["tokens"][0] for _ in range(B)]
+    tokens = torch.from_numpy(np.stack(prompts)).long().to(dev)
+    kw = dict(batch_size=B, max_prompt_len=S, max_new_tokens=NEW, device=dev)
+    ServingEngine(cfg, model, policy=two, **kw).generate(
+        prompts, GenerationConfig(max_new_tokens=2))          # warm-up
+    for name, pol in (("2t", two), ("load_aware", la),
+                      ("per_layer", per_layer)):
+        eng = ServingEngine(cfg, model, policy=pol, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.generate(prompts, GenerationConfig(max_new_tokens=NEW))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = served_stats(eng, results, wall, counts, NEW)
+        launches = counts["fused_moe_pipeline"]["launches"]
+        st["launches"] = launches
+        log(f"  {name}: {st['tokens']} tokens in {wall:.3f}s "
+            f"({st['tok_per_s']:.1f} tok/s), prefill {st['prefill_ms']:.2f} "
+            f"ms, decode step {st['decode_step_ms']:.3f} ms (mean of "
+            f"{NEW - 1}); drop rate {st['drop_rate']:.4f} (kept_full "
+            f"{st['kept_full']}, kept_major {st['kept_major']}, dropped "
+            f"{st['dropped']}), overflow_pairs {st['overflow_pairs']}; "
+            f"fused_moe_pipeline launches {launches}; peak memory "
+            f"{st['peak_mem_gb']:.2f} GB")
+        expected = cfg.n_layers * NEW
+        if not all(len(r.tokens) == NEW for r in results):
+            raise AssertionError("a request did not return every token")
+        if launches != expected or counts["grouped_swiglu"]["launches"] or \
+                any(c["plain_calls"] for c in counts.values()):
+            raise AssertionError(f"dbrx {name}: fused launches {launches} "
+                                 f"(expected {expected}), counts {counts}")
+        st["layer0"] = layer0_check(f"the DBRX {B}x{S} prefill batch under "
+                                    f"{name}", model, cfg, pol, tokens, None,
+                                    fused=True)
+        st["profile"] = profile_run(
+            f"{name}, 1 prefill + 3 decode steps",
+            lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+        out[name] = st
+        del eng, results
+    logits, _ = M.make_prefill_step(cfg, cache_len=S + NEW, policy=la)(
+        model, {"tokens": tokens})
+    finite = bool(torch.isfinite(logits).all())
+    log(f"  prefill logits {tuple(logits.shape)} finite={finite}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not finite:
+        raise AssertionError("prefill logits are not finite or misshaped")
+    del logits
+    out["fig11_proxy"] = fig11_proxy(dev, cfg, model.blocks[0].moe.weights())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the dense and VLM decoders
+# ---------------------------------------------------------------------------
+
+def blockwise_check(model, cfg, tokens) -> dict:
+    """Layer 0's attention on the real hidden states of ``tokens`` after
+    the vision stub's zero patch embeddings: ``blockwise_attention``
+    against ``plain_attention`` on the card (bar REL_TOL), with their
+    times."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T_
+    with torch.no_grad():
+        batch = {"tokens": tokens,
+                 **M.frontend_inputs(cfg, tokens.shape[0], tokens.device)}
+        x, pos, _ = T_.embed_inputs(model, batch, cfg)
+        blk = model.blocks[0]
+        q, k, v = A.gqa_project_qkv(blk.attn, L.rms_norm(x, blk.ln1,
+                                                         cfg.norm_eps),
+                                    pos, cfg)
+        o_b = A.blockwise_attention(q, k, v)
+        o_p = A.plain_attention(q, k, v)
+        rel = float((o_b - o_p).norm() / o_p.norm())
+        res = dict(S=int(x.shape[1]), rel_err=rel,
+                   max_abs_err=float((o_b - o_p).abs().max()),
+                   blockwise_ms=cuda_ms(lambda: A.blockwise_attention(q, k,
+                                                                      v), 5),
+                   plain_ms=cuda_ms(lambda: A.plain_attention(q, k, v), 5))
+    log(f"  layer-0 attention at S={res['S']} (B {tokens.shape[0]}): "
+        f"blockwise vs plain_attention rel_err {rel:.3e} (bar {REL_TOL}); "
+        f"blockwise {res['blockwise_ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms")
+    if not (rel <= REL_TOL and torch.isfinite(o_b).all()):
+        raise AssertionError("blockwise attention disagrees with "
+                             "plain_attention")
+    return res
+
+
+# (arch, depth (None: full), requests, text tokens per prompt, new tokens)
+DENSE_CASES = (("qwen2-vl-7b", None, 4, 256, 16),
+               ("qwen2-7b", None, 4, 512, 16),
+               ("starcoder2-3b", None, 4, 512, 16),
+               ("granite-20b", 24, 4, 512, 16))
+
+
+def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int) -> dict:
+    """One dense or VLM decoder through ``ServingEngine`` (a warm-up engine
+    first, then the measured run, counts zeroed just before and read just
+    after: these models run no kernel of ours); for the VLM also through
+    ``ContinuousBatchingEngine`` and the blockwise check."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationConfig, ServingEngine)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    prefix = M.frontend_len(cfg)
+    log(f"  {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff} ({cfg.mlp_kind}), "
+        f"{cfg.n_layers} layers"
+        + (f" (depth cut from {full.n_layers})" if n_layers else
+           " (full depth)")
+        + (f", M-RoPE {cfg.mrope_sections}, {prefix} vision-stub tokens"
+           if prefix else "")
+        + f"; init {time.perf_counter() - t0:.2f}s, {n_params / 1e9:.2f} B "
+        f"float32 parameters; {B} x ({prefix} + {S}) x {NEW}")
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [src.sample_batch(rng, 1, S)["tokens"][0] for _ in range(B)]
+    kw = dict(batch_size=B, max_prompt_len=S, max_new_tokens=NEW, device=dev)
+    ServingEngine(cfg, model, **kw).generate(
+        prompts, GenerationConfig(max_new_tokens=2))          # warm-up
+    eng = ServingEngine(cfg, model, **kw)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, GenerationConfig(max_new_tokens=NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = served_stats(eng, results, wall, counts, NEW)
+    st.update(arch=arch, layers=cfg.n_layers, layers_full_model=full.n_layers,
+              requests=B, prompt_len=S, prefix=prefix, new_tokens=NEW,
+              params_b=n_params / 1e9)
+    log(f"  served {B} x ({prefix} + {S}) x {NEW}: {st['tokens']} tokens in "
+        f"{wall:.3f}s ({st['tok_per_s']:.1f} tok/s), prefill "
+        f"{st['prefill_ms']:.2f} ms, decode step {st['decode_step_ms']:.3f} "
+        f"ms (mean of {NEW - 1}); peak memory {st['peak_mem_gb']:.2f} GB")
+    if not all(len(r.tokens) == NEW for r in results):
+        raise AssertionError("a request did not return every token")
+    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"{arch}: a dense model called a MoE or SSD "
+                             f"kernel: {counts}")
+    tokens = torch.from_numpy(np.stack(prompts)).long().to(dev)
+    batch = {"tokens": tokens, **M.frontend_inputs(cfg, B, dev)}
+    logits, cache = M.make_prefill_step(cfg, cache_len=prefix + S + NEW)(
+        model, batch)
+    finite = bool(torch.isfinite(logits).all())
+    log(f"  prefill logits {tuple(logits.shape)}, cache pos {cache['pos']}, "
+        f"finite={finite}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not finite or \
+            cache["pos"] != prefix + S:
+        raise AssertionError("prefill logits are not finite or misshaped")
+    del logits, cache
+    st["profile"] = profile_run(
+        "1 prefill + 3 decode steps",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+    del eng
+    if prefix:
+        st["blockwise"] = blockwise_check(model, cfg, tokens)
+        ckw = dict(n_slots=B, max_prompt_len=S, max_new_tokens=NEW,
+                   device=dev)
+        ContinuousBatchingEngine(cfg, model, **ckw).generate(
+            prompts[:1], GenerationConfig(max_new_tokens=2))  # warm-up
+        ceng = ContinuousBatchingEngine(cfg, model, **ckw)
+        cprompts = prompts + [p[: S // 2] for p in prompts]
+        results, wall, counts = serve_slots(ceng, cprompts,
+                                            [NEW] * len(cprompts))
+        st["continuous"] = slot_stats(ceng, results, wall, counts)
+        log(f"  continuous ({B} slots, {len(cprompts)} requests of "
+            f"{prefix} + {S // 2}-{S} tokens): "
+            f"{st['continuous']['tokens']} tokens in {wall:.3f}s "
+            f"({st['continuous']['tok_per_s']:.1f} tok/s), "
+            f"{ceng.n_admitted} prefill-inserts, {ceng.decode_steps} decode "
+            f"steps (median {st['continuous']['decode_step_ms']:.3f} ms)")
+        if ceng.n_admitted != len(cprompts) or \
+                ceng.max_concurrency != B:
+            raise AssertionError("continuous engine: not every request "
+                                 "admitted")
+    return st
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1327,6 +1733,16 @@ def main() -> int:
     log("phase 8: serve Zamba2-7B (81 layers, 14 shared-block occurrences), "
         "8 x 384 x 16")
     zamba = recurrent_serve_phase(dev, "zamba2-7b", 384)
+    free_memory()
+    log(f"phase 9: serve DBRX-132B ({DBRX_LAYERS} of 40 layers) under 2t, "
+        f"load_aware and per_layer, 4 x 1536 x 16")
+    dbrx = dbrx_phase(dev)
+    free_memory()
+    log("phase 10: serve the dense and VLM decoders")
+    dense = {}
+    for arch, n_layers, B, S, NEW in DENSE_CASES:
+        dense[arch] = dense_serve(dev, arch, n_layers, B, S, NEW)
+        free_memory()
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1334,7 +1750,8 @@ def main() -> int:
         json.dump({"device": smi, "torch": torch.__version__,
                    "kernel_cases": cases, "grouped_cases": grouped,
                    "serve": serve, "continuous": cont, "paged": paged,
-                   "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba},
+                   "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
+                   "dbrx": dbrx, "dense": dense},
                   fh, indent=1)
 
     def kernel_entry(name, replaces, case_list, case, launches, at=None):
@@ -1350,10 +1767,24 @@ def main() -> int:
                 "at": at or f"{case} T={main_case['T']} "
                             f"C={main_case['capacity']}, Qwen3-30B-A3B "
                             f"widths"}
+    # launches of every served phase that runs the kernel
+    fused_launches = (serve["launches"]
+                      + cont["counts"]["fused_moe_pipeline"]["launches"]
+                      + paged["fused_route"]["counts"]["fused_moe_pipeline"][
+                          "launches"]
+                      + sum(dbrx[p]["launches"]
+                            for p in ("2t", "load_aware", "per_layer")))
+    fused = kernel_entry("fused_moe_pipeline",
+                         "src/repro/kernels/dualsparse_ffn.py:498", cases,
+                         "prefill", fused_launches,
+                         at="prefill T=1024 at Qwen3-30B-A3B widths; "
+                            "launches of phases 3, 4, 5 (fused route) and 9")
+    wide = next(c for c in cases if c["case"] == "dbrx_prefill")
+    fused["dbrx_prefill"] = {k: wide[k] for k in (
+        "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err", "rel_err")}
     print(json.dumps({"kernels": [
-        kernel_entry("fused_moe_pipeline",
-                     "src/repro/kernels/dualsparse_ffn.py:498", cases,
-                     "prefill", serve["launches"]),
+        fused,
         kernel_entry("grouped_swiglu",
                      "src/repro/kernels/dualsparse_ffn.py:192", grouped,
                      "chunk",

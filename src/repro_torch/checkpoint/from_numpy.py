@@ -7,9 +7,11 @@ The tree is ``repro.models.model.init_params`` output after
 leading layers axis, which this splits into the per-layer modules (for
 ``ssm`` a block is ``{"ln1", "mamba": {...}}``). The hybrid tree holds
 ``"mamba_blocks"`` (stacked) and ``"shared_attn"`` (one block, unstacked)
-in place of ``"blocks"``. Trees of
-prepared (partitioned) MoE weights load as well: the expert tensors take
-the tree's shapes. Nothing here imports JAX.
+in place of ``"blocks"``; a vision-frontend tree adds
+``"frontend_proj"``. Trees of prepared (partitioned) MoE weights load as
+well: the expert tensors take the tree's shapes, and a ``per_layer``
+policy's ``moe["thresholds"]`` (layers, 2) loads into each layer. Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -36,8 +38,7 @@ def _load(module: nn.Module, tree: Mapping, layer: Optional[int],
         if isinstance(value, Mapping):
             _load(getattr(module, name), value, layer, device)
             continue
-        if getattr(module, name, None) is None and name not in dict(
-                module.named_parameters(recurse=False)):
+        if name not in module._parameters:
             raise KeyError(f"{type(module).__name__} has no weight {name!r}")
         setattr(module, name,
                 _param(value if layer is None else value[layer], device))
@@ -51,6 +52,8 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
     if "lm_head" in tree["embed"]:
         model.embed.lm_head = _param(tree["embed"]["lm_head"], dev)
     model.final_norm = _param(tree["final_norm"], dev)
+    if cfg.frontend:
+        model.frontend_proj = _param(tree["frontend_proj"], dev)
     if cfg.family == "hybrid":
         for i, block in enumerate(model.mamba_blocks):
             _load(block, tree["mamba_blocks"], i, dev)

@@ -1,6 +1,7 @@
 """Config registry of the PyTorch port: the architectures the port
-serves, MoE decoders, Mamba2 and the Zamba2 hybrid (its own copy of the
-JAX package's dataclasses, so the port never imports that package)."""
+serves — MoE decoders, the dense GQA decoders, the Qwen2-VL decoder with
+its vision stub, Mamba2 and the Zamba2 hybrid (its own copy of the JAX
+package's dataclasses, so the port never imports that package)."""
 from __future__ import annotations
 
 from .base import ModelConfig, DualSparseConfig, InputShape, INPUT_SHAPES
@@ -9,6 +10,11 @@ from . import qwen3_moe_30b_a3b
 from . import paper_models
 from . import mamba2_370m
 from . import zamba2_7b
+from . import dbrx_132b
+from . import qwen2_7b
+from . import granite_20b
+from . import starcoder2_3b
+from . import qwen2_vl_7b
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -20,7 +26,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b):
+for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b,
+             dbrx_132b, qwen2_7b, granite_20b, starcoder2_3b, qwen2_vl_7b):
     for _cfg in _mod.CONFIGS:
         register(_cfg)
 

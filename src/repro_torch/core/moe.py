@@ -4,7 +4,9 @@ FFN -> unpermute, whose FFN is the grouped SwiGLU kernel under
 ``use_kernel`` and an einsum otherwise).
 
 Params are name -> tensor dicts in the JAX layouts: wg (d, E); w1, w3
-(E, d, f); w2 (E, f, d); optional "shared" {w1, w3, w2} dense expert.
+(E, d, f); w2 (E, f, d); optional "shared" {w1, w3, w2} dense expert;
+optional "thresholds" (2,) float32, the layer's calibrated
+(T²_major, T²_minor) under the ``per_layer`` policy.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from .drop import SubExpertPairs, MODE_FULL
 
 class MoELayer(nn.Module):
     """One MoE layer's weights: router wg (d, E), experts w1/w3 (E, d, f)
-    and w2 (E, f, d), and an optional shared dense expert."""
+    and w2 (E, f, d), an optional shared dense expert, and the layer's
+    ``thresholds`` once a ``per_layer`` policy has prepared it (else
+    None)."""
 
     def __init__(self, cfg, *, device: torch.device,
                  generator: Optional[torch.Generator]):
@@ -35,6 +39,7 @@ class MoELayer(nn.Module):
         self.w2 = normal((E, f, d), **kw)
         self.shared = (MLP(d, cfg.n_shared_experts * f, **kw)
                        if cfg.n_shared_experts else None)
+        self.register_parameter("thresholds", None)
 
     def weights(self) -> Dict:
         """The layer as the name -> tensor dict the core functions take."""
@@ -44,8 +49,11 @@ class MoELayer(nn.Module):
         return out
 
     def load_weights(self, params: Dict) -> None:
-        """Replace the weights (e.g. by their prepared, partitioned form)."""
-        for k in ("wg", "w1", "w3", "w2"):
+        """Replace the weights (e.g. by their prepared, partitioned form),
+        and the per-layer thresholds when ``params`` holds them."""
+        keys = ("wg", "w1", "w3", "w2") + (
+            ("thresholds",) if "thresholds" in params else ())
+        for k in keys:
             setattr(self, k, nn.Parameter(params[k].contiguous(),
                                           requires_grad=False))
         if self.shared is not None:

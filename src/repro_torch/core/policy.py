@@ -13,8 +13,12 @@ A ``SparsityPolicy`` owns three coupled decisions:
 Policies are frozen dataclasses. Threshold fields (listed in ``_dynamic``)
 hold Python floats or float32 tensors — scalar, or per-row (B,) for
 per-request values — so a new threshold is data, never structure. The
-registry maps CLI names to classes: ``none | 1t | 2t``. (The JAX package's
-``load_aware`` and ``per_layer`` policies are not ported yet.)
+registry maps CLI names to classes:
+
+    none | 1t | 2t | load_aware | per_layer
+
+(The JAX package's ``sub_pair_keep``, the S-ETP form of the keep mask, is
+not ported: S-ETP is not.)
 """
 from __future__ import annotations
 
@@ -120,7 +124,11 @@ class SparsityPolicy:
 
     # -- (b) routing -----------------------------------------------------
 
-    def route(self, params: Dict, x, cfg) -> drop_mod.SubExpertPairs:
+    def route(self, params: Dict, x, cfg, *,
+              loads=None) -> drop_mod.SubExpertPairs:
+        """Expanded sub-expert pairs of tokens ``x`` (T, d) under the
+        layer's ``params``. ``loads``: a (D,) per-device load histogram for
+        policies that read one (``load_aware``); the others ignore it."""
         raise NotImplementedError
 
     # -- helpers ---------------------------------------------------------
@@ -148,7 +156,7 @@ class NoDrop(SparsityPolicy):
     """No partition, no dropping: the plain top-k MoE layer."""
     partition_p: int = 1
 
-    def route(self, params, x, cfg):
+    def route(self, params, x, cfg, *, loads=None):
         return moe_mod.route_plain(params, x, cfg)
 
     @classmethod
@@ -165,7 +173,7 @@ class OneTDrop(SparsityPolicy):
     t_drop: object = 0.08
     _dynamic: ClassVar[Tuple[str, ...]] = ("t_drop",)
 
-    def route(self, params, x, cfg):
+    def route(self, params, x, cfg, *, loads=None):
         r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
         return drop_mod.expand_pairs_1t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, self.t_drop)
@@ -193,7 +201,7 @@ class TwoTDrop(SparsityPolicy):
     t_minor: object = 0.09
     _dynamic: ClassVar[Tuple[str, ...]] = ("t_major", "t_minor")
 
-    def route(self, params, x, cfg):
+    def route(self, params, x, cfg, *, loads=None):
         r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
         return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, self.t_major,
@@ -216,6 +224,99 @@ class TwoTDrop(SparsityPolicy):
         return cls(partition_p=ds.partition_p, importance=ds.importance,
                    t_major=ds.t_major, t_minor=ds.t_minor,
                    drop_target=drop_target, **kw)
+
+
+def _bt(t, score):
+    """A threshold as a float32 tensor that broadcasts against a (T, K)
+    score block: scalars pass, per-token (T,) vectors gain a pair axis."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=score.device)
+    return t[:, None] if t.ndim == 1 else t
+
+
+@register_policy("load_aware")
+@dataclasses.dataclass(frozen=True)
+class LoadAwareTwoT(SparsityPolicy):
+    """2T-Drop with load-aware thresholds (§4.3): each EP device's T¹ steps
+    down with its load ratio, so lightly-loaded devices drop less — the
+    makespan (the largest device load) sets the step time anyway.
+
+    ``n_devices`` models the EP layout on the one-card dispatch path as
+    contiguous expert blocks (as ``core.load_aware`` does). Without
+    ``loads`` the histogram is the batch's own pre-drop routing, every row
+    of ``x`` counted. With uniform loads (or ``n_devices == 1``) this is
+    exactly ``TwoTDrop(t_max - t_gap, t_max + t_gap)``."""
+    partition_p: int = 2
+    n_devices: int = 1
+    t_max: object = 0.12
+    t_gap: object = 0.01
+    _dynamic: ClassVar[Tuple[str, ...]] = ("t_max", "t_gap")
+
+    def _t1(self, score, loads, dev_of):
+        """Per-pair stepped-down T¹ = t_max * min(load_ratio, 1)[device]."""
+        loads = loads.float()
+        ratio = loads / torch.clamp(loads.mean(), min=1e-9)
+        factor = torch.clamp(ratio, max=1.0)
+        return _bt(self.t_max, score) * factor[dev_of]
+
+    def route(self, params, x, cfg, *, loads=None):
+        r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
+        E = params["wg"].shape[1]
+        per_dev = max(E // self.n_devices, 1)
+        if loads is None:
+            from . import load_aware
+            loads = load_aware.device_loads(
+                gating.expert_histogram(r.idx, E), per_dev)
+        t1 = self._t1(r.norm_score, loads, r.idx.long() // per_dev)
+        gap = _bt(self.t_gap, r.norm_score)
+        return drop_mod.expand_pairs_2t(
+            r.idx, r.combine, r.norm_score, self.partition_p,
+            torch.clamp(t1 - gap, min=0.0), t1 + gap)
+
+    @classmethod
+    def from_config(cls, ds, drop_target=None, **kw):
+        return cls(partition_p=ds.partition_p, importance=ds.importance,
+                   t_max=ds.t_max, t_gap=(ds.t_minor - ds.t_major) / 2,
+                   drop_target=drop_target, **kw)
+
+
+@register_policy("per_layer")
+@dataclasses.dataclass(frozen=True)
+class PerLayerCalibrated2T(SparsityPolicy):
+    """Per-layer (T²_major, T²_minor), each layer calibrated to
+    ``drop_target`` on its own router's scores (beyond the paper, §5.3.3:
+    one global T over-drops in deep layers, Fig. 12). ``prepare`` stores
+    them in each MoE layer's params as a (2,) float32 ``thresholds``
+    tensor, which ``route`` reads; the policy holds no threshold values."""
+    partition_p: int = 2
+    drop_target: Optional[float] = 0.25
+    delta: float = 0.05
+
+    def prepare_layer(self, moe_params, cfg, calib_x=None):
+        out = dict(super().prepare_layer(moe_params, cfg, calib_x))
+        r = gating.route(calib_x, moe_params["wg"], cfg.top_k,
+                         cfg.router_norm_topk)
+        target = self.drop_target if self.drop_target is not None else 0.25
+        tm = drop_mod.calibrate_threshold(
+            r.norm_score, max(target - self.delta, 0.0))
+        tn = drop_mod.calibrate_threshold(
+            r.norm_score, min(target + self.delta, 1.0))
+        out["thresholds"] = torch.stack([tm, tn])
+        return out
+
+    def route(self, params, x, cfg, *, loads=None):
+        th = params.get("thresholds")
+        if th is None:
+            raise ValueError("per_layer policy: params carry no "
+                             "'thresholds' — run policy.prepare() first")
+        r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
+        return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
+                                        self.partition_p, th[0], th[1])
+
+    @classmethod
+    def from_config(cls, ds, drop_target=None, **kw):
+        return cls(partition_p=ds.partition_p, importance=ds.importance,
+                   drop_target=0.25 if drop_target is None else drop_target,
+                   **kw)
 
 
 def make_policy(name: str, ds=None, *, drop_target: Optional[float] = None,

@@ -1,7 +1,9 @@
 """GQA attention and the KV cache layouts.
 
 Attention has no TPU kernel in the JAX package, so plain PyTorch matmuls
-compute it here. Layouts follow the JAX package: q (B, S, Hkv, G, D),
+compute it here: the O(S²) ``plain_attention`` up to 1024 tokens, and the
+online-softmax ``blockwise_attention`` past that, as in the JAX package.
+Layouts follow the JAX package: q (B, S, Hkv, G, D),
 k/v (B, S, Hkv, D); the cache is per-slot contiguous rows
 (``ContiguousLayout``, {"k", "v"}: (B, cap, Hkv, D)) or a shared page pool
 behind a per-slot page table (``PagedLayout``).
@@ -48,9 +50,8 @@ class Attention(nn.Module):
 
 
 def gqa_project_qkv(attn: Attention, x, positions, cfg):
-    """x: (B,S,d) -> q (B,S,Hkv,G,D), k/v (B,S,Hkv,D), with RoPE applied."""
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet")
+    """x: (B,S,d) -> q (B,S,Hkv,G,D), k/v (B,S,Hkv,D), with RoPE applied
+    (M-RoPE over (3, B, S) positions when the config has sections)."""
     q = torch.einsum("bsd,dhgk->bshgk", x, attn.wq)
     k = torch.einsum("bsd,dhk->bshk", x, attn.wk)
     v = torch.einsum("bsd,dhk->bshk", x, attn.wv)
@@ -59,10 +60,81 @@ def gqa_project_qkv(attn: Attention, x, positions, cfg):
         k = k + attn.bk
         v = v + attn.bv
     B, S, Hkv, G, D = q.shape
+    sect = tuple(cfg.mrope_sections)
     q = layers.apply_rope(q.reshape(B, S, Hkv * G, D), positions,
-                          cfg.rope_theta).reshape(B, S, Hkv, G, D)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+                          cfg.rope_theta, sect).reshape(B, S, Hkv, G, D)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, sect)
     return q, k, v
+
+
+def _mrope_positions(positions, cfg):
+    """(B, S) positions -> the (3, B, S) text-style streams (t == h == w)
+    under M-RoPE; unchanged otherwise."""
+    if cfg.mrope_sections:
+        return positions[None].expand((3,) + tuple(positions.shape))
+    return positions
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset=0, kv_valid_len=None, q_block: int = 512,
+                        kv_block: int = 1024):
+    """Online-softmax attention over KV blocks, the (S, S) scores never
+    formed: q (B, Sq, Hkv, G, D), k/v (B, Skv, Hkv, D) -> (B, Sq, Hkv, G, D).
+
+    Sq and Skv are padded to multiples of the blocks; all query blocks run
+    together, and a loop over KV blocks carries the float32 running max
+    ``m``, normaliser ``l`` and output ``o``. ``q_offset`` is the absolute
+    position of q[0]; with ``window`` > 0 query i attends keys j with
+    i - window < j <= i; keys at or past ``kv_valid_len`` are masked (the
+    KV padding always is)."""
+    B, Sq, H, G, D = q.shape
+    Skv = k.shape[1]
+    orig_sq = Sq
+    qb, kb = min(q_block, Sq), min(kv_block, Skv)
+    pq, pk = (-Sq) % qb, (-Skv) % kb
+    if pq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+        Sq += pq
+    if pk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+        if kv_valid_len is None:
+            kv_valid_len = Skv
+        Skv += pk
+    nq, nk = Sq // qb, Skv // kb
+    scale = float(1.0 / np.sqrt(D))
+    dev = q.device
+    q = q.reshape(B, nq, qb, H, G, D)
+    q_pos = (q_offset + torch.arange(Sq, device=dev)).reshape(nq, qb)
+    m = torch.full((B, nq, qb, H, G), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nq, qb, H, G), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, nq, qb, H, G, D), dtype=torch.float32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    for j in range(nk):
+        k_blk = k[:, j * kb:(j + 1) * kb]
+        v_blk = v[:, j * kb:(j + 1) * kb]
+        k_pos = torch.arange(j * kb, (j + 1) * kb, device=dev)
+        s = torch.einsum("bnqhgd,bkhd->bnqhgk", q,
+                         k_blk.to(q.dtype)).float() * scale
+        mask = torch.ones((nq, qb, kb), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, :, None] >= k_pos
+        if window:
+            mask &= (q_pos[:, :, None] - k_pos) < window
+        if kv_valid_len is not None:
+            mask &= k_pos < kv_valid_len
+        s = torch.where(mask[None, :, :, None, None, :], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bnqhgk,bkhd->bnqhgd", p.to(v_blk.dtype),
+                          v_blk).float()
+        o = o * corr[..., None] + pv
+        m = m_new
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, G, D)[:, :orig_sq].to(v.dtype)
 
 
 def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -85,18 +157,18 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v)
 
 
-def _check_plain_length(S: int):
-    if S > 1024:
-        raise NotImplementedError(
-            f"sequence length {S} > 1024 needs blockwise attention, which "
-            "is not ported yet")
+def _self_attention(q, k, v, *, causal=True, window=0):
+    """Full-sequence attention: blockwise past 1024 tokens, as the JAX
+    package selects it."""
+    if q.shape[1] > 1024:
+        return blockwise_attention(q, k, v, causal=causal, window=window)
+    return plain_attention(q, k, v, causal=causal, window=window)
 
 
 def gqa_attention(attn: Attention, x, positions, cfg, *, causal=True,
                   window=0):
     q, k, v = gqa_project_qkv(attn, x, positions, cfg)
-    _check_plain_length(x.shape[1])
-    o = plain_attention(q, k, v, causal=causal, window=window)
+    o = _self_attention(q, k, v, causal=causal, window=window)
     return torch.einsum("bshgk,hgkd->bsd", o, attn.wo)
 
 
@@ -105,8 +177,7 @@ def gqa_prefill_attention(attn: Attention, x, positions, cfg, *, window=0,
     """Full-sequence attention that also returns the populated KV cache."""
     q, k, v = gqa_project_qkv(attn, x, positions, cfg)
     S = x.shape[1]
-    _check_plain_length(S)
-    o = plain_attention(q, k, v, causal=True, window=window)
+    o = _self_attention(q, k, v, causal=True, window=window)
     out = torch.einsum("bshgk,hgkd->bsd", o, attn.wo)
     cache = ContiguousLayout(window).from_seq(k, v, cap if cap else S,
                                               cache_dtype)
@@ -365,7 +436,8 @@ def gqa_decode_attention(attn: Attention, x, cache, pos, cfg,
         posb = pos[:, None]
     else:
         posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = gqa_project_qkv(attn, x, posb, cfg)
+    q, k_new, v_new = gqa_project_qkv(attn, x, _mrope_positions(posb, cfg),
+                                      cfg)
     cache = layout.append(cache, k_new, v_new, pos, page_table=page_table,
                           write_mask=write_mask)
     k_view, v_view = layout.read(cache, page_table=page_table,
@@ -387,7 +459,8 @@ def gqa_chunk_attention(attn: Attention, x, cache, slot: int, start: int,
     C = x.shape[1]
     positions = start + torch.arange(C, dtype=torch.int32,
                                      device=x.device)[None, :]
-    q, k_new, v_new = gqa_project_qkv(attn, x, positions, cfg)
+    q, k_new, v_new = gqa_project_qkv(attn, x,
+                                      _mrope_positions(positions, cfg), cfg)
     cache = layout.append_chunk(cache, k_new[0], v_new[0], slot, start,
                                 valid_len, page_table=page_table)
     k_slot, v_slot = layout.read_slot(cache, slot, page_table=page_table,

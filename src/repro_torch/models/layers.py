@@ -1,5 +1,6 @@
-"""Shared building blocks: RMSNorm, RoPE, SwiGLU, embed/unembed and the
-seeded normal init (scale 0.02, float32) the JAX package uses."""
+"""Shared building blocks: RMSNorm, RoPE and M-RoPE, the SwiGLU and GELU
+MLPs, embed/unembed and the seeded normal init (scale 0.02, float32) the
+JAX package uses."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
@@ -46,7 +47,7 @@ def rms_norm(x, weight, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (RoPE; M-RoPE is not ported)
+# Rotary embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float):
@@ -54,12 +55,25 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
-def apply_rope(x, positions, theta: float = 1e4):
-    """Rotate-half rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+def apply_rope(x, positions, theta: float = 1e4,
+               mrope_sections: Sequence[int] = ()):
+    """Rotate-half rotary embedding. x: (B, S, H, D); positions: (B, S), or
+    (3, B, S) under M-RoPE, where ``mrope_sections`` (summing to D/2) picks
+    the position stream of each frequency index (Qwen2-VL §2)."""
     d = x.shape[-1]
     inv = torch.as_tensor(rope_freqs(d, theta), device=x.device)   # (D/2,)
-    ang = positions[..., None].float() * inv                       # (B,S,D/2)
-    cos = torch.cos(ang)[..., None, :]                             # (B,S,1,D/2)
+    if mrope_sections:
+        if positions.ndim != 3:
+            raise ValueError("M-RoPE needs (3, B, S) positions")
+        ang3 = positions[..., None].float() * inv              # (3,B,S,D/2)
+        n = len(mrope_sections)
+        sec = np.repeat(np.arange(n), list(mrope_sections))     # (D/2,)
+        sel = torch.as_tensor(sec[None, :] == np.arange(n)[:, None],
+                              dtype=torch.float32, device=x.device)
+        ang = torch.einsum("kbsd,kd->bsd", ang3, sel)
+    else:
+        ang = positions[..., None].float() * inv               # (B,S,D/2)
+    cos = torch.cos(ang)[..., None, :]                          # (B,S,1,D/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -76,23 +90,40 @@ def swiglu(x, w1, w3, w2):
     return h @ w2
 
 
+def gelu_mlp(x, w_in, w_out):
+    """GELU FFN with the tanh approximation, as the JAX package computes it
+    (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x @ w_in, approximate="tanh") @ w_out
+
+
 class MLP(nn.Module):
-    """Dense SwiGLU FFN: w1/w3 (d, f), w2 (f, d)."""
+    """Dense FFN: SwiGLU w1/w3 (d, f), w2 (f, d); or, for ``kind="gelu"``,
+    w_in (d, f), w_out (f, d)."""
 
     def __init__(self, d_model: int, d_ff: int, *, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 kind: str = "swiglu"):
         super().__init__()
-        self.w1 = normal((d_model, d_ff), generator=generator, device=device)
-        self.w3 = normal((d_model, d_ff), generator=generator, device=device)
-        self.w2 = normal((d_ff, d_model), generator=generator, device=device)
+        kw = dict(generator=generator, device=device)
+        self.kind = kind
+        if kind == "swiglu":
+            self.w1 = normal((d_model, d_ff), **kw)
+            self.w3 = normal((d_model, d_ff), **kw)
+            self.w2 = normal((d_ff, d_model), **kw)
+        else:
+            self.w_in = normal((d_model, d_ff), **kw)
+            self.w_out = normal((d_ff, d_model), **kw)
 
     def forward(self, x):
-        return swiglu(x, self.w1, self.w3, self.w2)
+        if self.kind == "swiglu":
+            return swiglu(x, self.w1, self.w3, self.w2)
+        return gelu_mlp(x, self.w_in, self.w_out)
 
 
 def apply_mlp(mlp: MLP, x, kind: str = "swiglu"):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    if kind != mlp.kind:
+        raise ValueError(f"mlp kind {kind!r} does not match the module's "
+                         f"{mlp.kind!r}")
     return mlp(x)
 
 

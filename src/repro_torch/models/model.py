@@ -56,12 +56,27 @@ def make_serve_step(cfg: ModelConfig, *, window: int = 0, policy=None):
     return step
 
 
+def frontend_len(cfg: ModelConfig) -> int:
+    """Positions the vision stub's patch embeddings take before a prompt's
+    tokens (0 without a vision frontend)."""
+    return cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def frontend_inputs(cfg: ModelConfig, batch: int, device) -> dict:
+    """The vision stub's zero patch embeddings ``{"frontend": (batch,
+    n_frontend_tokens, d_model)}`` the serving engines feed a
+    vision-frontend model ({} for any other)."""
+    if not frontend_len(cfg):
+        return {}
+    return {"frontend": torch.zeros((batch, cfg.n_frontend_tokens,
+                                     cfg.d_model), device=device)}
+
+
 def context_len_for(cfg: ModelConfig, prompt_len: int,
                     new_tokens: int) -> int:
-    """KV capacity needed to prefill ``prompt_len`` tokens and then
-    generate ``new_tokens``."""
-    prefix = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
-    return prompt_len + prefix + new_tokens
+    """KV capacity needed to prefill ``prompt_len`` tokens (after the
+    frontend prefix) and then generate ``new_tokens``."""
+    return prompt_len + frontend_len(cfg) + new_tokens
 
 
 def init_cache(cfg: ModelConfig, batch: int, context_len: int, *,

@@ -1,6 +1,8 @@
-"""Decoder-only stack for the ``moe``, ``dense``, ``ssm`` (Mamba2) and
-``hybrid`` (Zamba2: Mamba2 blocks with one shared attention + MLP block
-applied before every ``attn_every``-th of them) families.
+"""Decoder-only stack for the ``moe``, ``dense``, ``vlm`` (Qwen2-VL: a
+stub vision frontend whose patch embeddings, projected by
+``frontend_proj``, are prepended to the tokens; M-RoPE), ``ssm`` (Mamba2)
+and ``hybrid`` (Zamba2: Mamba2 blocks with one shared attention + MLP
+block applied before every ``attn_every``-th of them) families.
 
 Three entry modes, as in the JAX package: a full-sequence prefill that
 also fills the decode cache, a one-token decode step against that cache,
@@ -53,7 +55,7 @@ class Block(nn.Module):
             self.mlp = None
         else:
             self.moe = None
-            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, **kw)
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind, **kw)
 
 
 class MambaBlock(nn.Module):
@@ -69,8 +71,9 @@ class MambaBlock(nn.Module):
 def _ported(cfg) -> bool:
     if cfg.family == "ssm":
         return True
-    return (cfg.family in ("moe", "dense", "hybrid") and cfg.attn_kind == "gqa"
-            and not cfg.frontend and not cfg.mrope_sections)
+    return (cfg.family in ("moe", "dense", "vlm", "hybrid")
+            and cfg.attn_kind == "gqa" and cfg.frontend in ("", "vision")
+            and cfg.mlp_kind in ("swiglu", "gelu"))
 
 
 def n_shared_occurrences(cfg) -> int:
@@ -83,15 +86,16 @@ class Transformer(nn.Module):
     """Embedding, the blocks and the final norm. ``blocks`` holds the
     decoder blocks (``Block``, or ``MambaBlock`` for ``ssm``); the hybrid
     holds ``mamba_blocks`` and one ``shared_attn`` ``Block`` (attention +
-    MLP), as the JAX tree does."""
+    MLP), as the JAX tree does; a vision frontend adds ``frontend_proj``
+    (d, d)."""
 
     def __init__(self, cfg, *, device: torch.device,
                  generator: Optional[torch.Generator]):
         super().__init__()
         if not _ported(cfg):
             raise NotImplementedError(
-                f"{cfg.arch_id}: only gqa decoders of the moe/dense/hybrid "
-                "families and the ssm family are ported yet")
+                f"{cfg.arch_id}: only gqa decoders of the moe/dense/vlm/"
+                "hybrid families and the ssm family are ported yet")
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
         self.embed = L.Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
@@ -105,6 +109,10 @@ class Transformer(nn.Module):
             self.blocks = nn.ModuleList(block(cfg, **kw)
                                         for _ in range(cfg.n_layers))
         self.final_norm = L.ones((cfg.d_model,), device=device)
+        # the stub frontend provides embeddings directly; a linear projector
+        # adapts them to d_model (the one real parameter of the stub)
+        self.frontend_proj = (L.normal((cfg.d_model, cfg.d_model), **kw)
+                              if cfg.frontend else None)
 
     @property
     def device(self) -> torch.device:
@@ -325,28 +333,41 @@ def stack_decode(model: Transformer, x, cache, pos, cfg, *,
     return x, _with_step_stats(cache, {"layers": new_layers}, outs)
 
 
-def _positions_for(B: int, S: int, offset: int, device):
+def _positions_for(cfg, B: int, S: int, offset: int, device):
+    """(B, S) positions from ``offset``; under M-RoPE the text-style
+    (3, B, S) streams (t == h == w), as the JAX stub does."""
     pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, B, S)
+    return pos
 
 
 def embed_inputs(model: Transformer, batch, cfg, offset: int = 0):
-    """Token embeddings and positions. Returns (x, positions)."""
+    """Token embeddings, with the vision stub's projected embeddings
+    ``batch["frontend"]`` (B, n_frontend_tokens, d) prepended when the
+    model has a vision frontend. Returns (x, positions, n_prefix)."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = L.embed(model.embed, tokens)
+    n_prefix = 0
+    if cfg.frontend == "vision" and "frontend" in batch:
+        fe = batch["frontend"] @ model.frontend_proj
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+        n_prefix = fe.shape[1]
     positions = batch.get("positions")
     if positions is None:
-        positions = _positions_for(B, S, offset, x.device)
-    return x, positions
+        positions = _positions_for(cfg, B, x.shape[1], offset, x.device)
+    return x, positions, n_prefix
 
 
 def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
             window: int = 0, policy=None, cache_dtype=torch.bfloat16,
             metrics: bool = True):
     """Full forward AND the populated decode cache: returns
-    ``(logits (B,S,vocab), cache)`` with ``cache["pos"]`` past the prompt."""
-    x, positions = embed_inputs(model, batch, cfg)
+    ``(logits (B,S,vocab), cache)`` — logits over the token part only —
+    with ``cache["pos"]`` past the prompt, frontend prefix included."""
+    x, positions, n_prefix = embed_inputs(model, batch, cfg)
     S_total = x.shape[1]
     cap = max(cache_len, S_total) if not window else \
         min(cache_len if cache_len else S_total, window)
@@ -354,6 +375,8 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
                              policy=policy, capture_cap=cap,
                              cache_dtype=cache_dtype, metrics=metrics)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     logits = L.unembed(model.embed, x)
     cache["pos"] = S_total
     return logits, cache

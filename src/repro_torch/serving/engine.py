@@ -16,7 +16,8 @@ iteration. (``serving.paged.PagedEngine`` adds a paged KV cache, chunked
 prefill and prefix caching.)
 
 MoE sparsity is configured by one ``SparsityPolicy`` (``core.policy``:
-none/1t/2t); requests may override threshold values per request via
+none/1t/2t/load_aware/per_layer); requests may override threshold values
+per request via
 ``GenerationConfig.policy`` (same policy family). The slot engines stack
 each slot's threshold values into (n_slots,) tensors, so mixed-threshold
 traffic decodes in one step. With ``exact_moe`` (the slot engines'
@@ -73,8 +74,10 @@ def sample_token(logits_row, gen: GenerationConfig, uid: int, n: int) -> int:
 class SlotPolicies:
     """Per-slot threshold values of an engine's base policy: an
     (n_thresholds, n_slots) float32 table on the host, uploaded to the
-    device only after a slot's values change. Requests may override the
-    values (same policy family), never the base policy's hints."""
+    device only after a slot's values change (``load_aware``: t_max and
+    t_gap per slot; ``per_layer`` holds none, its thresholds live in each
+    MoE layer's params). Requests may override the values (same policy
+    family), never the base policy's hints."""
 
     def __init__(self, base: SparsityPolicy, n_slots: int,
                  device: torch.device):
@@ -180,7 +183,8 @@ class ServingEngine(EngineBase):
         toks = np.full((len(prompts), L), self.pad_token, np.int32)
         for i, p in enumerate(prompts):
             toks[i, L - len(p):] = p
-        return {"tokens": torch.from_numpy(toks).long().to(self.device)}
+        return {"tokens": torch.from_numpy(toks).long().to(self.device),
+                **M.frontend_inputs(self.cfg, len(prompts), self.device)}
 
     # -- unified request API --------------------------------------------
 
@@ -492,13 +496,16 @@ class ContinuousBatchingEngine(SlotEngineBase):
         return bool(self._queue) or bool(self._active.any())
 
     def _prefill_insert(self, tokens, valid_len: int, slot: int, policy):
-        """Prefill one right-padded prompt and insert its KV rows into
-        ``slot``; the request's MoE stats add into the engine's. Returns
-        the first greedy token (a device scalar)."""
+        """Prefill one right-padded prompt (after the frontend prefix, if
+        any) and insert its KV rows into ``slot``; the request's MoE stats
+        add into the engine's. Returns the first greedy token (a device
+        scalar)."""
         self._warm("prefill")
+        batch = {"tokens": tokens,
+                 **M.frontend_inputs(self.cfg, 1, self.device)}
         with torch.no_grad():
             logits, small = transformer.prefill(
-                self.model, {"tokens": tokens}, self.cfg,
+                self.model, batch, self.cfg,
                 cache_len=self.context_len, policy=policy,
                 cache_dtype=self.cache_dtype, metrics=self.metrics_enabled)
         cache = self._cache
@@ -506,7 +513,7 @@ class ContinuousBatchingEngine(SlotEngineBase):
         for big, sm in zip(cache["layers"], small["layers"]):
             big["k"][slot, :n] = sm["k"][0]
             big["v"][slot, :n] = sm["v"][0]
-        cache["pos"][slot] = valid_len
+        cache["pos"][slot] = M.frontend_len(self.cfg) + valid_len
         if "metrics" in cache and "metrics" in small:
             cache["metrics"] = cache["metrics"] + small["metrics"]
         elif "moe_overflow" in cache and "moe_overflow" in small:

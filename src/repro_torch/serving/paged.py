@@ -151,11 +151,13 @@ class PagedEngine(SlotEngineBase):
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
                  prefix_cache: bool = True, metrics: bool = True,
                  device="cuda"):
-        if cfg.attn_kind != "gqa" or cfg.family in ("audio", "ssm",
-                                                     "hybrid"):
+        if (cfg.attn_kind != "gqa" or cfg.family in ("audio", "ssm",
+                                                      "hybrid")
+                or cfg.frontend):
             raise NotImplementedError(
                 "paged serving supports GQA attention decoder-only text "
-                "models (chunked prefill has no recurrent-state analog yet)")
+                "models (chunked prefill has no recurrent-state or "
+                "frontend-token analog yet)")
         super().__init__(cfg, model, n_slots=n_slots,
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,
