@@ -13,7 +13,9 @@
    T=2048, with their times, their plain versions' times, their
    bounds and shares of them, which row tile served each group, the row
    slots multiplied against the live rows, and a profile splitting each
-   call into its launches and the wrapper's own ops.
+   call into its launches and the wrapper's own ops. The ``_bf16`` cases
+   run bf16 operands (the S-ETP wire type): decode and prefill at Qwen3
+   widths and S-ETP's local seating on one rank of phase 11's world.
 3. Serve: Qwen3-30B-A3B at full width (depth cut from 48 to 4 layers,
    seeded random weights) through ``ServingEngine`` under 2T-Drop: 8
    requests x 128-token prompts x 16 new tokens, greedy. Checks the result
@@ -56,6 +58,23 @@
    and Granite-20B at full width with depth cut from 52 to 24 layers, 4
    requests x 512 x 16; and layer 0's blockwise attention against
    ``plain_attention`` on the card at S = 1280.
+11. S-ETP over ``torch.distributed``: a world of 4 ranks, one process
+   each, all on this card, over gloo (NCCL refuses two ranks on one GPU;
+   the collectives route through host memory, so the times are no EP step
+   time). Each rank builds Qwen3-30B-A3B (4 of 48 layers), prepares it
+   under ``load_aware`` for the ranks' strided placement one rank at a
+   time and keeps its shard of the experts (64 of 256 sub-experts per
+   layer). Layer 0 on real hidden states: keep-all 2T at the float32 wire
+   against the one-process dispatch path (bar REL_TOL), and load_aware at
+   the bf16 wire, kernels against their plain versions (bar
+   BF16_REL_TOL). Then 8 x 128 x 16 on ``ServingEngine`` (the bf16 fused
+   kernel on every rank) and 8 requests on 4 ``ContinuousBatchingEngine``
+   slots on the buffer path (the bf16 grouped kernel); every rank serves
+   the same tokens. Then one ETP layer on (ep 2, tp 2) against the dense
+   oracle.
+12. Serve MiniCPM3-4B (MLA) at full width and depth (62 layers) through
+   ``ServingEngine``, 4 x 512 x 16, and ``ContinuousBatchingEngine``: no
+   kernel of ours.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
@@ -87,11 +106,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (dense): HBM bytes/s, float32 FLOP/s on the
-# CUDA cores (the MoE kernels' rate) and TF32 FLOP/s on the tensor cores
+# CUDA cores (the MoE kernels' rate), TF32 FLOP/s on the tensor cores and
+# bf16 FLOP/s on the tensor cores (the bound of the bf16 MoE cases: the
+# least time the card could take for their work)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12     # TF32 on the tensor cores (ssd_chunk's products)
+BF16_FLOPS = 989e12
 REL_TOL = 1e-5          # float32: the same products summed in another order
+# bf16 operands: h rounded to bf16 and the output cast to bf16 on both
+# sides; an h element whose float32 sums straddle a rounding boundary
+# differs by one bf16 ulp
+BF16_REL_TOL = 1e-3
 DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
 # the first Mamba2 layer's SSD through the kernel against the sequential
 # scan: 384-512 float32 decay products per step against exp of cumsums
@@ -130,12 +156,14 @@ def ptxas_report(text: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                             name)
+            tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E"
+                             r"(f|13__nv_bfloat16)?", name)
             if tile:
+                bf16 = tile.group(5) == "13__nv_bfloat16"
                 label = (f"{tile.group(1)}_kernel<{tile.group(2)}x"
                          f"{tile.group(3)}, "
-                         f"{'buffer' if tile.group(4) == '1' else 'pipeline'}>")
+                         f"{'buffer' if tile.group(4) == '1' else 'pipeline'}"
+                         f"{', bf16' if bf16 else ''}>")
             else:
                 kern = re.search(r"([a-z_]*kernel)", name)
                 label = kern.group(1) if kern else name[:60]
@@ -169,12 +197,22 @@ def cuda_ms(fn, runs: int) -> float:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _operand_rate(w):
+    """(bytes per element, peak FLOP/s) of the operands' type: float32 on
+    the CUDA cores, bf16 on the tensor cores."""
+    import torch
+    if w.dtype == torch.bfloat16:
+        return 2, BF16_FLOPS
+    return 4, F32_FLOPS
+
+
 def fused_bound(kw, T: int, d: int):
     """(bound_ms, bound_by, flops, bytes) of one fused pipeline call: the
     bytes it must move (x read once, the weights of the neurons its rows
     need read once, the pair maps, the output written once) over the HBM
-    rate, and the SwiGLU FLOPs of the rows it computes over the float32
-    rate; the larger of the two."""
+    rate, and the SwiGLU FLOPs of the rows it computes over the peak rate
+    of the operands' type (float32 CUDA cores, bf16 tensor cores); the
+    larger of the two."""
     from repro_torch.kernels.dualsparse_ffn import resolve_n_major
     f = kw["w1"].shape[-1]
     P = kw["p_factor"]
@@ -183,16 +221,17 @@ def fused_bound(kw, T: int, d: int):
     cf = kw["counts_full"].tolist()
     cm = kw["counts_major"].tolist()
     n_pos = kw["tok_sorted"].shape[0]
-    nbytes = 2 * T * d * 4 + 4 * (3 * len(cf) + 2 * n_pos)
+    elem, peak = _operand_rate(kw["w1"])
+    nbytes = 2 * T * d * elem + 4 * (3 * len(cf) + 2 * n_pos)
     flops = 0
     for rows_f, rows_m in zip(cf, cm):
         if rows_f:
-            nbytes += 3 * d * V * 4
+            nbytes += 3 * d * V * elem
         elif rows_m:
-            nbytes += 3 * d * n_major * 4
+            nbytes += 3 * d * n_major * elem
         flops += 6 * d * (V * rows_f + n_major * rows_m)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
@@ -246,6 +285,77 @@ def routed_case(gen, dev, cfg, params, T: int, P: int, n_empty: int = 0,
     pairs = expand_pairs_2t(r.idx + n_empty, r.combine, r.norm_score, P,
                             pol.t_major, pol.t_minor)
     return x, pairs
+
+
+# S-ETP's local seating in the phase 11 world: 4 EP ranks, 128 experts x
+# P 2 = 256 sub-experts, L = 64 on each rank; T_local = 256 tokens per rank
+# at the 8 x 128 prefill (the sequence split over the ranks), 8 at decode
+SETP_RANKS = 4
+SETP_T_LOCAL = {"setp_prefill": 256, "setp_decode": 8}
+
+
+def setp_local_case(gen, dev, cfg, params, T_local: int,
+                    n_dev: int = SETP_RANKS):
+    """What rank 0 of an ``n_dev``-rank S-ETP world hands its kernel: each
+    source rank routes ``T_local`` tokens of a router under 2T thresholds
+    calibrated to a 25% drop, seats its kept sub-pairs per destination
+    rank at ``setp_moe_forward``'s default capacity, and rank 0 receives
+    each source's block (bf16, the wire type); the received rows are then
+    seated per local sub-expert (rank 0's strided shard) at the default
+    local capacity. Returns (rx (n_dev * cap, d), the local DispatchPlan,
+    the fused kernel's kwargs with bf16 weights, cap, c2)."""
+    import torch
+    from repro_torch.core import dispatch as D
+    from repro_torch.core import gating, setp
+    from repro_torch.core.policy import TwoTDrop
+    d, E = params["wg"].shape
+    K, P = cfg.top_k, 2
+    Kp = K * P
+    L = E * P // n_dev
+    x = torch.randn((n_dev * T_local, d), generator=gen, device=dev)
+    pol = TwoTDrop(drop_target=0.25)._calibrated([params["wg"]], cfg, x)
+    cap = setp._ceil_mult(1.15 * T_local * Kp / n_dev)
+    rows_x, rows_e = [], []
+    for src in range(n_dev):
+        xs = x[src * T_local:(src + 1) * T_local]
+        r = gating.route(xs, params["wg"], K, cfg.router_norm_topk)
+        sub_idx = (r.idx[:, :, None] * P + torch.arange(
+            P, dtype=r.idx.dtype, device=dev)).reshape(T_local, Kp)
+        score = r.norm_score[:, :, None].expand(T_local, K, P) \
+            .reshape(T_local, Kp)
+        keep = pol.sub_pair_keep(score, sub_idx % P == 0, sub_idx, cfg,
+                                 n_dev=n_dev)
+        plan = D.sort_dispatch(sub_idx % n_dev, keep, n_groups=n_dev,
+                               capacity=cap)
+        payload = (sub_idx // n_dev) * 2 + \
+            D.major_only_flags(keep, P).to(sub_idx.dtype)
+        rows_x.append(D.gather_rows(xs.bfloat16(), plan, cap,
+                                    index_div=Kp)[0])
+        rows_e.append(D.gather_rows(payload.reshape(-1), plan, cap,
+                                    fill=-1)[0])
+    rx, re2 = torch.cat(rows_x), torch.cat(rows_e)
+    valid = re2 >= 0
+    loc = torch.where(valid, re2 // 2, torch.zeros_like(re2))
+    c2 = setp._ceil_mult(1.25 * n_dev * cap / L)
+    plan = D.sort_dispatch(loc, valid, n_groups=L, capacity=c2,
+                           major_only=valid & ((re2 & 1) == 1))
+    cf, cm = plan.kernel_counts(c2)
+    bc = min(128, c2)
+    tok_s, w_s = D.sorted_pair_arrays(plan, valid.float(), pad=bc)
+    shard = setp.expert_shard(setp.place_params_strided(params, n_dev),
+                              n_dev, 0)
+    kw = dict(w1=shard["w1"].bfloat16(), w3=shard["w3"].bfloat16(),
+              w2=shard["w2"].bfloat16(), group_offsets=plan.group_offsets,
+              counts_full=cf, counts_major=cm, tok_sorted=tok_s,
+              combine_sorted=w_s, capacity=c2, p_factor=1,
+              n_minor_start=shard["w1"].shape[-1], block_c=bc)
+    return rx, plan, kw, cap, c2
+
+
+def _as_bf16(kw):
+    """The kernel kwargs with x / weights in bf16 (the rest as they are)."""
+    return {k: v.bfloat16() if k in ("x", "w1", "w3", "w2") else v
+            for k, v in kw.items()}
 
 
 def _dev_us(ev) -> float:
@@ -363,7 +473,10 @@ def kernel_phase(dev):
     and at DBRX-132B's (d 6144, 16 experts, P 2, f 5376, top-4: 4.2 GB per
     weight stack, past 32-bit byte offsets), with routing from a router
     and 2T thresholds calibrated to a 25% drop target, so that rows are
-    FULL, MAJOR-only and dropped."""
+    FULL, MAJOR-only and dropped. The ``_bf16`` cases run bf16 operands
+    (the S-ETP wire type, bar BF16_REL_TOL): decode and prefill at Qwen3
+    widths, and S-ETP's local seating on rank 0 of phase 11's world
+    (``setp_local_case``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
@@ -395,7 +508,12 @@ def kernel_phase(dev):
         ("dbrx_decode", 8, moe.capacity_for(8, dk * dp, de * dp, 2.0), True,
          0, 0),
         ("dbrx_prefill", 2048, moe.capacity_for(2048, dk * dp, de * dp, 2.0),
-         True, 0, 0)]
+         True, 0, 0),
+        # bf16 operands: the wire type of the S-ETP path
+        ("decode_bf16", 8, cap_decode, True, 0, 0),
+        ("prefill_bf16", 1024, cap_prefill, True, 0, 0),
+        ("setp_prefill_bf16", None, None, False, 0, 0),
+        ("setp_decode_bf16", None, None, False, 0, 0)]
     widths = {name: tuple(rest) for name, *rest in ODD_WIDTHS}
     widths.update(dbrx_decode=DBRX_WIDTHS, dbrx_prefill=DBRX_WIDTHS)
     case_params = {}
@@ -411,16 +529,26 @@ def kernel_phase(dev):
                 case_params[widths[name]] = moe_params(gen, dev, dd, EE, pp,
                                                        ff)
             cparams = case_params[widths[name]]
-        x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty, hot)
-        kw, overflow = moe.fused_pipeline_args(cparams, pairs, pp, cap,
-                                               mode_grouped)
+        bf16 = name.endswith("_bf16")
+        if name.startswith("setp_"):
+            x, _, kw, _, cap = setp_local_case(
+                gen, dev, cfg, params, SETP_T_LOCAL[name[:-len("_bf16")]])
+            T, overflow = x.shape[0], 0
+        else:
+            x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty,
+                                   hot)
+            kw, overflow = moe.fused_pipeline_args(cparams, pairs, pp, cap,
+                                                   mode_grouped)
+            if bf16:
+                x, kw = x.bfloat16(), _as_bf16(kw)
         d_case = x.shape[1]
         y_ref = ops.fused_moe_pipeline_ref(x, **kw)
         y1 = ops.fused_moe_pipeline(x, **kw)
         y2 = ops.fused_moe_pipeline(x, **kw)
         torch.cuda.synchronize()
-        rel = float((y1 - y_ref).norm() / y_ref.norm())
-        max_abs = float((y1 - y_ref).abs().max())
+        rel = float((y1.float() - y_ref.float()).norm()
+                    / y_ref.float().norm())
+        max_abs = float((y1.float() - y_ref.float()).abs().max())
         stable = bool(torch.equal(y1, y2))
         cf = kw["counts_full"]
         cm = kw["counts_major"]
@@ -443,6 +571,7 @@ def kernel_phase(dev):
             cf, cm, cap)
         res = dict(case=name, T=T, d=d_case, f=kw["w1"].shape[-1],
                    capacity=cap, p_factor=kw["p_factor"], rows=rows,
+                   dtype=str(x.dtype).replace("torch.", ""),
                    rel_err=rel, max_abs_err=max_abs, bit_stable=stable,
                    ms=ms, plain_ms=plain_ms, all_full_ms=full_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
@@ -477,36 +606,43 @@ def kernel_phase(dev):
         if mode_grouped and rows["major"] == 0 and name not in (
                 "overflow", "dbrx_decode"):
             raise AssertionError(f"{name}: no MAJOR-only rows")
-        if not (rel <= REL_TOL and stable and keys_ok
-                and torch.isfinite(y1).all()):
+        bar = BF16_REL_TOL if bf16 else REL_TOL
+        if not (rel <= bar and stable and keys_ok
+                and torch.isfinite(y1).all() and y1.dtype == x.dtype):
             raise AssertionError(f"fused_moe_pipeline[{name}] disagrees with "
                                  f"its plain version: rel_err={rel:.3e} "
-                                 f"(bar {REL_TOL}) bit_stable={stable} "
+                                 f"(bar {bar}) bit_stable={stable} "
                                  f"position_keys_equal={keys_ok}")
     return results
 
 
 def reset_counts() -> None:
-    """Zero every kernel's launch count and plain version's call count."""
+    """Zero every kernel's launch counts and plain version's call count."""
     from repro_torch.kernels import ops
     for name in KERNELS:
         getattr(ops, name).launches = 0
+        if hasattr(getattr(ops, name), "launches_bf16"):
+            getattr(ops, name).launches_bf16 = 0
         getattr(ops, name + "_ref").calls = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import ops
-    return {name: dict(launches=getattr(ops, name).launches,
-                       plain_calls=getattr(ops, name + "_ref").calls)
-            for name in KERNELS}
+    out = {name: dict(launches=getattr(ops, name).launches,
+                      plain_calls=getattr(ops, name + "_ref").calls)
+           for name in KERNELS}
+    for name in KERNELS:
+        if hasattr(getattr(ops, name), "launches_bf16"):
+            out[name]["launches_bf16"] = getattr(ops, name).launches_bf16
+    return out
 
 
 def grouped_bound(kw):
     """(bound_ms, bound_by, flops, bytes) of one grouped SwiGLU call: the
     live rows read once, the whole (E, C, d) output written once, the
     weights of the neurons the live rows need read once and the counts,
-    over the HBM rate; the SwiGLU FLOPs of the live rows over the float32
-    rate; the larger of the two."""
+    over the HBM rate; the SwiGLU FLOPs of the live rows over the peak rate
+    of the operands' type; the larger of the two."""
     from repro_torch.kernels.dualsparse_ffn import resolve_n_major
     E, C, d = kw["x"].shape
     f = kw["w1"].shape[-1]
@@ -515,17 +651,18 @@ def grouped_bound(kw):
     n_major = resolve_n_major(f, P, kw["n_minor_start"], 128)
     cf = kw["counts_full"].tolist()
     cm = kw["counts_major"].tolist()
-    nbytes = E * C * d * 4 + 2 * E * 4
+    elem, peak = _operand_rate(kw["w1"])
+    nbytes = E * C * d * elem + 2 * E * 4
     flops = 0
     for rows_f, rows_m in zip(cf, cm):
-        nbytes += (rows_f + rows_m) * d * 4
+        nbytes += (rows_f + rows_m) * d * elem
         if rows_f:
-            nbytes += 3 * d * V * 4
+            nbytes += 3 * d * V * elem
         elif rows_m:
-            nbytes += 3 * d * n_major * 4
+            nbytes += 3 * d * n_major * elem
         flops += 6 * d * (V * rows_f + n_major * rows_m)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
@@ -537,7 +674,10 @@ def grouped_phase(dev):
     and counts the buffer path builds from a router's routing under 2T
     thresholds calibrated to a 25% drop target. The dead rows of every
     buffer (at or past cf + cm) are filled with noise first: they must come
-    out as exact zeros."""
+    out as exact zeros. The ``_bf16`` cases run bf16 operands: decode and
+    prefill at Qwen3 widths, and S-ETP's local buffers on rank 0 of phase
+    11's world (``setp_local_case``; its buffer path when a policy turns
+    the fused pipeline off)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
@@ -570,7 +710,11 @@ def grouped_phase(dev):
         ("p1_half_split", 1024, cap_prefill, True, 0, True, 0),
         ("ragged", 1024, 100, True, E // 8, False, 0),
         ("skewed", 256, 256, True, 0, False, HOT_EXPERTS),
-    ] + [(name, 64, 64, True, 0, False, 0) for name, *_ in ODD_WIDTHS]
+    ] + [(name, 64, 64, True, 0, False, 0) for name, *_ in ODD_WIDTHS] + [
+        ("decode_bf16", 8, 8, True, 0, False, 0),
+        ("prefill_bf16", 1024, cap_prefill, True, 0, False, 0),
+        ("setp_prefill_bf16", None, None, False, 0, False, 0),
+        ("setp_decode_bf16", None, None, False, 0, False, 0)]
     odd = {name: rest for name, *rest in ODD_WIDTHS}
     results = []
     for name, T, cap, mode_grouped, n_empty, widen, hot in cases:
@@ -579,10 +723,24 @@ def grouped_phase(dev):
             dd, EE, pp, ff, kk = odd[name]
             ccfg = dataclasses.replace(cfg, top_k=kk)
             cparams = moe_params(gen, dev, dd, EE, pp, ff)
-        x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty, hot)
-        d_case = x.shape[1]
-        kw, _, _, _, overflow = moe.grouped_swiglu_args(
-            cparams, x, pairs, pp, cap, mode_grouped)
+        bf16 = name.endswith("_bf16")
+        if name.startswith("setp_"):
+            from repro_torch.core import dispatch
+            rx, plan, fkw, _, cap = setp_local_case(
+                gen, dev, cfg, params, SETP_T_LOCAL[name[:-len("_bf16")]])
+            T, overflow = rx.shape[0], 0
+            kw = dict(x=dispatch.gather_rows(rx, plan, cap),
+                      **{k: fkw[k] for k in ("w1", "w3", "w2", "counts_full",
+                                             "counts_major", "p_factor",
+                                             "n_minor_start")})
+        else:
+            x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty,
+                                   hot)
+            kw, _, _, _, overflow = moe.grouped_swiglu_args(
+                cparams, x, pairs, pp, cap, mode_grouped)
+            if bf16:
+                kw = _as_bf16(kw)
+        d_case = kw["x"].shape[-1]
         if widen:      # the same experts unpartitioned: P = 1, split f // 2
             kw.update(w1=full_width(kw["w1"], 2), w3=full_width(kw["w3"], 2),
                       w2=full_width(kw["w2"], 1), p_factor=1,
@@ -591,15 +749,17 @@ def grouped_phase(dev):
         G, C = kw["x"].shape[:2]
         dead = (torch.arange(C, device=dev)[None, :]
                 >= (cf + cm)[:, None])                           # (G, C)
-        kw["x"] = torch.where(dead[..., None], randn(G, C, d_case), kw["x"])
+        kw["x"] = torch.where(dead[..., None],
+                              randn(G, C, d_case).to(kw["x"].dtype), kw["x"])
         # the kernel runs before the plain version: its output cannot land
         # in a freed block that already holds the plain version's result
         y1 = ops.grouped_swiglu(**kw)
         y2 = ops.grouped_swiglu(**kw)
         y_ref = ops.grouped_swiglu_ref(**kw)
         torch.cuda.synchronize()
-        rel = float((y1 - y_ref).norm() / y_ref.norm())
-        max_abs = float((y1 - y_ref).abs().max())
+        rel = float((y1.float() - y_ref.float()).norm()
+                    / y_ref.float().norm())
+        max_abs = float((y1.float() - y_ref.float()).abs().max())
         stable = bool(torch.equal(y1, y2))
         zeros = bool((y1[dead] == 0).all() and (y_ref[dead] == 0).all())
         rows = dict(full=int(cf.sum()), major=int(cm.sum()),
@@ -621,6 +781,7 @@ def grouped_phase(dev):
             cf, cm, C)
         res = dict(case=name, T=T, d=d_case, capacity=C,
                    p_factor=kw["p_factor"], f=kw["w1"].shape[-1], rows=rows,
+                   dtype=str(kw["x"].dtype).replace("torch.", ""),
                    rel_err=rel, max_abs_err=max_abs, bit_stable=stable,
                    dead_rows_zero=zeros, ms=ms, plain_ms=plain_ms,
                    all_full_ms=full_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -644,13 +805,29 @@ def grouped_phase(dev):
                                  "group")
         if mode_grouped and name != "ragged" and rows["major"] == 0:
             raise AssertionError(f"{name}: no MAJOR-only rows")
-        if not (rel <= REL_TOL and stable and zeros
-                and torch.isfinite(y1).all()):
+        bar = BF16_REL_TOL if bf16 else REL_TOL
+        if not (rel <= bar and stable and zeros
+                and torch.isfinite(y1).all() and y1.dtype == kw["x"].dtype):
             raise AssertionError(f"grouped_swiglu[{name}] disagrees with its "
                                  f"plain version: rel_err={rel:.3e} (bar "
-                                 f"{REL_TOL}) bit_stable={stable} "
+                                 f"{bar}) bit_stable={stable} "
                                  f"dead_rows_zero={zeros}")
     return results
+
+
+def layer0_hidden(model, cfg, tokens):
+    """Layer 0's MoE input (B, S, d): the hidden states of ``tokens`` after
+    layer 0's attention, as a prefill from position 0 computes them."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T_
+    with torch.no_grad():
+        blk = model.blocks[0]
+        x, pos, _ = T_.embed_inputs(model, {"tokens": tokens}, cfg)
+        x = x + attention.gqa_attention(
+            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), pos, cfg)
+        return L.rms_norm(x, blk.ln2, cfg.norm_eps)
 
 
 def layer0_check(label: str, model, cfg, policy, tokens, capacity,
@@ -668,16 +845,9 @@ def layer0_check(label: str, model, cfg, policy, tokens, capacity,
     import torch
     from repro_torch.core import moe
     from repro_torch.kernels import ops
-    from repro_torch.models import attention
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T_
     with torch.no_grad():
-        blk = model.blocks[0]
-        x, pos, _ = T_.embed_inputs(model, {"tokens": tokens}, cfg)
-        x = x + attention.gqa_attention(
-            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), pos, cfg)
-        h = L.rms_norm(x, blk.ln2, cfg.norm_eps).reshape(-1, cfg.d_model)
-        layer = blk.moe.weights()
+        h = layer0_hidden(model, cfg, tokens).reshape(-1, cfg.d_model)
+        layer = model.blocks[0].moe.weights()
         pairs = policy.route(layer, h, cfg)
         T = h.shape[0]
         if capacity is None:
@@ -1579,11 +1749,13 @@ DENSE_CASES = (("qwen2-vl-7b", None, 4, 256, 16),
                ("granite-20b", 24, 4, 512, 16))
 
 
-def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int) -> dict:
+def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int,
+                continuous: bool = False) -> dict:
     """One dense or VLM decoder through ``ServingEngine`` (a warm-up engine
     first, then the measured run, counts zeroed just before and read just
-    after: these models run no kernel of ours); for the VLM also through
-    ``ContinuousBatchingEngine`` and the blockwise check."""
+    after: these models run no kernel of ours); for the VLM also the
+    blockwise check; for the VLM and with ``continuous`` also through
+    ``ContinuousBatchingEngine``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1652,6 +1824,7 @@ def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int) -> dict:
     del eng
     if prefix:
         st["blockwise"] = blockwise_check(model, cfg, tokens)
+    if prefix or continuous:
         ckw = dict(n_slots=B, max_prompt_len=S, max_new_tokens=NEW,
                    device=dev)
         ContinuousBatchingEngine(cfg, model, **ckw).generate(
@@ -1672,6 +1845,355 @@ def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int) -> dict:
             raise AssertionError("continuous engine: not every request "
                                  "admitted")
     return st
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: S-ETP over a world of 4 ranks on the one card, and ETP
+# ---------------------------------------------------------------------------
+
+EP_B, EP_S, EP_NEW = 8, 128, 16
+EP_SLOTS, EP_REQ, EP_CONT_NEW = 4, 8, 8
+EP_TIMEOUT_S = 300      # a collective that waits longer raises on its rank
+
+
+class plain_kernels:
+    """Within the block the MoE wrappers' names point at their plain
+    versions, so a run of the S-ETP body computes the same function
+    through ``kernels.ref`` on the same inputs (the wrappers' counts stay
+    untouched)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = (ops.fused_moe_pipeline, ops.grouped_swiglu)
+        ops.fused_moe_pipeline = ops.fused_moe_pipeline_ref
+        ops.grouped_swiglu = ops.grouped_swiglu_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.fused_moe_pipeline, ops.grouped_swiglu = self._saved
+
+
+def timed_collectives(ctx):
+    """A copy of the EP context whose collectives add their host time, the
+    card synchronised before and after each, to ``spent``."""
+    import torch
+    from repro_torch.distributed import DistContext
+    spent = {"ms": 0.0, "calls": 0}
+
+    class Timed(DistContext):
+        def _timed(self, name, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = getattr(DistContext, name)(self, *args)
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            spent["calls"] += 1
+            return out
+
+        def psum(self, t, axis):
+            return self._timed("psum", t, axis)
+
+        def all_to_all(self, t, axis):
+            return self._timed("all_to_all", t, axis)
+
+        def all_gather(self, t, axis):
+            return self._timed("all_gather", t, axis)
+
+    return Timed(ctx.mesh, ctx.moe_impl), spent
+
+
+def _unplace(w, n_dev: int):
+    """Placement order -> sub-expert id order (``to_strided_order``'s
+    inverse)."""
+    L = w.shape[0] // n_dev
+    return w.reshape((n_dev, L) + tuple(w.shape[1:])).transpose(0, 1) \
+        .reshape(w.shape)
+
+
+def _ep_prepare(rank: int, ctx, cfg, tokens, dev):
+    """The Qwen3 model on this rank: every rank in turn builds the seeded
+    model, prepares it under ``load_aware`` placed for the ranks' strided
+    layout and keeps its expert shard (one prepared copy on the card at a
+    time). Rank 0 also computes layer 0's reference while it holds every
+    expert: the single-process dispatch path under keep-all 2T at capacity
+    T, on the prepared layer in sub-expert id order."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import moe, setp
+    from repro_torch.core.policy import TwoTDrop, make_policy
+    from repro_torch.data.pipeline import calibration_activations
+    from repro_torch.models import model as M
+    n = ctx.size("model")
+    model = policy = y_ref = None
+    info = {}
+    for turn in range(n):
+        if rank == turn:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = M.init_params(cfg, seed=0, device=dev)
+            calib = calibration_activations(np.random.default_rng(7), 512,
+                                            cfg.d_model, device=dev)
+            policy = make_policy("load_aware", cfg.dualsparse)
+            model, policy = policy.prepare(model, cfg, calib,
+                                           n_ep_devices=n)
+            if rank == 0:
+                with torch.no_grad():
+                    h = layer0_hidden(model, cfg, tokens)
+                    h = h.reshape(-1, cfg.d_model)
+                    layer = model.blocks[0].moe.weights()
+                    for k in ("w1", "w3", "w2"):
+                        layer[k] = _unplace(layer[k], n)
+                    keep_all = TwoTDrop(partition_p=2, t_major=-1.0,
+                                        t_minor=-1.0)
+                    y_ref = moe.moe_forward_dispatch(
+                        layer, h, cfg, pairs=keep_all.route(layer, h, cfg),
+                        capacity=h.shape[0], mode_grouped=True)
+                del layer, h
+            info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            setp.shard_experts(model, ctx)
+            del calib
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            info["prepare_s"] = time.perf_counter() - t0
+            info["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        dist.barrier()
+    return model, policy, y_ref, info
+
+
+def ep_rank(rank: int, out: str, dev_type: str) -> None:
+    """One rank of phase 11 (run by ``ep_phase`` in its own process, all
+    ranks on the one device of type ``dev_type``, gloo over a FileStore).
+    Writes ``rank<r>.json``; any failure raises out of the process."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe, setp
+    from repro_torch.core.policy import TwoTDrop
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import DistContext, make_mesh
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     GenerationConfig, ServingEngine)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)          # 4 ranks share the host's cores
+    dev = torch.device(dev_type)
+    torch.cuda.set_device(0)
+    out = Path(out)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), SETP_RANKS),
+        rank=rank, world_size=SETP_RANKS,
+        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    ctx = DistContext(make_mesh((1, SETP_RANKS), ("data", "model")))
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(full, n_layers=N_LAYERS)
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [src.sample_batch(rng, 1, EP_S)["tokens"][0]
+               for _ in range(EP_B)]
+    tokens = torch.from_numpy(np.stack(prompts)).long().to(dev)
+    res = dict(rank=rank)
+    model, policy, y_ref, res["prepare"] = _ep_prepare(rank, ctx, cfg,
+                                                       tokens, dev)
+    res["expert_shape"] = list(model.blocks[0].moe.w1.shape)
+
+    # layer 0 on real hidden states (every rank: its replicated attention)
+    d = cfg.d_model
+    layer = model.blocks[0].moe.weights()
+    with torch.no_grad():
+        h = layer0_hidden(model, cfg, tokens)
+        keep_all = TwoTDrop(partition_p=2, t_major=-1.0, t_minor=-1.0)
+        y32, of32 = setp.setp_moe_forward(
+            layer, h, cfg, ctx, policy=keep_all, wire_dtype=torch.float32,
+            cap_factor=4.0, local_cap_factor=8.0, return_overflow=True)
+        y_k = setp.setp_moe_forward(layer, h, cfg, ctx, policy=policy)
+        # the layer's host time at the prefill and decode shapes, and the
+        # share of it inside the collectives
+        timing = {}
+        for label, xin in (("prefill", h), ("decode", h[:, -1:])):
+            tctx, spent = timed_collectives(ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            setp.setp_moe_forward(layer, xin, cfg, tctx, policy=policy)
+            torch.cuda.synchronize()
+            timing[label] = dict(layer_ms=(time.perf_counter() - t0) * 1e3,
+                                 collective_ms=spent["ms"],
+                                 collectives=spent["calls"])
+        with plain_kernels():
+            y_p = setp.setp_moe_forward(layer, h, cfg, ctx, policy=policy)
+        torch.cuda.synchronize()
+    check = dict(
+        overflow_f32=int(of32), timing_bf16=timing,
+        rel_err_bf16_vs_plain=float((y_k.float() - y_p.float()).norm()
+                                    / y_p.float().norm()),
+        max_abs_err_bf16_vs_plain=float((y_k.float() - y_p.float())
+                                        .abs().max()),
+        finite=bool(torch.isfinite(y_k).all() and torch.isfinite(y32).all()))
+    if rank == 0:
+        y32 = y32.reshape(-1, d)
+        check.update(rel_err_f32_vs_dispatch=float(
+            (y32 - y_ref).norm() / y_ref.norm()),
+            max_abs_err_f32_vs_dispatch=float((y32 - y_ref).abs().max()))
+    res["layer0"] = check
+    del y32, y_k, y_p, y_ref, h
+
+    # serve: the sync engine, then the continuous engine on the buffer path
+    # (the grouped SwiGLU kernel), each rank in SPMD
+    kw = dict(batch_size=EP_B, max_prompt_len=EP_S, max_new_tokens=EP_NEW,
+              policy=policy, device=dev, dist=ctx)
+    ServingEngine(cfg, model, **kw).generate(
+        prompts, GenerationConfig(max_new_tokens=2))          # warm-up
+    eng = ServingEngine(cfg, model, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, GenerationConfig(max_new_tokens=EP_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = served_stats(eng, results, wall, read_counts(), EP_NEW)
+    st["tokens_out"] = [r.tokens for r in results]
+    res["sync"] = st
+
+    cpol = dataclasses.replace(policy, use_kernel=True, fused_pipeline=False)
+    ckw = dict(n_slots=EP_SLOTS, max_prompt_len=MAX_PROMPT,
+               max_new_tokens=EP_CONT_NEW, policy=cpol, exact_moe=False,
+               device=dev, dist=ctx)
+    cprompts = slot_prompts(cfg.vocab_size)[:EP_REQ]
+    ContinuousBatchingEngine(cfg, model, **ckw).generate(
+        cprompts[:1], GenerationConfig(max_new_tokens=2))     # warm-up
+    ceng = ContinuousBatchingEngine(cfg, model, **ckw)
+    cres, cwall, ccounts = serve_slots(ceng, cprompts,
+                                       [EP_CONT_NEW] * EP_REQ)
+    cst = slot_stats(ceng, cres, cwall, ccounts)
+    cst.update(prefill_inserts=ceng.n_admitted,
+               tokens_out=[r.tokens for r in cres])
+    res["continuous"] = cst
+    del eng, ceng, model
+    free_memory()
+
+    # ETP: one layer at Qwen3 widths on (ep 2, tp 2) against the oracle
+    ectx = DistContext(make_mesh((2, 2), ("ep", "tp")))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    full_layer = moe_params(gen, dev, d, cfg.n_experts, 1, cfg.d_expert)
+    x = torch.randn((4, 64, d), generator=gen, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = setp.etp_moe_forward(setp.etp_shard(full_layer, ectx), x, cfg,
+                                 ectx, cap_factor=4.0, local_cap_factor=8.0)
+        torch.cuda.synchronize()
+        etp = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   finite=bool(torch.isfinite(y).all()))
+        if rank == 0:
+            want = moe.moe_forward_ref(full_layer, x.reshape(-1, d), cfg)
+            y = y.reshape(-1, d)
+            etp.update(rel_err=float((y - want).norm() / want.norm()),
+                       max_abs_err=float((y - want).abs().max()))
+    res["etp"] = etp
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_phase(dev) -> dict:
+    """Phase 11: spawn the 4 ranks (one process each, all on ``dev``'s
+    card, gloo over a FileStore under build/), wait for them (a failing
+    rank fails the phase), read their results and hold them to the
+    bars."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-moe-30b-a3b")
+    out = ROOT / "build" / "ep_world"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(ep_rank, args=(str(out), dev.type), nprocs=SETP_RANKS,
+             join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(SETP_RANKS)]
+    r0 = ranks[0]
+    shard = [cfg.n_experts * 2 // SETP_RANKS, cfg.d_model, cfg.d_expert // 2]
+    st, cst, chk = r0["sync"], r0["continuous"], r0["layer0"]
+    log(f"  {SETP_RANKS} ranks in {wall:.1f}s (spawn to join); each holds "
+        f"experts {r0['expert_shape']} per layer; prepare (rank by rank): "
+        + ", ".join(f"{r['prepare']['prepare_s']:.2f}s / "
+                    f"{r['prepare']['resident_gb']:.2f} GB resident"
+                    for r in ranks)
+        + f"; rank 0 prepare peak {r0['prepare']['peak_gb']:.2f} GB")
+    log(f"  layer 0 on the {EP_B}x{EP_S} prompts: S-ETP keep-all 2T at the "
+        f"float32 wire vs the one-process dispatch path rel_err "
+        f"{chk['rel_err_f32_vs_dispatch']:.3e} (bar {REL_TOL:g}, overflow "
+        f"{chk['overflow_f32']}); S-ETP load_aware at the bf16 wire, "
+        f"kernels vs plain versions: rel_err "
+        + ", ".join(f"{r['layer0']['rel_err_bf16_vs_plain']:.3e}"
+                    for r in ranks)
+        + f" (ranks 0-3, bar {BF16_REL_TOL:g}); the bf16 layer call "
+        "(host clock, rank 0): "
+        + ", ".join(f"{k} {v['layer_ms']:.2f} ms of which "
+                    f"{v['collective_ms']:.2f} ms in {v['collectives']} "
+                    "collectives" for k, v in chk["timing_bf16"].items()))
+    log(f"  sync, rank 0: {st['tokens']} tokens in {st['wall_s']:.3f}s "
+        f"({st['tok_per_s']:.1f} tok/s), prefill {st['prefill_ms']:.2f} ms, "
+        f"decode step {st['decode_step_ms']:.3f} ms (mean of "
+        f"{EP_NEW - 1}); drop rate {st['drop_rate']:.4f} (kept_full "
+        f"{st['kept_full']}, kept_major {st['kept_major']}, dropped "
+        f"{st['dropped']}), overflow_pairs {st['overflow_pairs']}; counts "
+        + "; ".join(f"rank {r['rank']} {r['sync']['counts']}"
+                    for r in ranks))
+    log(f"  continuous (buffer path), rank 0: {cst['tokens']} tokens in "
+        f"{cst['wall_s']:.3f}s ({cst['tok_per_s']:.1f} tok/s), "
+        f"{cst['prefill_inserts']} prefill-inserts, {cst['decode_steps']} "
+        f"decode steps (median {cst['decode_step_ms']:.3f} ms), overflow "
+        f"{cst['overflow_pairs']}; grouped_swiglu bf16 launches per rank "
+        + ", ".join(str(r['continuous']['counts']['grouped_swiglu']
+                        ['launches_bf16']) for r in ranks))
+    etp = r0["etp"]
+    log(f"  ETP (ep 2 x tp 2), one layer at Qwen3 widths, 4 x 64 tokens: "
+        f"rel_err vs the dense oracle {etp['rel_err']:.3e}, "
+        f"{etp['ms']:.2f} ms (host clock)")
+    sync_expected = N_LAYERS * EP_NEW
+    for r in ranks:
+        c, cc = r["sync"]["counts"], r["continuous"]["counts"]
+        fused, grouped = c["fused_moe_pipeline"], cc["grouped_swiglu"]
+        cont_expected = N_LAYERS * (r["continuous"]["prefill_inserts"]
+                                    + r["continuous"]["decode_steps"])
+        if r["expert_shape"] != shard:
+            raise AssertionError(f"rank {r['rank']} holds experts "
+                                 f"{r['expert_shape']}")
+        if not (fused["launches"] == fused["launches_bf16"] == sync_expected
+                and c["grouped_swiglu"]["launches"] == 0
+                and grouped["launches"] == grouped["launches_bf16"]
+                == cont_expected
+                and cc["fused_moe_pipeline"]["launches"] == 0
+                and not any(v["plain_calls"] for v in c.values())
+                and not any(v["plain_calls"] for v in cc.values())):
+            raise AssertionError(f"rank {r['rank']}: launches {c} / {cc} "
+                                 f"(expected {sync_expected} fused bf16, "
+                                 f"{cont_expected} grouped bf16, 0 plain)")
+        if r["sync"]["tokens_out"] != st["tokens_out"] or \
+                r["continuous"]["tokens_out"] != cst["tokens_out"]:
+            raise AssertionError(f"rank {r['rank']} served other tokens "
+                                 "than rank 0")
+        if not (r["layer0"]["rel_err_bf16_vs_plain"] <= BF16_REL_TOL
+                and r["layer0"]["finite"] and r["etp"]["finite"]
+                and r["layer0"]["overflow_f32"] == 0):
+            raise AssertionError(f"rank {r['rank']}: layer-0 check "
+                                 f"{r['layer0']}")
+    if not (chk["rel_err_f32_vs_dispatch"] <= REL_TOL
+            and etp["rel_err"] <= REL_TOL):
+        raise AssertionError("S-ETP or ETP disagrees with its reference")
+    if not all(len(t) == EP_NEW for t in st["tokens_out"]) or \
+            not all(len(t) == EP_CONT_NEW for t in cst["tokens_out"]):
+        raise AssertionError("a request did not return every token")
+    return dict(wall_s=wall, ranks=ranks)
 
 
 def main() -> int:
@@ -1700,14 +2222,18 @@ def main() -> int:
         for kernel, regs, spill, smem in ptxas_report(text):
             log(f"    {name}: {kernel}: {regs} registers, {spill} bytes "
                 f"spilled, {smem} bytes static shared memory")
-    ring = dualsparse_ffn.ring_bytes()
-    log("  swiglu tiles' cp.async rings (dynamic shared memory per CTA): "
-        + ", ".join(f"{k} {v}" for k, v in ring.items()))
+    for dtype in dualsparse_ffn.ELEMENT_TYPES:
+        ring = dualsparse_ffn.ring_bytes(dtype)
+        log(f"  swiglu tiles' cp.async rings, {dtype} operands (dynamic "
+            "shared memory per CTA): "
+            + ", ".join(f"{k} {v}" for k, v in ring.items()))
 
     log("phase 2: kernels against their plain versions")
     log(f"  bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM, "
-        f"FLOPs / {F32_FLOPS / 1e12:.0f} TFLOP/s float32 CUDA-core peak); "
-        f"bar rel_err <= {REL_TOL:g} and bit-identical across launches")
+        f"FLOPs / {F32_FLOPS / 1e12:.0f} TFLOP/s float32 CUDA-core peak, "
+        f"or / {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 tensor-core peak for "
+        f"the _bf16 cases); bar rel_err <= {REL_TOL:g} ({BF16_REL_TOL:g} "
+        f"for bf16) and bit-identical across launches")
     cases = kernel_phase(dev)
     log("phase 2b: grouped_swiglu against its plain version")
     grouped = grouped_phase(dev)
@@ -1743,6 +2269,15 @@ def main() -> int:
     for arch, n_layers, B, S, NEW in DENSE_CASES:
         dense[arch] = dense_serve(dev, arch, n_layers, B, S, NEW)
         free_memory()
+    log(f"phase 11: S-ETP over {SETP_RANKS} ranks on this card (gloo, the "
+        f"wire through host memory; times are not an EP step time): "
+        f"Qwen3-30B-A3B ({N_LAYERS} of 48 layers) under load_aware, "
+        f"{EP_B} x {EP_S} x {EP_NEW} sync + {EP_REQ} requests on "
+        f"{EP_SLOTS} continuous slots; then ETP on (ep 2, tp 2)")
+    ep = ep_phase(dev)
+    log("phase 12: serve MiniCPM3-4B (MLA, 62 layers), 4 x 512 x 16")
+    mla = dense_serve(dev, "minicpm3-4b", None, 4, 512, 16, continuous=True)
+    free_memory()
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1751,14 +2286,20 @@ def main() -> int:
                    "kernel_cases": cases, "grouped_cases": grouped,
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
-                   "dbrx": dbrx, "dense": dense},
+                   "dbrx": dbrx, "dense": dense, "setp_world": ep,
+                   "minicpm3": mla},
                   fh, indent=1)
 
-    def kernel_entry(name, replaces, case_list, case, launches, at=None):
-        """The kernel's line, timed at the main path's shape ``case``."""
+    def kernel_entry(name, replaces, case_list, case, launches, at=None,
+                     dtype="float32"):
+        """The kernel's line, timed at the main path's shape ``case``; its
+        error is the largest over the cases of its operand type."""
+        case_list = [c for c in case_list
+                     if c.get("dtype", "float32") == dtype]
         main_case = next(c for c in case_list if c["case"] == case)
+        source = name.split("[")[0]
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in case_list),
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -1783,12 +2324,31 @@ def main() -> int:
     fused["dbrx_prefill"] = {k: wide[k] for k in (
         "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
         "max_abs_err", "rel_err")}
+    ep_ranks = ep["ranks"]
     print(json.dumps({"kernels": [
         fused,
+        kernel_entry("fused_moe_pipeline[bf16]",
+                     "src/repro/kernels/dualsparse_ffn.py:498", cases,
+                     "setp_prefill_bf16",
+                     sum(r["sync"]["counts"]["fused_moe_pipeline"]
+                         ["launches_bf16"] for r in ep_ranks),
+                     at="S-ETP local seating of rank 0, prefill (T_local "
+                        "256, 4736 received rows, 64 local sub-experts, "
+                        "c2 96), bf16; launches of phase 11's sync run, "
+                        "4 ranks", dtype="bfloat16"),
         kernel_entry("grouped_swiglu",
                      "src/repro/kernels/dualsparse_ffn.py:192", grouped,
                      "chunk",
                      paged["counts"]["grouped_swiglu"]["launches"]),
+        kernel_entry("grouped_swiglu[bf16]",
+                     "src/repro/kernels/dualsparse_ffn.py:192", grouped,
+                     "setp_decode_bf16",
+                     sum(r["continuous"]["counts"]["grouped_swiglu"]
+                         ["launches_bf16"] for r in ep_ranks),
+                     at="S-ETP local buffers of rank 0, decode (T_local 8, "
+                        "160 received rows, c2 8), bf16; launches of "
+                        "phase 11's continuous run (buffer path), 4 ranks",
+                     dtype="bfloat16"),
         # no single PyTorch call computes the intra-chunk SSD either
         kernel_entry("ssd_chunk", "src/repro/kernels/ssd_chunk.py:59", ssd,
                      "mamba2-370m/grouped",

@@ -10,8 +10,12 @@ leading layers axis, which this splits into the per-layer modules (for
 in place of ``"blocks"``; a vision-frontend tree adds
 ``"frontend_proj"``. Trees of prepared (partitioned) MoE weights load as
 well: the expert tensors take the tree's shapes, and a ``per_layer``
-policy's ``moe["thresholds"]`` (layers, 2) loads into each layer. Nothing
-here imports JAX.
+policy's ``moe["thresholds"]`` (layers, 2) loads into each layer. An MLA
+block's attention leaves (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
+``kv_norm``, ``wk_b``, ``wv_b``, ``wo``) load by the same names. Given an
+EP context, a tree prepared with ``n_ep_devices`` (strided placement)
+loads as this rank's S-ETP shard: each MoE layer keeps only the rank's
+sub-experts (``core.setp.expert_shard``). Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -44,8 +48,11 @@ def _load(module: nn.Module, tree: Mapping, layer: Optional[int],
                 _param(value if layer is None else value[layer], device))
 
 
-def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
-    """A ``Transformer`` holding the weights of the numpy tree."""
+def params_from_numpy(tree: Mapping, cfg, device="cuda",
+                      dist=None) -> Transformer:
+    """A ``Transformer`` holding the weights of the numpy tree; with an EP
+    context ``dist``, only this rank's shard of every MoE layer's placed
+    experts (over the ``model`` axis)."""
     model = empty_model(cfg, device=device)
     dev = model.device
     model.embed.embedding = _param(tree["embed"]["embedding"], dev)
@@ -61,4 +68,7 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Transformer:
         return model
     for i, block in enumerate(model.blocks):
         _load(block, tree["blocks"], i, dev)
+    if dist is not None:
+        from ..core import setp
+        setp.shard_experts(model, dist)
     return model

@@ -1,7 +1,8 @@
 """Config registry of the PyTorch port: the architectures the port
-serves — MoE decoders, the dense GQA decoders, the Qwen2-VL decoder with
-its vision stub, Mamba2 and the Zamba2 hybrid (its own copy of the JAX
-package's dataclasses, so the port never imports that package)."""
+serves — MoE decoders, the dense GQA decoders, MiniCPM3-4B (MLA), the
+Qwen2-VL decoder with its vision stub, Mamba2 and the Zamba2 hybrid (its
+own copy of the JAX package's dataclasses, so the port never imports that
+package)."""
 from __future__ import annotations
 
 from .base import ModelConfig, DualSparseConfig, InputShape, INPUT_SHAPES
@@ -15,6 +16,7 @@ from . import qwen2_7b
 from . import granite_20b
 from . import starcoder2_3b
 from . import qwen2_vl_7b
+from . import minicpm3_4b
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -27,7 +29,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b,
-             dbrx_132b, qwen2_7b, granite_20b, starcoder2_3b, qwen2_vl_7b):
+             dbrx_132b, qwen2_7b, granite_20b, starcoder2_3b, qwen2_vl_7b,
+             minicpm3_4b):
     for _cfg in _mod.CONFIGS:
         register(_cfg)
 

@@ -40,6 +40,9 @@ class MoELayer(nn.Module):
         self.shared = (MLP(d, cfg.n_shared_experts * f, **kw)
                        if cfg.n_shared_experts else None)
         self.register_parameter("thresholds", None)
+        # S-ETP: the layer holds 1 / ep_shards of the placed sub-experts
+        # (``core.setp.shard_experts``); 1 when it holds them all
+        self.ep_shards = 1
 
     def weights(self) -> Dict:
         """The layer as the name -> tensor dict the core functions take."""

@@ -17,8 +17,10 @@ registry maps CLI names to classes:
 
     none | 1t | 2t | load_aware | per_layer
 
-(The JAX package's ``sub_pair_keep``, the S-ETP form of the keep mask, is
-not ported: S-ETP is not.)
+``sub_pair_keep`` is the keep mask in the form the S-ETP body needs
+(``core.setp``: routing already expanded to (T, K*P) sub-expert pairs);
+``prepare(..., n_ep_devices=D)`` also places the sub-experts strided over
+D EP devices for it.
 """
 from __future__ import annotations
 
@@ -57,6 +59,8 @@ class SparsityPolicy:
 
     _dynamic: ClassVar[Tuple[str, ...]] = ()
     name: ClassVar[str] = "base"
+    needs_loads: ClassVar[bool] = False   # S-ETP must all-reduce a (D,)
+    #                                       load histogram for the mask
 
     @property
     def kernel_mode_grouping(self) -> bool:
@@ -70,8 +74,10 @@ class SparsityPolicy:
 
     # -- (a) param preparation ------------------------------------------
 
-    def prepare_layer(self, moe_params: Dict, cfg, calib_x=None) -> Dict:
-        """One MoE layer's param dict -> prepared dict."""
+    def prepare_layer(self, moe_params: Dict, cfg, calib_x=None, *,
+                      n_ep_devices: int = 0) -> Dict:
+        """One MoE layer's param dict -> prepared dict (partition +
+        reconstruction + strided placement over ``n_ep_devices``)."""
         out = moe_params
         if self.partition_p > 1:
             if calib_x is None:
@@ -85,24 +91,31 @@ class SparsityPolicy:
             else:
                 from . import partition
                 out = partition.partial_transform(out, self.partition_p)
+        if n_ep_devices:
+            from . import setp
+            out = setp.place_params_strided(out, n_ep_devices)
         return out
 
-    def prepare(self, target, cfg, calib_x=None):
+    def prepare(self, target, cfg, calib_x=None, *, n_ep_devices: int = 0):
         """Prepare a model (every MoE block, replaced IN PLACE so that no
         second copy of the model's expert weights is kept) or a bare MoE
-        layer dict (returned new). Returns ``(prepared, calibrated_policy)``:
-        the policy has thresholds calibrated to ``drop_target`` when set."""
+        layer dict (returned new); ``n_ep_devices`` also places the
+        sub-experts strided for S-ETP. Returns ``(prepared,
+        calibrated_policy)``: the policy has thresholds calibrated to
+        ``drop_target`` when set."""
+        kw = dict(n_ep_devices=n_ep_devices)
         if isinstance(target, dict):
             if "wg" not in target:
                 return target, self
-            new = self.prepare_layer(target, cfg, calib_x)
+            new = self.prepare_layer(target, cfg, calib_x, **kw)
             return new, self._calibrated([new["wg"]], cfg, calib_x)
         moes = [b.moe for b in target.blocks if b.moe is not None]
         if not moes:
             return target, self
         with torch.no_grad():
             for m in moes:
-                m.load_weights(self.prepare_layer(m.weights(), cfg, calib_x))
+                m.load_weights(self.prepare_layer(m.weights(), cfg, calib_x,
+                                                  **kw))
         return target, self._calibrated([m.wg for m in moes], cfg, calib_x)
 
     def _calib_scores(self, wgs, cfg, calib_x):
@@ -129,6 +142,14 @@ class SparsityPolicy:
         """Expanded sub-expert pairs of tokens ``x`` (T, d) under the
         layer's ``params``. ``loads``: a (D,) per-device load histogram for
         policies that read one (``load_aware``); the others ignore it."""
+        raise NotImplementedError
+
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev: int = 1,
+                      loads=None, thresholds=None):
+        """Keep mask over already-expanded (T, K*P) sub-expert pairs — the
+        form the S-ETP body needs. ``loads``: the (n_dev,) all-reduced
+        pre-drop histogram when ``needs_loads``; ``thresholds``: the
+        layer's (2,) calibrated pair when its params carry one."""
         raise NotImplementedError
 
     # -- helpers ---------------------------------------------------------
@@ -159,6 +180,10 @@ class NoDrop(SparsityPolicy):
     def route(self, params, x, cfg, *, loads=None):
         return moe_mod.route_plain(params, x, cfg)
 
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
+                      loads=None, thresholds=None):
+        return torch.ones_like(score, dtype=torch.bool)
+
     @classmethod
     def from_config(cls, ds, drop_target=None, **kw):
         return cls(**kw)
@@ -177,6 +202,10 @@ class OneTDrop(SparsityPolicy):
         r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
         return drop_mod.expand_pairs_1t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, self.t_drop)
+
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
+                      loads=None, thresholds=None):
+        return score > _bt(self.t_drop, score)
 
     def _calibrated(self, wgs, cfg, calib_x):
         if self.drop_target is None:
@@ -206,6 +235,12 @@ class TwoTDrop(SparsityPolicy):
         return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, self.t_major,
                                         self.t_minor)
+
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
+                      loads=None, thresholds=None):
+        # strict > on both thresholds, as the pair expansion
+        return torch.where(is_major, score > _bt(self.t_major, score),
+                           score > _bt(self.t_minor, score))
 
     def _calibrated(self, wgs, cfg, calib_x, delta: float = 0.05):
         if self.drop_target is None:
@@ -250,6 +285,7 @@ class LoadAwareTwoT(SparsityPolicy):
     t_max: object = 0.12
     t_gap: object = 0.01
     _dynamic: ClassVar[Tuple[str, ...]] = ("t_max", "t_gap")
+    needs_loads: ClassVar[bool] = True
 
     def _t1(self, score, loads, dev_of):
         """Per-pair stepped-down T¹ = t_max * min(load_ratio, 1)[device]."""
@@ -272,6 +308,16 @@ class LoadAwareTwoT(SparsityPolicy):
             r.idx, r.combine, r.norm_score, self.partition_p,
             torch.clamp(t1 - gap, min=0.0), t1 + gap)
 
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
+                      loads=None, thresholds=None):
+        if loads is None:
+            raise ValueError("LoadAwareTwoT.sub_pair_keep needs the "
+                             "all-reduced per-device load histogram")
+        t1 = self._t1(score, loads, (sub_idx % n_dev).long())  # strided
+        gap = _bt(self.t_gap, score)
+        return torch.where(is_major, score > torch.clamp(t1 - gap, min=0.0),
+                           score > t1 + gap)
+
     @classmethod
     def from_config(cls, ds, drop_target=None, **kw):
         return cls(partition_p=ds.partition_p, importance=ds.importance,
@@ -291,8 +337,10 @@ class PerLayerCalibrated2T(SparsityPolicy):
     drop_target: Optional[float] = 0.25
     delta: float = 0.05
 
-    def prepare_layer(self, moe_params, cfg, calib_x=None):
-        out = dict(super().prepare_layer(moe_params, cfg, calib_x))
+    def prepare_layer(self, moe_params, cfg, calib_x=None, *,
+                      n_ep_devices: int = 0):
+        out = dict(super().prepare_layer(moe_params, cfg, calib_x,
+                                         n_ep_devices=n_ep_devices))
         r = gating.route(calib_x, moe_params["wg"], cfg.top_k,
                          cfg.router_norm_topk)
         target = self.drop_target if self.drop_target is not None else 0.25
@@ -303,14 +351,23 @@ class PerLayerCalibrated2T(SparsityPolicy):
         out["thresholds"] = torch.stack([tm, tn])
         return out
 
-    def route(self, params, x, cfg, *, loads=None):
-        th = params.get("thresholds")
+    @staticmethod
+    def _layer_thresholds(th):
         if th is None:
             raise ValueError("per_layer policy: params carry no "
                              "'thresholds' — run policy.prepare() first")
+        return th[0], th[1]
+
+    def route(self, params, x, cfg, *, loads=None):
+        tm, tn = self._layer_thresholds(params.get("thresholds"))
         r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
         return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
-                                        self.partition_p, th[0], th[1])
+                                        self.partition_p, tm, tn)
+
+    def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
+                      loads=None, thresholds=None):
+        tm, tn = self._layer_thresholds(thresholds)
+        return torch.where(is_major, score > tm, score > tn)
 
     @classmethod
     def from_config(cls, ds, drop_target=None, **kw):

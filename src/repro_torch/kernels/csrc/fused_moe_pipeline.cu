@@ -6,7 +6,10 @@
 // at :353, resident body _fused_pipeline_kernel at :282; both compute the
 // same function, so this one kernel serves either value of ``streamed``).
 //
-// What bounds it on an H100 (f32 weights, the only type the system serves):
+// What bounds it on an H100 with float32 operands (the single-card serving
+// path; the S-ETP path runs it on bfloat16 wire operands, whose bound is
+// the bf16 tensor cores' and which this CUDA-core tile runs at its float32
+// FMA rate):
 //   * decode (T=8, Qwen3-30B-A3B widths) and a slot engine's prefill-insert
 //     (T <= 128, ~8 rows per expert): each touched expert streams
 //     3 * 2048 * 768 * 4 B ~= 18.9 MB of weights for a handful of rows, so
@@ -37,7 +40,8 @@
 // (capacity overflow, dropped pairs, padding) are never written. A first
 // launch marks each position with its token or -1 (not computed), and the
 // combine gathers each token's marked positions in order on the device, so
-// the wrapper runs no torch op of its own besides allocating.
+// the wrapper runs no torch op of its own besides allocating (and, for
+// bf16 operands, casting the float32 output to bf16).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -48,7 +52,8 @@
 
 namespace {
 
-using swiglu_tiles::Problem;
+template <typename T>
+using Problem = swiglu_tiles::Problem<T>;
 
 constexpr int KEY_THREADS = 256;
 constexpr int COMBINE_THREADS = 256;
@@ -115,6 +120,38 @@ combine_kernel(const float* y, const int* key, int n_pos, float* out,
   }
 }
 
+// The pipeline's operands as the C interface passes them.
+struct Operands {
+  const void *x, *w1, *w3, *w2, *offs, *cf, *cm, *tok, *comb;
+  void *h, *y, *regime;
+  int d, f, P, n_major, capacity;
+};
+
+// The up and down launches of every row tile, in element type T.
+template <typename T>
+int run_tiles(const Operands& o, int E, cudaStream_t s) {
+  Problem<T> pb;
+  pb.x = static_cast<const T*>(o.x);
+  pb.w1 = static_cast<const T*>(o.w1);
+  pb.w3 = static_cast<const T*>(o.w3);
+  pb.w2 = static_cast<const T*>(o.w2);
+  pb.offs = static_cast<const int*>(o.offs);
+  pb.cf = static_cast<const int*>(o.cf);
+  pb.cm = static_cast<const int*>(o.cm);
+  pb.tok = static_cast<const int*>(o.tok);
+  pb.comb = static_cast<const float*>(o.comb);
+  pb.h = static_cast<T*>(o.h);
+  pb.y = static_cast<float*>(o.y);
+  pb.regime = static_cast<int*>(o.regime);
+  pb.d = o.d;
+  pb.f = o.f;
+  pb.P = o.P;
+  pb.n_major = o.n_major;
+  pb.n_tiles_sub = (o.f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
+  pb.capacity = o.capacity;
+  return static_cast<int>(swiglu_tiles::launch_swiglu<false>(pb, E, s));
+}
+
 }  // namespace
 
 extern "C" {
@@ -138,43 +175,29 @@ int fused_moe_pipeline_position_keys(
 }
 
 // Enqueues the launches on ``stream``: the position keys, each row tile's
-// up and down, and the combine. ``h`` (N', P*f), ``y`` (N', d) and ``key``
-// (N',) are scratch; ``regime`` is null or an (E,) int32 buffer that
-// receives, per group, 1 (few-row tile) or 2 (many-row tile). Returns the
-// cudaGetLastError() code after the first failing launch, or 0.
+// up and down, and the combine. x, w1, w3, w2 and the scratch ``h``
+// (N', P*f) are float32 (``bf16`` == 0) or bfloat16 (``bf16`` != 0);
+// ``combine_sorted``, the scratch ``y`` (N', d) and ``out`` (T, d) are
+// float32, ``key`` (N',) int32 scratch; ``regime`` is null or an (E,) int32
+// buffer that receives, per group, 1 (few-row tile) or 2 (many-row tile).
+// Returns the cudaGetLastError() code after the first failing launch, or 0.
 int fused_moe_pipeline_launch(
     const void* x, const void* w1, const void* w3, const void* w2,
     const void* group_offsets, const void* counts_full,
     const void* counts_major, const void* tok_sorted,
     const void* combine_sorted, void* h, void* y, void* key, void* out,
     void* regime, int T, int n_pos, int d, int f, int E, int P,
-    int n_major, int capacity, void* stream) {
-  Problem pb;
-  pb.x = static_cast<const float*>(x);
-  pb.w1 = static_cast<const float*>(w1);
-  pb.w3 = static_cast<const float*>(w3);
-  pb.w2 = static_cast<const float*>(w2);
-  pb.offs = static_cast<const int*>(group_offsets);
-  pb.cf = static_cast<const int*>(counts_full);
-  pb.cm = static_cast<const int*>(counts_major);
-  pb.tok = static_cast<const int*>(tok_sorted);
-  pb.comb = static_cast<const float*>(combine_sorted);
-  pb.h = static_cast<float*>(h);
-  pb.y = static_cast<float*>(y);
-  pb.regime = static_cast<int*>(regime);
-  pb.d = d;
-  pb.f = f;
-  pb.P = P;
-  pb.n_major = n_major;
-  pb.n_tiles_sub = (f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
-  pb.capacity = capacity;
+    int n_major, int capacity, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
   int err = fused_moe_pipeline_position_keys(
       tok_sorted, group_offsets, counts_full, counts_major, key, n_pos, E,
       capacity, stream);
   if (err != 0) return err;
-  err = static_cast<int>(swiglu_tiles::launch_swiglu<false>(pb, E, s));
+  const Operands ops{x, w1, w3, w2, group_offsets, counts_full, counts_major,
+                     tok_sorted, combine_sorted, h, y, regime, d, f, P,
+                     n_major, capacity};
+  err = bf16 ? run_tiles<__nv_bfloat16>(ops, E, s)
+             : run_tiles<float>(ops, E, s);
   if (err != 0) return err;
   if (T > 0) {
     // a few tokens spread their columns over more CTAs (~1024 in all)

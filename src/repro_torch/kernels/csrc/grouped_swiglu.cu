@@ -11,6 +11,9 @@
 // output tile before it accumulates). Counts past C are clamped on the
 // device.
 //
+// Element types as in swiglu_tiles.cuh: float32, or bfloat16 operands (the
+// S-ETP wire type) with float32 products and output.
+//
 // What bounds it on an H100 (f32 weights): at the paged engine's decode
 // (C = 8) and chunk (T = C = 64, ~3-4 live rows per group) each live
 // group streams 3 * d * V * 4 B of weights for a few rows, so it is bound by
@@ -32,29 +35,25 @@
 
 #include "swiglu_tiles.cuh"
 
-extern "C" {
+namespace {
 
-// Enqueues the up and down launches on ``stream``. ``h`` is an (E*C, P*f)
-// float32 scratch; ``out`` the (E, C, d) float32 result; ``regime`` null or
-// an (E,) int32 buffer that receives, per group, 1 (few-row tile) or 2
-// (many-row tile). Returns the cudaGetLastError() code after the first
-// failing launch, or 0.
-int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
-                          const void* w2, const void* counts_full,
-                          const void* counts_major, void* h, void* out,
-                          void* regime, int E, int C, int d, int f, int P,
-                          int n_major, void* stream) {
-  swiglu_tiles::Problem pb;
-  pb.x = static_cast<const float*>(x);
-  pb.w1 = static_cast<const float*>(w1);
-  pb.w3 = static_cast<const float*>(w3);
-  pb.w2 = static_cast<const float*>(w2);
+// The up and down launches of every row tile, in element type T.
+template <typename T>
+int run_tiles(const void* x, const void* w1, const void* w3, const void* w2,
+              const void* counts_full, const void* counts_major, void* h,
+              void* out, void* regime, int E, int C, int d, int f, int P,
+              int n_major, cudaStream_t stream) {
+  swiglu_tiles::Problem<T> pb;
+  pb.x = static_cast<const T*>(x);
+  pb.w1 = static_cast<const T*>(w1);
+  pb.w3 = static_cast<const T*>(w3);
+  pb.w2 = static_cast<const T*>(w2);
   pb.offs = nullptr;
   pb.cf = static_cast<const int*>(counts_full);
   pb.cm = static_cast<const int*>(counts_major);
   pb.tok = nullptr;
   pb.comb = nullptr;
-  pb.h = static_cast<float*>(h);
+  pb.h = static_cast<T*>(h);
   pb.y = static_cast<float*>(out);
   pb.regime = static_cast<int*>(regime);
   pb.d = d;
@@ -63,15 +62,40 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
   pb.n_major = n_major;
   pb.n_tiles_sub = (f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
   pb.capacity = C;
-  return static_cast<int>(swiglu_tiles::launch_swiglu<true>(
-      pb, E, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(swiglu_tiles::launch_swiglu<true>(pb, E, stream));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Enqueues the up and down launches on ``stream``. x, the weights and the
+// scratch ``h`` (E*C, P*f) are float32 (``bf16`` == 0) or bfloat16
+// (``bf16`` != 0); ``out`` is the (E, C, d) float32 result; ``regime`` null
+// or an (E,) int32 buffer that receives, per group, 1 (few-row tile) or 2
+// (many-row tile). Returns the cudaGetLastError() code after the first
+// failing launch, or 0.
+int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
+                          const void* w2, const void* counts_full,
+                          const void* counts_major, void* h, void* out,
+                          void* regime, int E, int C, int d, int f, int P,
+                          int n_major, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return run_tiles<__nv_bfloat16>(x, w1, w3, w2, counts_full, counts_major,
+                                    h, out, regime, E, C, d, f, P, n_major,
+                                    s);
+  return run_tiles<float>(x, w1, w3, w2, counts_full, counts_major, h, out,
+                          regime, E, C, d, f, P, n_major, s);
 }
 
 // Dynamic shared memory of one CTA (its cp.async ring) of the up (up != 0)
-// or down launch of the few-row (few != 0) or many-row tile.
-int grouped_swiglu_ring_bytes(int up, int few) {
-  return swiglu_tiles::smem_bytes(
-      up != 0, few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS);
+// or down launch of the few-row (few != 0) or many-row tile, for float32
+// (bf16 == 0) or bfloat16 operands.
+int grouped_swiglu_ring_bytes(int up, int few, int bf16) {
+  const int BM = few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS;
+  return bf16 ? swiglu_tiles::smem_bytes<__nv_bfloat16>(up != 0, BM)
+              : swiglu_tiles::smem_bytes<float>(up != 0, BM);
 }
 
 const char* grouped_swiglu_error_string(int code) {

@@ -3,8 +3,17 @@
 // SwiGLU (grouped_swiglu.cu). They replace the expert FFN of the TPU
 // kernels src/repro/kernels/dualsparse_ffn.py:192 grouped_swiglu_pallas
 // (body :155) and :498 fused_moe_pipeline_pallas (bodies :282 and :353).
-// float32 on the CUDA cores, no atomics: every output element has one
-// writer and a fixed contraction order, so launches are bit-identical.
+// Products and sums in float32 on the CUDA cores, no atomics: every
+// output element has one writer and a fixed contraction order, so launches
+// are bit-identical.
+//
+// The element type T of x, the weights and the h scratch is a template
+// parameter: float, or __nv_bfloat16 (the S-ETP wire type, as the TPU
+// kernels run it there). Operands are copied into shared memory in their
+// own type (a 16-byte cp.async carries 4 floats or 8 bf16 values) and
+// widened to float32 as they are multiplied; with bf16, h is rounded to
+// bf16 before the down product, as the TPU kernels' h.astype(w2.dtype)
+// does. The output rows stay float32 in both.
 //
 // Rows of group e (an expert, or an expert fused from P sub-experts) are
 // "positions" base(e) + r for r < capacity:
@@ -52,13 +61,20 @@
 //     rows per thread), the others the many-row tile (MANY_ROWS x BN, a
 //     4 x 4 register tile per thread, row blocks of MANY_ROWS). No host
 //     sync.
-//   * Widths that are not multiples of 4 floats (or misaligned pointers)
-//     take a scalar edge path in the same kernels: 4-byte cp.async copies.
+//   * Widths that are not multiples of one 16-byte copy (4 floats, 8 bf16
+//     values) or misaligned pointers take a scalar edge path in the same
+//     kernels: 4-byte cp.async copies for float, plain loads for bf16
+//     (cp.async copies no less than 4 bytes).
+//   * The bf16 tile is the float tile with narrower copies (a row pitch of
+//     BK + 8 keeps each ring row 16-byte aligned) and conversions at the
+//     shared-memory reads: its bound is the bf16 tensor cores', which a
+//     CUDA-core tile cannot approach.
 //   * 2T-Drop's skipped work is never loaded: MINOR up strips leave for row
 //     tiles with no FULL row, and row tiles with no FULL row stop the down
 //     contraction at n_major.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -68,15 +84,23 @@ namespace {   // internal linkage: each library has its own copy
 
 constexpr int BN = 64;         // neuron (up) / output-column (down) strip
 constexpr int BK = 32;         // contraction step: one ring slot
-constexpr int TN = 4;          // columns per thread: one 16-byte vector
-constexpr int LDA = BK + 4;    // row pitch of a ring slot's row tile
+constexpr int TN = 4;          // columns per thread
 constexpr int NT = 256;        // threads per CTA, both tiles
 constexpr int ROW_THREADS = NT / (BN / TN);   // threads down the rows: 16
 constexpr int FEW_ROWS = 16;   // groups with <= FEW_ROWS live rows: few-row
 constexpr int MANY_ROWS = 64;  // row block of the many-row tile
 
-// ring depth per (launch, tile): the few-row up tile keeps 4 CTAs (56 KB
-// each) on an SM, the others 2-5
+// elements of T in one 16-byte copy
+template <typename T>
+__host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
+
+// row pitch of a ring slot's row tile: BK plus one 16-byte copy, so every
+// row starts 16-byte aligned (float: BK + 4, as before bf16 existed)
+template <typename T>
+__host__ __device__ constexpr int lda() { return BK + vec_elems<T>(); }
+
+// ring depth per (launch, tile): the few-row up tile keeps 4 float CTAs
+// (56 KB each) on an SM, the others 2-5
 __host__ __device__ constexpr int stages(bool up, int BM) {
   return up ? (BM == FEW_ROWS ? 3 : 4) : 4;
 }
@@ -86,25 +110,28 @@ __host__ __device__ constexpr int min_ctas(bool up, int BM) {
   return BM == FEW_ROWS ? (up ? 2 : 4) : 2;
 }
 
-__host__ __device__ constexpr int slot_floats(bool up, int BM) {
-  return BM * LDA + (up ? 2 : 1) * BK * BN;
+template <typename T>
+__host__ __device__ constexpr int slot_elems(bool up, int BM) {
+  return BM * lda<T>() + (up ? 2 : 1) * BK * BN;
 }
 
+template <typename T>
 __host__ __device__ constexpr int smem_bytes(bool up, int BM) {
-  return stages(up, BM) * slot_floats(up, BM) * (int)sizeof(float);
+  return stages(up, BM) * slot_elems<T>(up, BM) * (int)sizeof(T);
 }
 
+template <typename T>
 struct Problem {
-  const float* x;       // (T, d) pipeline / (E*C, d) buffer
-  const float* w1;      // (E*P, d, f)
-  const float* w3;      // (E*P, d, f)
-  const float* w2;      // (E*P, f, d)
+  const T* x;           // (T, d) pipeline / (E*C, d) buffer
+  const T* w1;          // (E*P, d, f)
+  const T* w3;          // (E*P, d, f)
+  const T* w2;          // (E*P, f, d)
   const int* offs;      // (E,) pipeline: first position of each group
   const int* cf;        // (E,) FULL rows
   const int* cm;        // (E,) MAJOR-only rows
   const int* tok;       // (N',) pipeline: input row of each position
   const float* comb;    // (N',) pipeline: combine weight of each position
-  float* h;             // (positions, P*f) scratch
+  T* h;                 // (positions, P*f) scratch, in the weights' type
   float* y;             // (positions, d) output rows
   int* regime;          // (E,) or null: 1 few-row, 2 many-row tile served e
   int d;
@@ -113,12 +140,52 @@ struct Problem {
   int n_major;          // virtual neurons [0, n_major) are the MAJOR half
   int n_tiles_sub;      // ceil(f / BN)
   int capacity;         // rows per group
-  int vec;              // 16-byte copies (d, f multiples of 4; aligned)
+  int vec;              // 16-byte copies (d, f multiples of one; aligned)
 };
 
 __device__ __forceinline__ float silu(float g) { return g / (1.0f + expf(-g)); }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// four consecutive elements of shared memory, widened to float32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// float32 -> T (bf16: round to nearest even, as torch's .to() rounds)
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// stores four consecutive elements (an aligned 16- or 8-byte store)
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -132,6 +199,19 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                :: "r"(s), "l"(src), "r"(ok ? 4 : 0));
 }
 
+// one element of the scalar edge path: a 4-byte cp.async for float, a
+// plain load for bf16 (visible to the ring's reader after the same
+// barrier that orders the asynchronous copies)
+__device__ __forceinline__ void copy_one(float* dst, const float* src,
+                                         bool ok) {
+  cp_async4(dst, src, ok);
+}
+
+__device__ __forceinline__ void copy_one(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16_rn(0.f);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -141,13 +221,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <bool kBuffer>
-__device__ __forceinline__ int group_base(const Problem& pb, int e) {
+template <bool kBuffer, typename T>
+__device__ __forceinline__ int group_base(const Problem<T>& pb, int e) {
   return kBuffer ? e * pb.capacity : pb.offs[e];
 }
 
 // FULL rows and live rows of group e, clamped to the capacity.
-__device__ __forceinline__ void group_rows(const Problem& pb, int e,
+template <typename T>
+__device__ __forceinline__ void group_rows(const Problem<T>& pb, int e,
                                            int* c_f, int* n_rows) {
   const int full = pb.cf[e];
   *c_f = min(full, pb.capacity);
@@ -162,37 +243,40 @@ __device__ __forceinline__ bool serves(int n_rows) {
 
 // Copies the BM x BK row tile of one ring slot: row i starts at element
 // rowoff[i] of src (-1: a dead row, zero-filled); columns k0.. below kmax.
-template <int BM>
-__device__ __forceinline__ void load_rows(float* As, const float* src,
+template <int BM, typename T>
+__device__ __forceinline__ void load_rows(T* As, const T* src,
                                           const long long* rowoff, int k0,
                                           int kmax, bool vec, int tid) {
+  constexpr int V = vec_elems<T>();
+  constexpr int LD = lda<T>();
   if (vec) {
-    for (int i = tid; i < BM * (BK / 4); i += NT) {
-      const int row = i / (BK / 4), kq = 4 * (i % (BK / 4));
+    for (int i = tid; i < BM * (BK / V); i += NT) {
+      const int row = i / (BK / V), kq = V * (i % (BK / V));
       const long long o = rowoff[row];
       const bool ok = o >= 0 && k0 + kq < kmax;
-      cp_async16(As + row * LDA + kq, ok ? src + o + k0 + kq : src, ok);
+      cp_async16(As + row * LD + kq, ok ? src + o + k0 + kq : src, ok);
     }
   } else {
     for (int i = tid; i < BM * BK; i += NT) {
       const int row = i / BK, kk = i % BK;
       const long long o = rowoff[row];
       const bool ok = o >= 0 && k0 + kk < kmax;
-      cp_async4(As + row * LDA + kk, ok ? src + o + k0 + kk : src, ok);
+      copy_one(As + row * LD + kk, ok ? src + o + k0 + kk : src, ok);
     }
   }
 }
 
-// Copies a BK x BN weight tile: row kk is the contiguous run of BN floats
+// Copies a BK x BN weight tile: row kk is the contiguous run of BN elements
 // at row_ptr(k0 + kk) + c0, present for k0 + kk < kmax, columns below cmax.
-template <typename RowOffset>
-__device__ __forceinline__ void load_weights(float* Bs, const float* w,
+template <typename T, typename RowOffset>
+__device__ __forceinline__ void load_weights(T* Bs, const T* w,
                                              RowOffset row_off, int k0,
                                              int kmax, int c0, int cmax,
                                              bool vec, int tid) {
+  constexpr int V = vec_elems<T>();
   if (vec) {
-    for (int i = tid; i < BK * (BN / 4); i += NT) {
-      const int kk = i / (BN / 4), cq = 4 * (i % (BN / 4));
+    for (int i = tid; i < BK * (BN / V); i += NT) {
+      const int kk = i / (BN / V), cq = V * (i % (BN / V));
       const int k = k0 + kk, c = c0 + cq;
       const bool ok = k < kmax && c < cmax;
       cp_async16(Bs + kk * BN + cq, ok ? w + row_off(k) + c : w, ok);
@@ -202,16 +286,17 @@ __device__ __forceinline__ void load_weights(float* Bs, const float* w,
       const int kk = i / BN, cc = i % BN;
       const int k = k0 + kk, c = c0 + cc;
       const bool ok = k < kmax && c < cmax;
-      cp_async4(Bs + kk * BN + cc, ok ? w + row_off(k) + c : w, ok);
+      copy_one(Bs + kk * BN + cc, ok ? w + row_off(k) + c : w, ok);
     }
   }
 }
 
-template <int BM, int TM, bool kBuffer>
+template <int BM, int TM, bool kBuffer, typename T>
 __global__ void __launch_bounds__(NT, min_ctas(true, BM))
-up_kernel(Problem pb) {
+up_kernel(Problem<T> pb) {
   constexpr int S = stages(true, BM);
-  constexpr int SLOT = slot_floats(true, BM);
+  constexpr int SLOT = slot_elems<T>(true, BM);
+  constexpr int LD = lda<T>();
   const int e = blockIdx.z;
   int c_f, n_rows;
   group_rows(pb, e, &c_f, &n_rows);
@@ -229,7 +314,7 @@ up_kernel(Problem pb) {
   const bool vec = pb.vec != 0;
 
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   __shared__ long long rowoff[BM];
 
   const int tid = threadIdx.x;
@@ -241,15 +326,15 @@ up_kernel(Problem pb) {
   __syncthreads();
 
   const size_t sub = (size_t)e * pb.P + j;
-  const float* w1s = pb.w1 + sub * pb.d * pb.f;
-  const float* w3s = pb.w3 + sub * pb.d * pb.f;
+  const T* w1s = pb.w1 + sub * pb.d * pb.f;
+  const T* w3s = pb.w3 + sub * pb.d * pb.f;
   const int f = pb.f;
   auto w_row = [f](int k) { return (size_t)k * f; };
   auto load_slot = [&](int slot, int k0) {
-    float* As = smem + slot * SLOT;
+    T* As = smem + slot * SLOT;
     load_rows<BM>(As, pb.x, rowoff, k0, pb.d, vec, tid);
-    load_weights(As + BM * LDA, w1s, w_row, k0, pb.d, n0, f, vec, tid);
-    load_weights(As + BM * LDA + BK * BN, w3s, w_row, k0, pb.d, n0, f, vec,
+    load_weights(As + BM * LD, w1s, w_row, k0, pb.d, n0, f, vec, tid);
+    load_weights(As + BM * LD + BK * BN, w3s, w_row, k0, pb.d, n0, f, vec,
                  tid);
   };
 
@@ -283,22 +368,19 @@ up_kernel(Problem pb) {
     if (nxt < nk) load_slot(nxt % S, nxt * BK);
     cp_async_commit();
     if (!active) continue;
-    const float* As = smem + (kt % S) * SLOT;
-    const float* B1s = As + BM * LDA;
-    const float* B3s = B1s + BK * BN;
+    const T* As = smem + (kt % S) * SLOT;
+    const T* B1s = As + BM * LD;
+    const T* B3s = B1s + BK * BN;
 #pragma unroll
     for (int k4 = 0; k4 < BK; k4 += 4) {
       float4 a4[TM];
 #pragma unroll
       for (int m = 0; m < TM; ++m)
-        a4[m] = *reinterpret_cast<const float4*>(
-            As + (ty * TM + m) * LDA + k4);
+        a4[m] = ld4(As + (ty * TM + m) * LD + k4);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            B1s + (k4 + q) * BN + tx * TN);
-        const float4 b3 = *reinterpret_cast<const float4*>(
-            B3s + (k4 + q) * BN + tx * TN);
+        const float4 b1 = ld4(B1s + (k4 + q) * BN + tx * TN);
+        const float4 b3 = ld4(B3s + (k4 + q) * BN + tx * TN);
 #pragma unroll
         for (int m = 0; m < TM; ++m) {
           const float a = q == 0 ? a4[m].x : q == 1 ? a4[m].y
@@ -329,31 +411,30 @@ up_kernel(Problem pb) {
       const int rows_ok = u < pb.n_major ? n_rows : c_f;
       v[n] = r < rows_ok ? silu(acc1[m][n]) * acc3[m][n] : 0.f;
     }
-    float* hrow = pb.h + (size_t)(base + r) * V + j * pb.f;
+    T* hrow = pb.h + (size_t)(base + r) * V + j * pb.f;
     if (vec && nl0 + TN <= pb.f) {
-      *reinterpret_cast<float4*>(hrow + nl0) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      st4(hrow + nl0, v);
     } else {
 #pragma unroll
       for (int n = 0; n < TN; ++n)
-        if (nl0 + n < pb.f) hrow[nl0 + n] = v[n];
+        if (nl0 + n < pb.f) hrow[nl0 + n] = narrow<T>(v[n]);
     }
   }
 }
 
-// Writes BN columns of output row r (buffer layout: exact zeros past the
+// Writes TN columns of output row r (buffer layout: exact zeros past the
 // live rows; pipeline layout: scaled by the position's combine weight).
-template <bool kBuffer>
-__device__ __forceinline__ void store_row(const Problem& pb, int base, int r,
-                                          int c, bool live, const float* acc,
-                                          bool vec) {
+template <bool kBuffer, typename T>
+__device__ __forceinline__ void store_row(const Problem<T>& pb, int base,
+                                          int r, int c, bool live,
+                                          const float* acc, bool vec) {
   float v[TN];
   const float w = (!kBuffer && live) ? pb.comb[base + r] : 1.f;
 #pragma unroll
   for (int n = 0; n < TN; ++n) v[n] = live ? w * acc[n] : 0.f;
   float* yrow = pb.y + (size_t)(base + r) * pb.d;
   if (vec && c + TN <= pb.d) {
-    *reinterpret_cast<float4*>(yrow + c) = make_float4(v[0], v[1], v[2], v[3]);
+    st4(yrow + c, v);
   } else {
 #pragma unroll
     for (int n = 0; n < TN; ++n)
@@ -361,11 +442,12 @@ __device__ __forceinline__ void store_row(const Problem& pb, int base, int r,
   }
 }
 
-template <int BM, int TM, bool kBuffer>
+template <int BM, int TM, bool kBuffer, typename T>
 __global__ void __launch_bounds__(NT, min_ctas(false, BM))
-down_kernel(Problem pb) {
+down_kernel(Problem<T> pb) {
   constexpr int S = stages(false, BM);
-  constexpr int SLOT = slot_floats(false, BM);
+  constexpr int SLOT = slot_elems<T>(false, BM);
+  constexpr int LD = lda<T>();
   const int e = blockIdx.z;
   int c_f, n_rows;
   group_rows(pb, e, &c_f, &n_rows);
@@ -403,7 +485,7 @@ down_kernel(Problem pb) {
   const int kend = r0 < c_f ? V : pb.n_major;
 
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   __shared__ long long rowoff[BM];
   for (int i = tid; i < BM; i += NT) {
     const int r = r0 + i;
@@ -419,9 +501,9 @@ down_kernel(Problem pb) {
     return ((sub0 + jj) * f + (u - jj * f)) * (size_t)d;
   };
   auto load_slot = [&](int slot, int k0) {
-    float* Hs = smem + slot * SLOT;
+    T* Hs = smem + slot * SLOT;
     load_rows<BM>(Hs, pb.h, rowoff, k0, V, vec, tid);
-    load_weights(Hs + BM * LDA, pb.w2, w_row, k0, kend, c0, d, vec, tid);
+    load_weights(Hs + BM * LD, pb.w2, w_row, k0, kend, c0, d, vec, tid);
   };
 
   // per row, the neurons it may read: all for FULL rows, the MAJOR half for
@@ -454,8 +536,8 @@ down_kernel(Problem pb) {
     if (nxt < nk) load_slot(nxt % S, nxt * BK);
     cp_async_commit();
     if (!active) continue;
-    const float* Hs = smem + (kt % S) * SLOT;
-    const float* Ws = Hs + BM * LDA;
+    const T* Hs = smem + (kt % S) * SLOT;
+    const T* Ws = Hs + BM * LD;
     const int k0 = kt * BK;
     // steps wholly below n_major need no selection: every live row reads
     // them (dead rows arrive as zeros)
@@ -465,12 +547,10 @@ down_kernel(Problem pb) {
       float4 a4[TM];
 #pragma unroll
       for (int m = 0; m < TM; ++m)
-        a4[m] = *reinterpret_cast<const float4*>(
-            Hs + (ty * TM + m) * LDA + k4);
+        a4[m] = ld4(Hs + (ty * TM + m) * LD + k4);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float4 b = *reinterpret_cast<const float4*>(
-            Ws + (k4 + q) * BN + tx * TN);
+        const float4 b = ld4(Ws + (k4 + q) * BN + tx * TN);
         const int u = k0 + k4 + q;
 #pragma unroll
         for (int m = 0; m < TM; ++m) {
@@ -499,47 +579,49 @@ down_kernel(Problem pb) {
   }
 }
 
-template <int BM, int TM, bool kBuffer>
-cudaError_t launch_tile(const Problem& pb, int E, cudaStream_t stream,
+template <int BM, int TM, bool kBuffer, typename T>
+cudaError_t launch_tile(const Problem<T>& pb, int E, cudaStream_t stream,
                         bool up) {
   // the few-row tile owns its whole group: one row block
   const int row_blocks =
       BM == FEW_ROWS ? 1 : (pb.capacity + BM - 1) / BM;
-  const int bytes = smem_bytes(up, BM);
+  const int bytes = smem_bytes<T>(up, BM);
   // the dynamic shared-memory limit is raised once per kernel
   if (up) {
     static const cudaError_t set = cudaFuncSetAttribute(
-        up_kernel<BM, TM, kBuffer>,
+        up_kernel<BM, TM, kBuffer, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
     const dim3 grid(pb.P * pb.n_tiles_sub, row_blocks, E);
-    up_kernel<BM, TM, kBuffer><<<grid, NT, bytes, stream>>>(pb);
+    up_kernel<BM, TM, kBuffer, T><<<grid, NT, bytes, stream>>>(pb);
   } else {
     static const cudaError_t set = cudaFuncSetAttribute(
-        down_kernel<BM, TM, kBuffer>,
+        down_kernel<BM, TM, kBuffer, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
     const dim3 grid((pb.d + BN - 1) / BN, row_blocks, E);
-    down_kernel<BM, TM, kBuffer><<<grid, NT, bytes, stream>>>(pb);
+    down_kernel<BM, TM, kBuffer, T><<<grid, NT, bytes, stream>>>(pb);
   }
   return cudaGetLastError();
 }
 
-// True when every operand allows 16-byte copies: widths in multiples of 4
-// floats and 16-byte-aligned base pointers.
-inline bool vector_ok(const Problem& pb) {
+// True when every operand allows 16-byte copies: widths in multiples of
+// one copy (4 floats, 8 bf16 values) and 16-byte-aligned base pointers.
+template <typename T>
+inline bool vector_ok(const Problem<T>& pb) {
   auto aligned = [](const void* p) {
     return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
-  return pb.d % 4 == 0 && pb.f % 4 == 0 && aligned(pb.x) &&
+  constexpr int V = vec_elems<T>();
+  return pb.d % V == 0 && pb.f % V == 0 && aligned(pb.x) &&
          aligned(pb.w1) && aligned(pb.w3) && aligned(pb.w2) &&
          aligned(pb.h) && aligned(pb.y);
 }
 
 // Up then down; each launches the few-row tile, and the many-row tile when
-// the capacity can hold a group past FEW_ROWS rows.
-template <bool kBuffer>
-cudaError_t launch_swiglu(Problem pb, int E, cudaStream_t stream) {
+// the capacity can hold a group past FEW_ROWS rows. T is deduced from pb.
+template <bool kBuffer, typename T>
+cudaError_t launch_swiglu(Problem<T> pb, int E, cudaStream_t stream) {
   pb.vec = vector_ok(pb) ? 1 : 0;
   const bool many = pb.capacity > FEW_ROWS;
   for (int up = 1; up >= 0; --up) {

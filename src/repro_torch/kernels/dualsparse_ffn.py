@@ -13,6 +13,10 @@ through ``ctypes``.
   computes: the same masked grouped SwiGLU over pre-gathered ``(E, C, d)``
   buffers, with rows at or past ``cf+cm`` returned as exact zeros.
 
+Both take float32 operands, or bfloat16 ones (the S-ETP wire type) whose
+products are taken in float32 with h rounded to bf16 before the down
+product; their output is float32, cast to x's type by ``ops``.
+
 Both run the row tiles of ``csrc/swiglu_tiles.cuh``, which choose on the
 device, per group, between a few-row and a many-row tile; ``tile_plan``
 says on the host which tile serves each group and how many row slots it
@@ -111,11 +115,14 @@ def combine_order(tok_sorted, group_offsets, counts_full, counts_major,
 
 
 _ARGTYPES = {
-    "fused_moe_pipeline": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+    "fused_moe_pipeline": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
                            + [ctypes.c_void_p]),
-    "grouped_swiglu": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    "grouped_swiglu": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p]),
 }
+
+# the operand types the tiles are instantiated for (the C flag ``bf16``)
+ELEMENT_TYPES = (torch.float32, torch.bfloat16)
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -142,14 +149,16 @@ def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def ring_bytes() -> dict:
+def ring_bytes(dtype=torch.float32) -> dict:
     """The dynamic shared memory (bytes) of one CTA of each row tile's up and
-    down launch, as the built library computes it."""
+    down launch for operands of ``dtype``, as the built library computes
+    it."""
     lib = _library("grouped_swiglu")
     fn = lib.grouped_swiglu_ring_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
-    return {f"{launch}_{tile}": fn(launch == "up", tile == "few")
+    bf16 = dtype == torch.bfloat16
+    return {f"{launch}_{tile}": fn(launch == "up", tile == "few", bf16)
             for launch in ("up", "down") for tile in ("few", "many")}
 
 
@@ -158,7 +167,8 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                               capacity: int, p_factor: int, n_major: int,
                               regime=None):
     """Enqueue the CUDA kernel on the current stream; returns the (T, d)
-    float32 output. Inputs must already be checked (``ops`` does that).
+    float32 output. x and the weights are float32 or bfloat16 (one type);
+    inputs must already be checked (``ops`` does that).
     ``regime``: an (E,) int32 CUDA tensor that receives the row tile that
     served each group (see ``tile_plan``), or ``None``."""
     lib = _library("fused_moe_pipeline")
@@ -166,8 +176,7 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
     f = w1.shape[-1]
     E = group_offsets.shape[0]
     n_pos = tok_sorted.shape[0]
-    h = torch.empty((n_pos, p_factor * f), dtype=torch.float32,
-                    device=x.device)
+    h = torch.empty((n_pos, p_factor * f), dtype=w1.dtype, device=x.device)
     y = torch.empty((n_pos, d), dtype=torch.float32, device=x.device)
     key = torch.empty((n_pos,), dtype=I32, device=x.device)
     out = torch.empty((T, d), dtype=torch.float32, device=x.device)
@@ -178,7 +187,7 @@ def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
         counts_major.data_ptr(), tok_sorted.data_ptr(),
         combine_sorted.data_ptr(), h.data_ptr(), y.data_ptr(),
         key.data_ptr(), out.data_ptr(), _ptr(regime), T, n_pos, d, f, E,
-        p_factor, n_major, capacity, stream)
+        p_factor, n_major, capacity, x.dtype == torch.bfloat16, stream)
     _raise_on_error(lib, "fused_moe_pipeline", err)
     return out
 
@@ -205,7 +214,8 @@ def launch_position_keys(tok_sorted, group_offsets, counts_full,
 def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
                           p_factor: int, n_major: int, regime=None):
     """Enqueue the grouped SwiGLU kernel on the current stream; returns the
-    (E, C, d) float32 output, dead rows exact zeros. Inputs must already be
+    (E, C, d) float32 output, dead rows exact zeros. x and the weights are
+    float32 or bfloat16 (one type); inputs must already be
     checked (``ops`` does that); counts past C are clamped on the device.
     ``regime`` as for ``launch_fused_moe_pipeline``."""
     E, C, d = x.shape
@@ -214,13 +224,12 @@ def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
     if out.numel() == 0:
         return out
     lib = _library("grouped_swiglu")
-    h = torch.empty((E * C, p_factor * f), dtype=torch.float32,
-                    device=x.device)
+    h = torch.empty((E * C, p_factor * f), dtype=w1.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.grouped_swiglu_launch(
         x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
         counts_full.data_ptr(), counts_major.data_ptr(), h.data_ptr(),
         out.data_ptr(), _ptr(regime), E, C, d, f, p_factor, n_major,
-        stream)
+        x.dtype == torch.bfloat16, stream)
     _raise_on_error(lib, "grouped_swiglu", err)
     return out

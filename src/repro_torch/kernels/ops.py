@@ -4,7 +4,8 @@ Each wrapper checks its inputs, then runs the kernel's plain version when
 the tensors lie on the CPU and launches the CUDA kernel when they lie on a
 CUDA device — never one in place of the other. ``<wrapper>.launches``
 counts CUDA launches (nothing else adds to it), so a run can show that its
-main path went through the kernel.
+main path went through the kernel; the MoE wrappers also count their
+launches on bfloat16 operands in ``<wrapper>.launches_bf16``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,26 @@ def _check_dtypes(op: str, named, floats, ints):
             raise TypeError(f"{op}: {name} must be float32 (got "
                             f"{named[name].dtype}); other weight types are "
                             "not supported yet")
+    _check_ints(op, named, ints)
+
+
+def _check_operand_dtypes(op: str, named, operands, floats, ints):
+    """``operands`` (x and the weights) share one type of
+    ``dualsparse_ffn.ELEMENT_TYPES`` — float32, or bfloat16 on the S-ETP
+    wire; ``floats`` are float32 whatever the operands' type."""
+    kind = named[operands[0]].dtype
+    if kind not in dualsparse_ffn.ELEMENT_TYPES:
+        raise TypeError(f"{op}: {operands[0]} must be float32 or bfloat16 "
+                        f"(got {kind})")
+    for name in operands[1:]:
+        if named[name].dtype != kind:
+            raise TypeError(f"{op}: {name} is {named[name].dtype}, "
+                            f"{operands[0]} {kind}; x and the weights must "
+                            "share one type")
+    _check_dtypes(op, named, floats, ints)
+
+
+def _check_ints(op: str, named, ints):
     for name in ints:
         if named[name].dtype != torch.int32:
             raise TypeError(f"{op}: {name} must be int32 (got "
@@ -49,10 +70,10 @@ def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
                  counts_full=counts_full, counts_major=counts_major,
                  tok_sorted=tok_sorted, combine_sorted=combine_sorted)
     _check_devices_and_layout("fused_moe_pipeline", named, x.device)
-    _check_dtypes("fused_moe_pipeline", named,
-                  ("x", "w1", "w3", "w2", "combine_sorted"),
-                  ("group_offsets", "counts_full", "counts_major",
-                   "tok_sorted"))
+    _check_operand_dtypes("fused_moe_pipeline", named,
+                          ("x", "w1", "w3", "w2"), ("combine_sorted",),
+                          ("group_offsets", "counts_full", "counts_major",
+                           "tok_sorted"))
     if x.ndim != 2 or w1.ndim != 3:
         raise ValueError("fused_moe_pipeline: x must be (T, d) and w1/w3 "
                          "(E*P, d, f)")
@@ -83,10 +104,12 @@ def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                        streamed: bool = True):
     """Fused dispatch -> grouped SwiGLU -> weighted combine.
 
-    x: (T, d) float32; w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d);
+    x: (T, d); w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d), all
+    float32 or all bfloat16 (products in float32, h rounded to bf16 before
+    the down product, as the TPU kernel does on the S-ETP wire type);
     ``group_offsets``/``counts_full``/``counts_major``: (E,) int32 from a
     ``DispatchPlan`` (counts clamped to ``capacity``); ``tok_sorted``/
-    ``combine_sorted``: (N',) per sorted pair position, padded as
+    ``combine_sorted``: (N',) float32, per sorted pair position, padded as
     ``core.dispatch.sorted_pair_arrays(pad=block_c)`` pads them. Returns
     (T, d) in x's dtype. ``block_c``, ``block_f`` and ``streamed`` are kept
     for signature parity with the JAX wrapper: one CUDA kernel serves both
@@ -111,10 +134,12 @@ def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
         combine_sorted, capacity=capacity, p_factor=p_factor,
         n_major=n_major)
     fused_moe_pipeline.launches += 1
-    return out
+    fused_moe_pipeline.launches_bf16 += x.dtype == torch.bfloat16
+    return out.to(x.dtype)
 
 
 fused_moe_pipeline.launches = 0
+fused_moe_pipeline.launches_bf16 = 0
 
 
 def _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
@@ -122,8 +147,8 @@ def _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
     named = dict(x=x, w1=w1, w3=w3, w2=w2, counts_full=counts_full,
                  counts_major=counts_major)
     _check_devices_and_layout("grouped_swiglu", named, x.device)
-    _check_dtypes("grouped_swiglu", named, ("x", "w1", "w3", "w2"),
-                  ("counts_full", "counts_major"))
+    _check_operand_dtypes("grouped_swiglu", named, ("x", "w1", "w3", "w2"),
+                          (), ("counts_full", "counts_major"))
     if x.ndim != 3 or w1.ndim != 3:
         raise ValueError("grouped_swiglu: x must be (E, C, d) and w1/w3 "
                          "(E*P, d, f)")
@@ -146,7 +171,8 @@ def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
     """Grouped SwiGLU expert FFN over pre-gathered buffers, with 2T-Drop
     row/neuron masking.
 
-    x: (E, C, d) float32; w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d);
+    x: (E, C, d); w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d), all
+    float32 or all bfloat16 (as for ``fused_moe_pipeline``);
     ``counts_full``/``counts_major``: (E,) int32 or ``None`` (all C rows
     FULL / no MAJOR-only row). ``p_factor > 1`` fuses the sub-experts of
     each group back to the full width by indexing. Returns (E, C, d) in x's
@@ -169,10 +195,12 @@ def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
         x, w1, w3, w2, counts_full, counts_major, p_factor=p_factor,
         n_major=n_major)
     grouped_swiglu.launches += 1
-    return out
+    grouped_swiglu.launches_bf16 += x.dtype == torch.bfloat16
+    return out.to(x.dtype)
 
 
 grouped_swiglu.launches = 0
+grouped_swiglu.launches_bf16 = 0
 
 
 def _check_ssd_inputs(x, dt, a, bm, cm):

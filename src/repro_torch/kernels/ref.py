@@ -1,6 +1,11 @@
 """Plain PyTorch versions of the port's kernels. The CPU path of every
 kernel wrapper runs these; ``chip_smoke.py`` holds each CUDA kernel against
-its plain version on the card."""
+its plain version on the card.
+
+The MoE versions take float32 operands or bfloat16 ones (the S-ETP wire
+type), as the TPU kernels do: bf16 operands are widened to float32, the
+products taken in float32, h rounded to bf16 before the down product
+(``h.astype(w2.dtype)``), and the float32 result cast to x's type."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +39,7 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
     n_major = resolve_n_major(f, P, n_minor_start, block_f)
     dev = x.device
     major = torch.arange(V, device=dev) < n_major                 # (V,)
+    w1, w3 = w1.float(), w3.float()
     offs = group_offsets.tolist()
     cf = counts_full.tolist()
     cm = counts_major.tolist()
@@ -51,8 +57,9 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
         rows = torch.arange(n_rows, device=dev)[:, None]
         limit = torch.where(major, n_rows, c_f)[None, :]
         h = torch.where(rows < limit, h, torch.zeros((), device=dev))
+        h = _round_h(h, w2)
         y_sorted[o:o + n_rows] = (combine_sorted[o:o + n_rows, None].float()
-                                  * (h @ w2e))
+                                  * (h @ w2e.float()))
     order, start, count = combine_order(tok_sorted, group_offsets,
                                         counts_full, counts_major, T)
     out = torch.zeros((T, d), dtype=torch.float32, device=dev)
@@ -64,6 +71,13 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
 
 
 fused_moe_pipeline_ref.calls = 0
+
+
+def _round_h(h, w2):
+    """float32 h rounded to w2's type and widened back (bf16 weights: the
+    TPU kernels' ``h.astype(w2.dtype)`` before the down product; float32:
+    unchanged)."""
+    return h if w2.dtype == torch.float32 else h.to(w2.dtype).float()
 
 
 def _counts_or_default(counts_full, counts_major, E: int, C: int, device):
@@ -109,7 +123,7 @@ def grouped_swiglu_ref(x, w1, w3, w2, counts_full=None, counts_major=None,
     major = (torch.arange(V, device=dev) < n_major)[None, None, :]
     limit = torch.where(major, live, cf.long()[:, None, None])    # (E,1,V)
     zero = torch.zeros((), device=dev)
-    h = torch.where(rows < limit, h, zero)
+    h = _round_h(torch.where(rows < limit, h, zero), w2)
     out = torch.einsum("ecv,evd->ecd", h, w2v.float())
     return torch.where(rows < live, out, zero).to(x.dtype)
 

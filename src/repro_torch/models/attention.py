@@ -1,4 +1,4 @@
-"""GQA attention and the KV cache layouts.
+"""GQA and MLA attention and the KV cache layouts.
 
 Attention has no TPU kernel in the JAX package, so plain PyTorch matmuls
 compute it here: the O(S²) ``plain_attention`` up to 1024 tokens, and the
@@ -6,7 +6,10 @@ online-softmax ``blockwise_attention`` past that, as in the JAX package.
 Layouts follow the JAX package: q (B, S, Hkv, G, D),
 k/v (B, S, Hkv, D); the cache is per-slot contiguous rows
 (``ContiguousLayout``, {"k", "v"}: (B, cap, Hkv, D)) or a shared page pool
-behind a per-slot page table (``PagedLayout``).
+behind a per-slot page table (``PagedLayout``). MLA (multi-head latent
+attention, MiniCPM3 / DeepSeek-V2) caches the compressed latent
+{"c": (B, cap, kv_lora_rank), "kr": (B, cap, qk_rope_head_dim)} and decodes
+with the up-projection absorbed into the query.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -157,27 +161,43 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v)
 
 
-def _self_attention(q, k, v, *, causal=True, window=0):
+def context_q_block(dist, seq_len: int, q_block: int = 512) -> int:
+    """The query block of blockwise attention under an EP context: the
+    sequence split into one block per ``model`` rank when that divides it
+    into blocks of at least 128 (the JAX package's ``make_shard_blocks``;
+    there the blocks are also constrained to the model axis, here every
+    rank computes them all)."""
+    if dist is None:
+        return q_block
+    model_n = dist.size("model")
+    if model_n > 1 and seq_len % model_n == 0 and seq_len // model_n >= 128:
+        return seq_len // model_n
+    return q_block
+
+
+def _self_attention(q, k, v, *, causal=True, window=0, dist=None):
     """Full-sequence attention: blockwise past 1024 tokens, as the JAX
     package selects it."""
-    if q.shape[1] > 1024:
-        return blockwise_attention(q, k, v, causal=causal, window=window)
+    S = q.shape[1]
+    if S > 1024:
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_block=context_q_block(dist, S))
     return plain_attention(q, k, v, causal=causal, window=window)
 
 
 def gqa_attention(attn: Attention, x, positions, cfg, *, causal=True,
-                  window=0):
+                  window=0, dist=None):
     q, k, v = gqa_project_qkv(attn, x, positions, cfg)
-    o = _self_attention(q, k, v, causal=causal, window=window)
+    o = _self_attention(q, k, v, causal=causal, window=window, dist=dist)
     return torch.einsum("bshgk,hgkd->bsd", o, attn.wo)
 
 
 def gqa_prefill_attention(attn: Attention, x, positions, cfg, *, window=0,
-                          cap=None, cache_dtype=torch.bfloat16):
+                          cap=None, cache_dtype=torch.bfloat16, dist=None):
     """Full-sequence attention that also returns the populated KV cache."""
     q, k, v = gqa_project_qkv(attn, x, positions, cfg)
     S = x.shape[1]
-    o = _self_attention(q, k, v, causal=True, window=window)
+    o = _self_attention(q, k, v, causal=True, window=window, dist=dist)
     out = torch.einsum("bshgk,hgkd->bsd", o, attn.wo)
     cache = ContiguousLayout(window).from_seq(k, v, cap if cap else S,
                                               cache_dtype)
@@ -474,3 +494,158 @@ def gqa_chunk_attention(attn: Attention, x, cache, slot: int, start: int,
     o = _attend_cache(q, k_slot[None], v_slot[None], mask)
     o = o.to(attn.wo.dtype)
     return torch.einsum("bshgk,hgkd->bsd", o, attn.wo), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention; MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+class MLAttention(nn.Module):
+    """MLA projections, in the JAX package's layouts: wq_a (d, q_lora),
+    q_norm (q_lora,), wq_b (q_lora, H, nope + rope), wkv_a (d, kv_lora +
+    rope), kv_norm (kv_lora,), wk_b (kv_lora, H, nope), wv_b (kv_lora, H,
+    v_head), wo (H, v_head, d)."""
+
+    def __init__(self, cfg, *, device: torch.device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        dv = cfg.v_head_dim
+        kw = dict(device=device, generator=generator)
+        self.wq_a = layers.normal((d, rq), **kw)
+        self.q_norm = layers.ones((rq,), device=device)
+        self.wq_b = layers.normal((rq, H, dn + dr), **kw)
+        self.wkv_a = layers.normal((d, rkv + dr), **kw)
+        self.kv_norm = layers.ones((rkv,), device=device)
+        self.wk_b = layers.normal((rkv, H, dn), **kw)
+        self.wv_b = layers.normal((rkv, H, dv), **kw)
+        self.wo = layers.normal((H, dv, d), **kw)
+
+
+def mla_project_latent(attn: MLAttention, x, cfg):
+    """Compressed KV latent: (c_kv (B,S,kv_lora), k_rope (B,S,rope)),
+    before RoPE."""
+    rkv = cfg.kv_lora_rank
+    kv_a = x @ attn.wkv_a
+    c_kv = layers.rms_norm(kv_a[..., :rkv], attn.kv_norm, cfg.norm_eps)
+    return c_kv, kv_a[..., rkv:]
+
+
+def mla_queries(attn: MLAttention, x, positions, cfg):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), RoPE applied."""
+    dn = cfg.qk_nope_head_dim
+    q_lat = layers.rms_norm(x @ attn.wq_a, attn.q_norm, cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, attn.wq_b)
+    return q[..., :dn], layers.apply_rope(q[..., dn:], positions,
+                                          cfg.rope_theta)
+
+
+def _rope_latent(k_rope, positions, cfg):
+    """RoPE on the one shared (B,S,rope) key head."""
+    return layers.apply_rope(k_rope[..., None, :], positions,
+                             cfg.rope_theta)[..., 0, :]
+
+
+def mla_attention(attn: MLAttention, x, positions, cfg, *, causal=True,
+                  window=0, dist=None):
+    """Prefill path: per-head K/V decompressed from the latent, plain
+    attention up to 1024 tokens and blockwise past that (V padded to the
+    QK width for the shared attention functions, sliced after)."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    H = cfg.n_heads
+    q_nope, q_rope = mla_queries(attn, x, positions, cfg)
+    c_kv, k_rope = mla_project_latent(attn, x, cfg)
+    k_rope = _rope_latent(k_rope, positions, cfg)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, attn.wk_b)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, attn.wv_b)
+    q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # (B,S,H,1,.)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                  dim=-1)
+    dv = v.shape[-1]
+    v_pad = F.pad(v, (0, dn + dr - dv))
+    o = _self_attention(q, k, v_pad, causal=causal, window=window,
+                        dist=dist)
+    o = o[..., 0, :dv]
+    return torch.einsum("bshk,hkd->bsd", o, attn.wo)
+
+
+def init_mla_cache(batch: int, length: int, cfg, dtype=torch.bfloat16,
+                   device="cuda", sink: bool = False):
+    """An empty latent cache {"c", "kr"} of ``length`` rows per slot (plus
+    the sink row of ``ContiguousLayout`` when ``sink``)."""
+    dev = resolve_device(device)
+    n = length + sink
+    return {"c": torch.zeros((batch, n, cfg.kv_lora_rank), dtype=dtype,
+                             device=dev),
+            "kr": torch.zeros((batch, n, cfg.qk_rope_head_dim), dtype=dtype,
+                              device=dev)}
+
+
+def mla_prefill_attention(attn: MLAttention, x, positions, cfg, *, window=0,
+                          cap=None, cache_dtype=torch.bfloat16, dist=None):
+    """MLA prefill that also returns the populated latent cache."""
+    out = mla_attention(attn, x, positions, cfg, window=window, dist=dist)
+    c_kv, k_rope = mla_project_latent(attn, x, cfg)
+    k_rope = _rope_latent(k_rope, positions, cfg)
+    B, S, _ = x.shape
+    cap = cap if cap else S
+
+    def ring(a):                                    # (B,S,F) -> (B,cap,F)
+        buf = torch.zeros((B, cap, a.shape[-1]), dtype=cache_dtype,
+                          device=a.device)
+        if window > 0:
+            w = min(cap, S)
+            slots = (S - w + torch.arange(w, device=a.device)) % cap
+            buf[:, slots] = a[:, S - w:].to(cache_dtype)
+        else:
+            buf[:, :S] = a.to(cache_dtype)
+        return buf
+
+    return out, {"c": ring(c_kv), "kr": ring(k_rope)}
+
+
+def mla_decode_attention(attn: MLAttention, x, cache, pos, cfg,
+                         window: int = 0):
+    """Absorbed one-token decode against the latent cache: q_nope goes
+    through wk_b into latent space, so scores are taken against c_kv
+    directly. ``pos``: a host int, or a (B,) tensor of per-slot positions
+    (the cache then has the sink row that takes the writes the JAX package
+    drops). Returns (out, cache) — the cache updated in place."""
+    B = x.shape[0]
+    per_slot = isinstance(pos, torch.Tensor)
+    posb = pos[:, None] if per_slot else \
+        torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = mla_queries(attn, x, posb, cfg)         # (B,1,H,.)
+    c_new, kr_new = mla_project_latent(attn, x, cfg)         # (B,1,.)
+    kr_new = _rope_latent(kr_new, posb, cfg)
+    layout = ContiguousLayout(window, sink=per_slot)
+    cap = cache["c"].shape[1] - layout.sink
+    if per_slot:
+        idx = layout.slot_index(pos.long(), cap)
+        rows = torch.where(idx < cap, idx, torch.full_like(idx, cap))
+        b = torch.arange(B, device=x.device)
+        cache["c"][b, rows] = c_new[:, 0].to(cache["c"].dtype)
+        cache["kr"][b, rows] = kr_new[:, 0].to(cache["kr"].dtype)
+    else:
+        idx = layout.slot_index(pos, cap)
+        if not 0 <= idx < cap:
+            raise ValueError(f"decode position {pos} is past the cache "
+                             f"capacity {cap}")
+        cache["c"][:, idx] = c_new[:, 0].to(cache["c"].dtype)
+        cache["kr"][:, idx] = kr_new[:, 0].to(cache["kr"].dtype)
+    c_kv, k_rope = cache["c"][:, :cap], cache["kr"][:, :cap]
+    valid = layout.validity(pos + 1, cap, x.device)
+    q_eff = torch.einsum("bshk,rhk->bshr", q_nope, attn.wk_b)
+    scale = 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    s = (torch.einsum("bshr,btr->bsht", q_eff, c_kv.float())
+         + torch.einsum("bshk,btk->bsht", q_rope.float(),
+                        k_rope.float())) * scale
+    s = torch.where(_valid_mask(valid, s.ndim), s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    o_lat = torch.einsum("bsht,btr->bshr", p, c_kv)           # (B,1,H,rkv)
+    o = torch.einsum("bshr,rhk->bshk", o_lat.to(attn.wv_b.dtype), attn.wv_b)
+    return torch.einsum("bshk,hkd->bsd", o, attn.wo), cache

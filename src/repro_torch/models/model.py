@@ -36,23 +36,27 @@ def empty_model(cfg: ModelConfig, *, device="cuda") -> Transformer:
 
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int = 0,
                       window: int = 0, policy=None,
-                      cache_dtype=torch.bfloat16, metrics: bool = True):
-    """(model, batch) -> (logits (B,S,vocab), populated decode cache)."""
+                      cache_dtype=torch.bfloat16, metrics: bool = True,
+                      dist=None):
+    """(model, batch) -> (logits (B,S,vocab), populated decode cache).
+    ``dist``: an EP context (``distributed.DistContext``) for S-ETP."""
     def step(model, batch):
         with torch.no_grad():
             return transformer.prefill(model, batch, cfg,
                                        cache_len=cache_len, window=window,
                                        policy=policy, cache_dtype=cache_dtype,
-                                       metrics=metrics)
+                                       metrics=metrics, dist=dist)
     return step
 
 
-def make_serve_step(cfg: ModelConfig, *, window: int = 0, policy=None):
+def make_serve_step(cfg: ModelConfig, *, window: int = 0, policy=None,
+                    dist=None):
     """(model, token (B,1), cache) -> (logits, cache) — ONE new token."""
     def step(model, token, cache):
         with torch.no_grad():
             return transformer.decode_step(model, token, cache, cfg,
-                                           window=window, policy=policy)
+                                           window=window, policy=policy,
+                                           dist=dist)
     return step
 
 

@@ -22,6 +22,11 @@ off, a ``"moe_overflow"`` running count.
 
 MoE sparsity is configured by one ``core.policy.SparsityPolicy`` argument
 (``None`` means ``NoDrop``); the JAX package carries it in a DistContext.
+An EP context (``dist``: a ``distributed.DistContext`` with ``moe_impl``
+"setp") sends every MoE layer through ``core.setp.setp_moe_forward``, as
+the JAX package's ``_moe_forward`` does: each rank holds its shard of the
+experts and the rest of the model replicated, and runs the steps on the
+same inputs (SPMD).
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ class Block(nn.Module):
         kw = dict(device=device, generator=generator)
         self.ln1 = L.ones((cfg.d_model,), device=device)
         self.ln2 = L.ones((cfg.d_model,), device=device)
-        self.attn = attn.Attention(cfg, **kw)
+        self.attn = (attn.MLAttention(cfg, **kw) if cfg.attn_kind == "mla"
+                     else attn.Attention(cfg, **kw))
         if cfg.is_moe:
             self.moe = moe_mod.MoELayer(cfg, **kw)
             self.mlp = None
@@ -71,6 +77,8 @@ class MambaBlock(nn.Module):
 def _ported(cfg) -> bool:
     if cfg.family == "ssm":
         return True
+    if cfg.attn_kind == "mla":
+        return cfg.family in ("moe", "dense") and not cfg.frontend
     return (cfg.family in ("moe", "dense", "vlm", "hybrid")
             and cfg.attn_kind == "gqa" and cfg.frontend in ("", "vision")
             and cfg.mlp_kind in ("swiglu", "gelu"))
@@ -95,7 +103,8 @@ class Transformer(nn.Module):
         if not _ported(cfg):
             raise NotImplementedError(
                 f"{cfg.arch_id}: only gqa decoders of the moe/dense/vlm/"
-                "hybrid families and the ssm family are ported yet")
+                "hybrid families, mla decoders of the moe/dense families "
+                "and the ssm family are ported yet")
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
         self.embed = L.Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
@@ -127,15 +136,23 @@ def _policy_of(policy):
 
 
 def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
-                 collect: bool = False):
-    """MoE layer forward under ``policy`` (default ``NoDrop``).
+                 collect: bool = False, dist=None):
+    """MoE layer forward under ``policy`` (default ``NoDrop``); on the
+    S-ETP path when ``dist`` is an EP context with ``moe_impl`` "setp".
 
     Returns ``(y, None, overflow)``; with ``collect`` the third value is the
     per-layer obs stats dict (kept-pair expert_load histogram over
     sub-expert ids plus kept_full/kept_major/dropped_pairs/overflow_pairs)
-    — same routing, same ``y``."""
+    — same routing, same ``y``. On the S-ETP path overflow and stats are
+    summed over the mesh."""
     B, S, d = x.shape
     params = moe.weights()
+    if dist is not None and dist.moe_impl == "setp":
+        from ..core import setp as setp_mod
+        y, aux = setp_mod.setp_moe_forward(
+            params, x, cfg, dist, policy=_policy_of(policy),
+            return_overflow=True, return_stats=collect)
+        return y, None, aux
     xt = x.reshape(-1, d)
     # per-request (B,) threshold values -> per-token over the (B*S, d) block
     policy = _policy_of(policy).per_token(B, S)
@@ -162,9 +179,24 @@ def _no_overflow(x):
     return torch.zeros((), dtype=torch.int32, device=x.device)
 
 
+def _attn_forward(bp: Block, h, positions, cfg, *, window: int, dist,
+                  capture_cap: int = 0, cache_dtype=torch.bfloat16):
+    """The block's attention (GQA or MLA); with ``capture_cap`` also the
+    populated cache layer."""
+    mla = cfg.attn_kind == "mla"
+    if capture_cap:
+        fn = attn.mla_prefill_attention if mla else \
+            attn.gqa_prefill_attention
+        return fn(bp.attn, h, positions, cfg, window=window, cap=capture_cap,
+                  cache_dtype=cache_dtype, dist=dist)
+    fn = attn.mla_attention if mla else attn.gqa_attention
+    return fn(bp.attn, h, positions, cfg, window=window, dist=dist)
+
+
 def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
                   policy=None, capture_cap: int = 0,
-                  cache_dtype=torch.bfloat16, collect_stats: bool = False):
+                  cache_dtype=torch.bfloat16, collect_stats: bool = False,
+                  dist=None):
     """Full-sequence block forward. With ``capture_cap`` returns
     ``(x, cache_layer, moe_overflow)`` for the prefill -> decode handoff
     (the obs stats dict in the third slot under ``collect_stats``; a Mamba
@@ -177,29 +209,29 @@ def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
         return x + mm.mamba2_forward(bp.mamba, h, cfg)
     cache_layer = None
     if capture_cap:
-        y, cache_layer = attn.gqa_prefill_attention(
-            bp.attn, h, positions, cfg, window=window, cap=capture_cap,
-            cache_dtype=cache_dtype)
+        y, cache_layer = _attn_forward(bp, h, positions, cfg, window=window,
+                                       dist=dist, capture_cap=capture_cap,
+                                       cache_dtype=cache_dtype)
     else:
-        y = attn.gqa_attention(bp.attn, h, positions, cfg, window=window)
-    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
+        y = _attn_forward(bp, h, positions, cfg, window=window, dist=dist)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return (x, cache_layer, overflow) if capture_cap else x
 
 
-def _ffn(bp: Block, x, cfg, policy, collect_stats: bool):
+def _ffn(bp: Block, x, cfg, policy, collect_stats: bool, dist=None):
     """The block's second half: norm, then MoE or MLP, residual added.
     Returns ``(x, moe_overflow or obs stats dict)``."""
     h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
     if bp.moe is None:
         return x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind), _no_overflow(x)
     y, _, overflow = _moe_forward(bp.moe, h, cfg, policy,
-                                  collect=collect_stats)
+                                  collect=collect_stats, dist=dist)
     return x + y, overflow
 
 
 def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
                  policy=None, layout=None, page_table=None, write_mask=None,
-                 read_len=None, collect_stats: bool = False):
+                 read_len=None, collect_stats: bool = False, dist=None):
     """One-token decode at ``pos`` (host int or (B,) tensor). Returns
     ``(x, cache_layer, moe_overflow)`` — the obs stats dict in the third
     slot under ``collect_stats``. ``layout``/``page_table``/``write_mask``/
@@ -209,16 +241,21 @@ def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
         state = mm.MambaState(cache_layer["conv"], cache_layer["ssm"])
         y, st = mm.mamba2_decode(bp.mamba, h, state, cfg)
         return x + y, st._asdict(), _no_overflow(x)
-    y, cache_layer = attn.gqa_decode_attention(
-        bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
-        page_table=page_table, write_mask=write_mask, read_len=read_len)
-    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
+    if cfg.attn_kind == "mla":
+        y, cache_layer = attn.mla_decode_attention(bp.attn, h, cache_layer,
+                                                   pos, cfg, window)
+    else:
+        y, cache_layer = attn.gqa_decode_attention(
+            bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
+            page_table=page_table, write_mask=write_mask, read_len=read_len)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return x, cache_layer, overflow
 
 
 def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                   policy=None, capture_cap: int = 0,
-                  cache_dtype=torch.bfloat16, metrics: bool = True):
+                  cache_dtype=torch.bfloat16, metrics: bool = True,
+                  dist=None):
     """x: (B,S,d) -> (B,S,d) through all blocks. With ``capture_cap`` also
     returns the decode cache; ``metrics`` (MoE + capture only) puts a
     ``MetricsState`` in it in place of the ``moe_overflow`` scalar."""
@@ -233,12 +270,12 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
             x, cl, of = block_forward(bp, x, positions, cfg, window=window,
                                       policy=policy, capture_cap=capture_cap,
                                       cache_dtype=cache_dtype,
-                                      collect_stats=collect)
+                                      collect_stats=collect, dist=dist)
             layers.append(cl)
             outs.append(of)
         else:
             x = block_forward(bp, x, positions, cfg, window=window,
-                              policy=policy)
+                              policy=policy, dist=dist)
     if not capture_cap:
         return x
     cache = {"layers": layers}
@@ -316,7 +353,7 @@ def _with_step_stats(cache, new, outs):
 
 def stack_decode(model: Transformer, x, cache, pos, cfg, *,
                  window: int = 0, policy=None, layout=None, page_table=None,
-                 write_mask=None, read_len=None):
+                 write_mask=None, read_len=None, dist=None):
     """One-token decode through all blocks."""
     if cfg.family == "hybrid":
         return _hybrid_decode(model, x, cache, pos, cfg, window=window)
@@ -327,7 +364,7 @@ def stack_decode(model: Transformer, x, cache, pos, cfg, *,
                                  policy=policy, layout=layout,
                                  page_table=page_table,
                                  write_mask=write_mask, read_len=read_len,
-                                 collect_stats=collect)
+                                 collect_stats=collect, dist=dist)
         new_layers.append(cl)
         outs.append(of)
     return x, _with_step_stats(cache, {"layers": new_layers}, outs)
@@ -363,7 +400,7 @@ def embed_inputs(model: Transformer, batch, cfg, offset: int = 0):
 
 def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
             window: int = 0, policy=None, cache_dtype=torch.bfloat16,
-            metrics: bool = True):
+            metrics: bool = True, dist=None):
     """Full forward AND the populated decode cache: returns
     ``(logits (B,S,vocab), cache)`` — logits over the token part only —
     with ``cache["pos"]`` past the prompt, frontend prefix included."""
@@ -373,7 +410,8 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
         min(cache_len if cache_len else S_total, window)
     x, cache = stack_forward(model, x, positions, cfg, window=window,
                              policy=policy, capture_cap=cap,
-                             cache_dtype=cache_dtype, metrics=metrics)
+                             cache_dtype=cache_dtype, metrics=metrics,
+                             dist=dist)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -384,7 +422,7 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
 
 def decode_step(model: Transformer, token, cache, cfg, *, window: int = 0,
                 policy=None, layout=None, page_table=None, write_mask=None,
-                read_len=None):
+                read_len=None, dist=None):
     """token: (B,1) -> (logits (B,1,vocab), new cache). ``cache["pos"]`` is
     a host int shared by the batch or a (B,) tensor of per-slot positions;
     ``layout``/``page_table`` select the KV storage and ``write_mask`` (B,)
@@ -395,7 +433,7 @@ def decode_step(model: Transformer, token, cache, cfg, *, window: int = 0,
     x, new_cache = stack_decode(model, x, cache, pos, cfg, window=window,
                                 policy=policy, layout=layout,
                                 page_table=page_table, write_mask=write_mask,
-                                read_len=read_len)
+                                read_len=read_len, dist=dist)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = L.unembed(model.embed, x)
     new_cache["pos"] = pos + 1
@@ -473,6 +511,9 @@ def init_cache(cfg, batch: int, context_len: int, *, window: int = 0,
     layout = attn.ContiguousLayout(window, sink=per_slot_pos)
 
     def attn_caches(n):
+        if cfg.attn_kind == "mla":
+            return [attn.init_mla_cache(batch, cap, cfg, dtype, dev,
+                                        sink=layout.sink) for _ in range(n)]
         return [layout.init(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
                             dtype, dev) for _ in range(n)]
 

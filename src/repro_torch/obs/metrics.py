@@ -78,8 +78,11 @@ class MetricsState:
 def metrics_spec(cfg, model) -> Optional[Tuple[int, int]]:
     """(n_layers, n_sub_experts) of a model's MoE stack — the shape of the
     engine-wide ``MetricsState`` its steps add into (prepared weights
-    count their sub-experts) — or None for a model without MoE layers."""
+    count their sub-experts; an S-ETP rank's shard counts every rank's) —
+    or None for a model without MoE layers."""
     if not cfg.is_moe:
         return None
     moes = [b.moe for b in model.blocks if b.moe is not None]
-    return (len(moes), int(moes[0].w1.shape[0])) if moes else None
+    if not moes:
+        return None
+    return len(moes), int(moes[0].w1.shape[0]) * moes[0].ep_shards

@@ -31,11 +31,21 @@ each step kind (warm-up: kernel build and load, allocator growth) makes
 ``timing`` report its step as warm-up (``compile_s``), the rest as steady
 state. Decode steps read back only the greedy tokens; positions, page
 tables and metrics stay on the device.
+
+Expert parallelism: ``ServingEngine`` and ``ContinuousBatchingEngine`` take
+an EP context (``dist``, a ``distributed.DistContext``); every rank builds
+the engine over its shard of the model and serves the same requests in
+SPMD while each MoE layer runs S-ETP across the ranks (``core.setp``).
+Every rank takes its next tokens from the ``model`` axis' first rank
+(``DistContext.host_view``), as the JAX package's host reads a replicated
+array, so the ranks stay in step even where capacity overflow made their
+outputs differ.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -59,6 +69,13 @@ def exact_moe_policy(policy: Optional[SparsityPolicy]) -> SparsityPolicy:
     is dropped by overflow and outputs are batch-composition-invariant."""
     return dataclasses.replace(policy if policy is not None else NoDrop(),
                                exact_capacity=True)
+
+
+def _host_view(dist, tokens):
+    """The tokens every rank feeds its next step: under an EP context the
+    copy of the ``model`` axis' first rank (``DistContext.host_view``),
+    else ``tokens`` as they are."""
+    return tokens if dist is None else dist.host_view(tokens)
 
 
 def sample_token(logits_row, gen: GenerationConfig, uid: int, n: int) -> int:
@@ -135,12 +152,13 @@ class ServingEngine(EngineBase):
                  window: int = 0, pad_token: int = 0,
                  policy: Optional[SparsityPolicy] = None,
                  exact_moe: bool = False, cache_dtype=torch.bfloat16,
-                 metrics: bool = True, device="cuda"):
+                 metrics: bool = True, device="cuda", dist=None):
         super().__init__(metrics=metrics)
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.cfg = cfg
         self.model = model
+        self.dist = dist
         self.batch_size = batch_size
         self.window = window
         self.pad_token = pad_token
@@ -160,12 +178,12 @@ class ServingEngine(EngineBase):
         return M.make_prefill_step(
             self.cfg, cache_len=self.context_len, window=self.window,
             policy=policy, cache_dtype=self.cache_dtype,
-            metrics=self.metrics_enabled)(self.model, batch)
+            metrics=self.metrics_enabled, dist=self.dist)(self.model, batch)
 
     def _serve(self, token, cache, policy):
         self._warm("decode")
-        return M.make_serve_step(self.cfg, window=self.window,
-                                 policy=policy)(self.model, token, cache)
+        return M.make_serve_step(self.cfg, window=self.window, policy=policy,
+                                 dist=self.dist)(self.model, token, cache)
 
     def _policy_for(self, gen: GenerationConfig) -> Optional[SparsityPolicy]:
         if gen.policy is None:
@@ -236,7 +254,7 @@ class ServingEngine(EngineBase):
         t0 = time.perf_counter()
         with self.tracer.span("prefill", batch=B):
             logits, cache = self._prefill(b, policy)
-            last = torch.argmax(logits[:, -1:], dim=-1)
+            last = _host_view(self.dist, torch.argmax(logits[:, -1:], dim=-1))
             last_np = last.cpu().numpy()          # waits for the prefill
         t_prefill = time.perf_counter() - t0
         done = np.zeros(B, bool)
@@ -255,7 +273,8 @@ class ServingEngine(EngineBase):
                 if done.all():
                     break
                 logits, cache = self._serve(last, cache, policy)
-                last = self._next_tokens(logits, gens, uids, step)
+                last = _host_view(self.dist,
+                                  self._next_tokens(logits, gens, uids, step))
                 last_np = last.cpu().numpy()
         t_decode = time.perf_counter() - t0
         # fold the batch's device metrics into the engine total with ONE
@@ -311,18 +330,24 @@ class SlotEngineBase(EngineBase):
     def __init__(self, cfg: ModelConfig, model, *, n_slots: int,
                  max_prompt_len: int, max_new_tokens: int, pad_token: int,
                  policy: Optional[SparsityPolicy], exact_moe: bool,
-                 metrics: bool, device):
+                 metrics: bool, device, dist=None):
         super().__init__(metrics=metrics)
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.cfg = cfg
         self.model = model
+        self.dist = dist
         self.n_slots = n_slots
         self.pad_token = pad_token
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
         if exact_moe and cfg.is_moe:
             policy = exact_moe_policy(policy)
+            if dist is not None and dist.moe_impl == "setp":
+                warnings.warn(
+                    "exact_moe only governs the dispatch MoE path; the setp "
+                    "(EP) path uses its own capacity factors, so outputs "
+                    "may depend on co-batched traffic", stacklevel=3)
         self.policy = policy
         self._slot_pol = (SlotPolicies(policy, n_slots, self.device)
                           if policy is not None else None)
@@ -398,7 +423,7 @@ class SlotEngineBase(EngineBase):
         with torch.no_grad():
             logits, new = transformer.decode_step(
                 self.model, self._tokens(self._last), cache, self.cfg,
-                policy=self._stacked_policy(), **layout_kw)
+                policy=self._stacked_policy(), dist=self.dist, **layout_kw)
         new["pos"] = torch.where(active, new["pos"], cache["pos"])
         self._cache = new
         return logits[:, -1], torch.argmax(logits[:, -1], dim=-1)
@@ -407,16 +432,17 @@ class SlotEngineBase(EngineBase):
         """Decode one step and emit a token for every slot in
         ``decoding`` — greedy, or sampled at the request's temperature."""
         with self.tracer.span("decode", batch=int(self._active.sum())):
-            logits, greedy = self._decode_call(**layout_kw)
-            greedy_np = greedy.cpu().numpy()    # the step's one read-back
+            logits, toks = self._decode_call(**layout_kw)
+            for slot in decoding:
+                st = self._slots[slot]
+                if st.gen.temperature > 0:
+                    toks[slot] = sample_token(logits[slot], st.gen, st.uid,
+                                              st.n_emitted)
+            # the step's one read-back
+            toks = _host_view(self.dist, toks).cpu().numpy()
         self.decode_steps += 1
         for slot in decoding:
-            st = self._slots[slot]
-            if st.gen.temperature > 0:
-                tok = sample_token(logits[slot], st.gen, st.uid,
-                                   st.n_emitted)
-            else:
-                tok = int(greedy_np[slot])
+            tok = int(toks[slot])
             self._last[slot, 0] = tok
             self._emit(slot, tok)
 
@@ -471,7 +497,7 @@ class ContinuousBatchingEngine(SlotEngineBase):
                  max_prompt_len: int = 512, max_new_tokens: int = 128,
                  pad_token: int = 0, policy: Optional[SparsityPolicy] = None,
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
-                 metrics: bool = True, device="cuda"):
+                 metrics: bool = True, device="cuda", dist=None):
         if cfg.family in ("audio", "ssm", "hybrid"):
             # ssm/hybrid: the Mamba recurrence runs over the trailing pads
             # of a right-padded prefill and pollutes the captured decode
@@ -483,7 +509,7 @@ class ContinuousBatchingEngine(SlotEngineBase):
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,
                          policy=policy, exact_moe=exact_moe, metrics=metrics,
-                         device=device)
+                         device=device, dist=dist)
         self.cache_dtype = cache_dtype
         self.context_len = M.context_len_for(cfg, max_prompt_len,
                                              max_new_tokens)
@@ -507,19 +533,21 @@ class ContinuousBatchingEngine(SlotEngineBase):
             logits, small = transformer.prefill(
                 self.model, batch, self.cfg,
                 cache_len=self.context_len, policy=policy,
-                cache_dtype=self.cache_dtype, metrics=self.metrics_enabled)
+                cache_dtype=self.cache_dtype, metrics=self.metrics_enabled,
+                dist=self.dist)
         cache = self._cache
         n = self.context_len                 # the slot's rows, sink row off
         for big, sm in zip(cache["layers"], small["layers"]):
-            big["k"][slot, :n] = sm["k"][0]
-            big["v"][slot, :n] = sm["v"][0]
+            for key, rows in sm.items():     # {"k", "v"} or MLA's {"c", "kr"}
+                big[key][slot, :n] = rows[0]
         cache["pos"][slot] = M.frontend_len(self.cfg) + valid_len
         if "metrics" in cache and "metrics" in small:
             cache["metrics"] = cache["metrics"] + small["metrics"]
         elif "moe_overflow" in cache and "moe_overflow" in small:
             cache["moe_overflow"] = cache["moe_overflow"] + \
                 small["moe_overflow"]
-        return torch.argmax(logits[0, valid_len - 1])
+        return _host_view(self.dist,
+                          torch.argmax(logits[0, valid_len - 1]).reshape(1))[0]
 
     def _admit(self) -> int:
         """Move queued requests into free slots (one prefill-insert each).

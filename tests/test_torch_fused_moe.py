@@ -5,7 +5,12 @@ numpy inputs and plans.
 
 Tolerance: rel_err <= 1e-6 in float32 — both sides compute the same rows
 and the same per-token accumulation order; only the order of the sums
-inside each matrix product differs. The ``skewed_rows`` case routes its
+inside each matrix product differs. With bfloat16 operands (the S-ETP wire
+type) both widen x and the weights to float32, round h to bf16 before the
+down product and cast the float32 result to bf16: rel_err <= 1e-3 on the
+outputs widened to float32 (an h element whose float32 sums land on two
+sides of a bf16 rounding boundary differs by one bf16 ulp, 2**-8; measured
+0 to 2.4e-5 on these cases). The ``skewed_rows`` case routes its
 tokens so that the groups sit on both sides of the CUDA tiles' few-row
 threshold R: exactly R and R+1 live rows, one group at capacity (with
 overflow), an empty one, two with a few rows, MAJOR-only rows among
@@ -81,14 +86,25 @@ def _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p, block_c,
     return arrays, int(plan.overflow)
 
 
-def _run_both(arrays, cap, P, block_c, block_f, nms):
+OPERANDS = ("x", "w1", "w3", "w2")
+
+
+def _run_both(arrays, cap, P, block_c, block_f, nms, dtype="float32"):
+    """Both packages' output, widened to float32; x and the weights in
+    ``dtype`` (the plan arrays and combine weights as they are)."""
     kw = dict(capacity=cap, p_factor=P, n_minor_start=nms, block_c=block_c,
               block_f=block_f)
-    y_jax = np.asarray(jops.fused_moe_pipeline(
-        *(jnp.asarray(a) for a in arrays.values()), **kw))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    y_jax = jops.fused_moe_pipeline(
+        *(jnp.asarray(a).astype(jdt) if k in OPERANDS else jnp.asarray(a)
+          for k, a in arrays.items()), **kw)
     y_torch = tops.fused_moe_pipeline(
-        *(torch.from_numpy(a) for a in arrays.values()), **kw).numpy()
-    return y_jax, y_torch
+        *(torch.from_numpy(np.array(a)).to(tdt) if k in OPERANDS
+          else torch.from_numpy(np.array(a)) for k, a in arrays.items()),
+        **kw)
+    assert y_jax.dtype == jdt and y_torch.dtype == tdt
+    return (np.asarray(y_jax.astype(jnp.float32)),
+            y_torch.float().numpy())
 
 
 def _rel_err(a, b):
@@ -115,6 +131,41 @@ def test_fused_pipeline_matches_jax(name):
     y_jax, y_torch = _run_both(arrays, cap, P, bc, bf, nms)
     assert y_torch.shape == y_jax.shape and y_torch.dtype == np.float32
     assert _rel_err(y_torch, y_jax) <= REL_TOL
+
+
+BF16_TOL = 1e-3
+
+
+@pytest.mark.parametrize("name", ["p2_mode_grouped", "p1_sub_pairs",
+                                  "p2_ragged_f", "overflow", "skewed_rows"])
+def test_fused_pipeline_bf16_matches_jax(name):
+    """bf16 operands, as the S-ETP body hands them to the kernel: the plain
+    version against the Pallas kernel in interpret mode."""
+    (seed, T, K, E, P, d, f, cap, keep_p, major_p, bc, bf,
+     nms) = CASES[name]
+    group = (_skewed_groups(tdsf.FEW_ROWS, cap) if name == "skewed_rows"
+             else None)
+    arrays, _ = _inputs(seed, T, K, E, P, d, f, cap, keep_p, major_p, bc,
+                        group=group)
+    y_jax, y_torch = _run_both(arrays, cap, P, bc, bf, nms, "bfloat16")
+    assert _rel_err(y_torch, y_jax) <= BF16_TOL
+    # the bf16 function is not the float32 one: h is rounded
+    y32, _ = _run_both(arrays, cap, P, bc, bf, nms)
+    assert _rel_err(y_torch, y32) > _rel_err(y_torch, y_jax)
+
+
+def test_fused_pipeline_bf16_operands_must_share_a_type():
+    arrays, _ = _inputs(8, 8, 2, 4, 2, 16, 16, 16, 1.0, 0.0, 8)
+    args = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    mixed = dict(args, x=args["x"].bfloat16())
+    with pytest.raises(TypeError, match="one type"):
+        tops.fused_moe_pipeline(*mixed.values(), capacity=16, p_factor=2)
+    bf = {k: v.bfloat16() if k in OPERANDS else v for k, v in args.items()}
+    bad = dict(bf, combine_sorted=args["combine_sorted"].bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        tops.fused_moe_pipeline(*bad.values(), capacity=16, p_factor=2)
+    y = tops.fused_moe_pipeline(*bf.values(), capacity=16, p_factor=2)
+    assert y.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("P", [1, 2])

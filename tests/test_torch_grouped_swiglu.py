@@ -10,6 +10,11 @@ rows, one group at capacity, an empty one, MAJOR-only rows).
 Tolerance: rel_err <= 1e-6 in float32 — both sides compute the same masked
 rows; only the order of the sums inside each matrix product differs. Rows
 at or past ``counts_full + counts_major`` are exact zeros on both sides.
+With bfloat16 operands (the S-ETP wire type) h is rounded to bf16 before
+the down product and the float32 result cast to bf16 on both sides:
+rel_err <= 1e-3 on the outputs widened to float32 (one bf16 ulp where an
+h element's float32 sums straddle a rounding boundary; measured 0 to
+2.7e-4 on these cases).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +105,33 @@ def test_grouped_swiglu_matches_jax(name):
         return
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert err <= REL_TOL, f"rel_err {err:.3e}"
+
+
+BF16_TOL = 1e-3
+
+
+@pytest.mark.parametrize("name", ["p1_blocks", "p1_odd_f", "p2", "p4",
+                                  "counts_past_capacity", "skewed_rows"])
+def test_grouped_swiglu_bf16_matches_jax(name):
+    """bf16 operands (the S-ETP buffer path's): the plain version against
+    the Pallas kernel in interpret mode; dead rows exact zeros."""
+    seed, E, C, d, f, P, bc, bf, nms, counts = CASES[name]
+    x, w1, w3, w2, cf, cm = _inputs(seed, E, C, d, f, P, counts)
+    kw = dict(p_factor=P, n_minor_start=nms, block_c=bc, block_f=bf)
+    want = jops.grouped_swiglu(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w1, w3, w2)),
+        jnp.asarray(cf), jnp.asarray(cm), **kw)
+    got = tops.grouped_swiglu(
+        *(torch.from_numpy(a).bfloat16() for a in (x, w1, w3, w2)),
+        torch.from_numpy(cf), torch.from_numpy(cm), **kw)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    live = np.minimum(cf + cm, C)
+    dead = np.arange(C)[None, :] >= live[:, None]
+    assert (got[dead] == 0).all() and (want[dead] == 0).all()
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= BF16_TOL, f"rel_err {err:.3e}"
 
 
 def test_grouped_swiglu_major_rows_skip_minor_neurons():

@@ -47,6 +47,16 @@ def test_port_package_found():
                 / name).exists()
 
 
+def test_ep_and_mla_modules_are_checked():
+    """The S-ETP / ETP modules, the EP context and MLA's config are among
+    the files checked above."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("core/setp.py", "distributed/__init__.py",
+                "distributed/context.py", "distributed/sharding.py",
+                "configs/minicpm3_4b.py", "models/attention.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,7 +82,9 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         M.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_paged_cache(cfg, 4, 4, 1)
+    mla = get_config("minicpm3-4b").reduced()
     for helper in (lambda: TT.init_cache(cfg, 1, 8),
+                   lambda: TT.init_cache(mla, 1, 8),
                    lambda: TT.init_paged_cache(cfg, 4, 4, 1),
                    lambda: MetricsState.zeros(1, 4),
                    lambda: calibration_activations(
