@@ -75,6 +75,22 @@
 12. Serve MiniCPM3-4B (MLA) at full width and depth (62 layers) through
    ``ServingEngine``, 4 x 512 x 16, and ``ContinuousBatchingEngine``: no
    kernel of ours.
+13. Train on the card (``make_train_step``: AdamW on a cosine schedule,
+   aux 0.01, the differentiable route, which launches no kernel of ours:
+   the kernels have no backward). (a) Reduced Qwen3-30B-A3B, 3 steps on
+   the card and on the CPU from the same weights and batches: losses and
+   each leaf's update. (b) Qwen3-30B-A3B at full width, depth cut from 48
+   to 4 layers (3.1 B parameters; params, grads and the moments take ~50
+   GB), 8 steps at 4 x 512: loss and grad norm per step, step time,
+   tokens/s, peak memory, model FLOPs and their share of the float32 rate,
+   a profile of one more step; the init's log-sum-exp at chance, the loss
+   falling, every kernel counter still 0. (c) The paper's Fig. 4 fine-tune:
+   a ~128M MoE and its P=2 complete-transformation twin, 200 steps each at
+   8 x 128, the same step-1 cross entropy; the original's state saved at
+   step 100 (``checkpoint.io``), restored into a fresh model and optimizer,
+   runs steps 101-110 as the uninterrupted run did. (d) Each kernel
+   wrapper, given a card operand that requires grad, raises and launches
+   nothing.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
@@ -2196,6 +2212,387 @@ def ep_phase(dev) -> dict:
     return dict(wall_s=wall, ranks=ranks)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: train on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4        # depth cut of the full-width training (of 48)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+# Adam moves every weight by ~lr per step: at 1e-3 a 2048-wide lm_head
+# column's logits move by ~2 per step, and the full-width loss swings
+TRAIN_LR = 1e-4
+AUX_COEF = 0.01
+# the card against the CPU, reduced Qwen3, 3 steps: the same float32 math
+# summed in another order per product (cuBLAS vs the CPU's BLAS); the
+# update bar is looser, since Adam divides by sqrt(v)
+PARITY_LOSS_TOL = 1e-4
+PARITY_UPDATE_TOL = 1e-3
+# at init the final RMSNorm leaves x with unit mean square and lm_head is
+# 0.02 * N(0, 1), so the logits have variance 0.02^2 * d and the mean
+# log-sum-exp is ln(V) + 0.02^2 * d / 2 (12.341 at d 2048, V 151936):
+# chance for this init, not ln(V). The cross entropy adds minus the mean
+# target logit, which the Zipf targets (about a fifth of them one token)
+# keep from averaging out over a batch; the train loss adds AUX_COEF x
+# the aux loss summed over the layers (E x top-k share per layer: ~8 per
+# layer at a uniform top-8 router)
+INIT_LSE_TOL = 0.05
+INIT_CE_TOL = 0.2
+FIG4_STEPS, FIG4_B, FIG4_S, FIG4_LR = 200, 8, 128, 1e-3
+FIG4_CKPT_STEP, FIG4_RESUME = 100, 10
+FIG4_CE_TOL = 1e-4      # orig vs its P=2 twin at init: the same function
+RESUME_TOL = 1e-5       # index_add's backward on CUDA is not bitwise
+
+
+def fig4_config():
+    """The ~128M-parameter MoE of the paper's Fig. 4 fine-tune (a copy of
+    ``examples/finetune_partitioned.py``'s ``CFG_100M``, which imports
+    JAX): 8 layers, d 512, 16 experts top-2, d_expert 512, vocab 16384."""
+    from repro_torch.configs.base import DualSparseConfig, ModelConfig
+    return ModelConfig(
+        arch_id="moe-100m", family="moe", source="examples",
+        n_layers=8, d_model=512, n_heads=8, n_kv_heads=2, d_ff=512,
+        vocab_size=16384, n_experts=16, top_k=2, d_expert=512,
+        dualsparse=DualSparseConfig(enabled=True))
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x active params x tokens (the
+    top-k experts, the router, attention's projections and lm_head; no
+    embedding lookup) + the attention products, 12 x layers x tokens x
+    seq x heads x head_dim."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+    moe = cfg.top_k * 3 * d * cfg.d_expert + d * cfg.n_experts
+    active = cfg.n_layers * (attn + moe) + d * cfg.vocab_size
+    return (6.0 * active * tokens
+            + 12.0 * cfg.n_layers * tokens * seq * cfg.n_heads * hd)
+
+
+def train_run(cfg, model, dev, loader, steps: int, lr: float, total: int,
+              warmup: int, start: int = 0, opt_state=None, on_step=None):
+    """``steps`` steps of ``make_train_step`` (AdamW on a cosine schedule
+    of ``total`` steps, aux ``AUX_COEF``) from loader batch ``start``.
+    Returns (losses, grad norms, host ms per step around
+    ``synchronize()``, the AdamW state)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, cosine_schedule
+    opt = adamw(cosine_schedule(lr, total, warmup=warmup))
+    if opt_state is None:
+        opt_state = opt.init(M.trainable(model))
+    step = M.make_train_step(cfg, opt, aux_coef=AUX_COEF)
+    losses, norms, ms = [], [], []
+    for i in range(start, start + steps):
+        batch = loader.get_batch(i)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, opt_state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        norms.append(float(opt.last_grad_norm))
+        if on_step is not None:
+            on_step(i + 1, model, opt_state)
+    return losses, norms, ms, opt_state
+
+
+def train_parity(dev) -> dict:
+    """(a) Reduced Qwen3-30B-A3B, 3 steps on the card and on the CPU from
+    the same weights and numpy batches: losses and each leaf's update."""
+    import torch
+    from repro_torch.checkpoint.from_numpy import (params_from_numpy,
+                                                   params_to_numpy)
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    tree = params_to_numpy(M.init_params(cfg, seed=3, device="cpu"))
+    loader = pipeline.make_loader(cfg, 4, 64, seed=3)
+    out, after = {}, {}
+    for where, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = params_from_numpy(tree, cfg, device=d)
+        losses, norms, _, _ = train_run(cfg, model, d, loader, 3, TRAIN_LR,
+                                        total=3, warmup=1)
+        out[where] = {"losses": losses, "grad_norms": norms}
+        after[where] = params_to_numpy(model)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["cuda"]["losses"], out["cpu"]["losses"]))
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + "/")
+            else:
+                yield prefix + k, v
+    p0 = dict(leaves(tree))
+    upd = {k: norm_rel(torch.from_numpy(v - p0[k]),
+                       torch.from_numpy(dict(leaves(after["cpu"]))[k]
+                                        - p0[k]))
+           for k, v in leaves(after["cuda"])}
+    worst = max(upd, key=upd.get)
+    ok = loss_rel <= PARITY_LOSS_TOL and upd[worst] <= PARITY_UPDATE_TOL
+    log(f"  (a) reduced Qwen3, 3 steps, card vs CPU: losses "
+        f"{[round(x, 6) for x in out['cuda']['losses']]} vs "
+        f"{[round(x, 6) for x in out['cpu']['losses']]}, rel {loss_rel:.3e} "
+        f"(bar {PARITY_LOSS_TOL:g}); worst leaf update {worst} "
+        f"{upd[worst]:.3e} (bar {PARITY_UPDATE_TOL:g}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 13 (a): the card's training disagrees with "
+                         "the CPU's")
+    return {"loss_rel": loss_rel, "worst_update_rel": upd[worst],
+            "worst_leaf": worst, **out}
+
+
+def train_full_width(dev) -> dict:
+    """(b) Qwen3-30B-A3B at full width, depth cut to ``TRAIN_LAYERS``:
+    ``TRAIN_STEPS`` AdamW steps on the loader's batches through the
+    differentiable route (no kernel may launch)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    loader = pipeline.make_loader(cfg, TRAIN_B, TRAIN_S, seed=0)
+    from repro_torch.models import transformer as TT
+    b0 = M.to_device(loader.get_batch(0), dev)
+    with torch.no_grad():
+        logits, aux = TT.forward(model, b0, cfg, with_aux=True,
+                                 kernels=False)
+        init = {"lse": float(torch.logsumexp(logits, -1).mean()),
+                "ce": float(M.cross_entropy(logits, b0["targets"])),
+                "aux": float(aux)}
+    del logits, aux, b0
+    reset_counts()
+    losses, norms, ms, state = train_run(cfg, model, dev, loader,
+                                         TRAIN_STEPS, TRAIN_LR,
+                                         total=TRAIN_STEPS, warmup=2)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, (loss, gn, t) in enumerate(zip(losses, norms, ms)):
+        log(f"    step {i + 1}: loss {loss:.4f}  grad norm {gn:.4f}  "
+            f"{t:.1f} ms")
+    prof = profile_run("one more train step, full width", lambda: train_run(
+        cfg, model, dev, loader, 1, TRAIN_LR, total=TRAIN_STEPS, warmup=2,
+        start=TRAIN_STEPS, opt_state=state))
+    tokens = TRAIN_B * TRAIN_S
+    step_ms = statistics.median(ms[1:])
+    flops = train_flops(cfg, tokens, TRAIN_S)
+    share = flops / (step_ms / 1e3) / F32_FLOPS
+    chance = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    init["chance"] = chance
+    moved = {k: v for k, v in counts.items()
+             if v["launches"] or v["plain_calls"]
+             or v.get("launches_bf16", 0)}
+    step1 = init["ce"] + AUX_COEF * init["aux"]
+    checks = {
+        "finite": all(math.isfinite(x) for x in losses),
+        "init_lse_at_chance": abs(init["lse"] - chance) <= INIT_LSE_TOL,
+        "init_ce_near_chance": abs(init["ce"] - chance) <= INIT_CE_TOL,
+        "step1_loss_is_ce_plus_aux": abs(losses[0] - step1)
+        <= PARITY_LOSS_TOL * step1,
+        "loss_fell": losses[-1] < losses[0],
+        "no_kernel_launched": not moved,
+    }
+    log(f"  (b) Qwen3-30B-A3B full width, {TRAIN_LAYERS} of 48 layers, "
+        f"{n_params / 1e9:.3f} B parameters, {TRAIN_B} x {TRAIN_S}: median "
+        f"step {step_ms:.1f} ms over steps 2-{TRAIN_STEPS}, "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s, peak {peak_gb:.2f} GB, "
+        f"{flops / 1e12:.3f} TFLOP per step = {share:.1%} of "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s float32; step 1 loss "
+        f"{losses[0]:.4f} = CE {init['ce']:.4f} + {AUX_COEF} x aux "
+        f"{init['aux']:.3f}; mean log-sum-exp {init['lse']:.4f} vs chance "
+        f"ln V + 0.02^2 d / 2 = {chance:.4f} (ln V "
+        f"{math.log(cfg.vocab_size):.4f}); kernel counters {counts} -> "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                    for k, v in checks.items()))
+    del model, state
+    free_memory()
+    if not all(checks.values()):
+        raise SystemExit(f"phase 13 (b) failed: {checks}")
+    return {"n_layers": TRAIN_LAYERS, "n_params": n_params,
+            "batch": [TRAIN_B, TRAIN_S], "losses": losses,
+            "grad_norms": norms, "step_ms": ms, "median_step_ms": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb,
+            "flops_per_step": flops, "f32_share": share, "init": init,
+            "counts": counts, "profile": prof}
+
+
+def train_fig4(dev) -> dict:
+    """(c) The paper's Fig. 4 fine-tune: the ~128M MoE and its P=2
+    complete-transformation twin (32 experts top-4, d_expert 256), 200
+    steps each; step-1 CE equal; a checkpoint of the original at step 100,
+    restored into a fresh model and optimizer, runs steps 101-110 as the
+    uninterrupted run did."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.from_numpy import (params_from_numpy,
+                                                   params_to_numpy)
+    from repro_torch.core import partition
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import restore_state, save_state
+    from repro_torch.models import model as M
+    cfg = fig4_config()
+    cfg_p = dataclasses.replace(cfg, n_experts=32, top_k=4, d_expert=256)
+    tree = params_to_numpy(M.init_params(cfg, seed=0, device=dev))
+    loader = pipeline.make_loader(cfg, FIG4_B, FIG4_S, seed=0)
+    held_out = [loader.get_batch(10_000 + i) for i in range(4)]
+    ckpt_dir = ROOT / "build" / "fig4_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    warm = max(FIG4_STEPS // 20, 5)
+    saved = {}
+
+    def save_at(step, model, opt_state):
+        if step == FIG4_CKPT_STEP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_state(str(ckpt_dir), step, model, opt_state)
+            saved["save_s"] = time.perf_counter() - t0
+
+    def ce(model, c, batches):
+        with torch.no_grad():
+            return [float(M.loss_fn(model, b, c)) for b in batches]
+
+    runs = {}
+    for tag, c in (("orig", cfg), ("p2", cfg_p)):
+        model = params_from_numpy(tree, cfg, device=dev)
+        if tag == "p2":
+            with torch.no_grad():
+                for b in model.blocks:
+                    b.moe.load_weights(partition.complete_transform(
+                        b.moe.weights(), 2))
+        ce1 = ce(model, c, [loader.get_batch(0)])[0]
+        t0 = time.perf_counter()
+        losses, _, ms, state = train_run(
+            c, model, dev, loader, FIG4_STEPS, FIG4_LR, total=FIG4_STEPS,
+            warmup=warm, on_step=save_at if tag == "orig" else None)
+        wall = time.perf_counter() - t0
+        n = FIG4_STEPS // 10
+        runs[tag] = {"step1_ce": ce1, "losses": losses,
+                     "final10_loss": sum(losses[-n:]) / n,
+                     "held_out_ce": statistics.mean(ce(model, c, held_out)),
+                     "median_step_ms": statistics.median(ms[1:]),
+                     "wall_s": wall}
+        if tag == "orig":
+            runs[tag]["profile"] = profile_run(
+                "one more Fig. 4 step", lambda: train_run(
+                    c, model, dev, loader, 1, FIG4_LR, total=FIG4_STEPS,
+                    warmup=warm, start=FIG4_STEPS, opt_state=state))
+        del model, state
+        free_memory()
+
+    # resume from the step-100 checkpoint into a fresh model and optimizer
+    fresh = M.init_params(cfg, seed=1, device=dev)
+    from repro_torch.optim import adamw
+    state = adamw().init(M.trainable(fresh))
+    t0 = time.perf_counter()
+    restore_state(str(ckpt_dir), fresh, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ckpt_mb = sum(f.stat().st_size for f in ckpt_dir.rglob("*")) / 1e6
+    resumed, _, _, _ = train_run(cfg, fresh, dev, loader, FIG4_RESUME,
+                                 FIG4_LR, total=FIG4_STEPS, warmup=warm,
+                                 start=FIG4_CKPT_STEP, opt_state=state)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want = runs["orig"]["losses"][FIG4_CKPT_STEP:
+                                  FIG4_CKPT_STEP + FIG4_RESUME]
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+    ce_rel = abs(runs["p2"]["step1_ce"] - runs["orig"]["step1_ce"])         / abs(runs["orig"]["step1_ce"])
+    checks = {"step1_ce_equal": ce_rel <= FIG4_CE_TOL,
+              "resume_matches": resume_rel <= RESUME_TOL}
+    for tag in runs:
+        r = runs[tag]
+        log(f"  (c) Fig. 4 {tag}: step-1 CE {r['step1_ce']:.6f}; final-10% "
+            f"mean loss (CE + {AUX_COEF} aux) {r['final10_loss']:.4f}; "
+            f"held-out CE {r['held_out_ce']:.4f}; median step "
+            f"{r['median_step_ms']:.1f} ms; {FIG4_STEPS} steps in "
+            f"{r['wall_s']:.1f} s")
+    log(f"  (c) step-1 CE orig vs P=2 rel {ce_rel:.3e} (bar "
+        f"{FIG4_CE_TOL:g}); checkpoint at step {FIG4_CKPT_STEP}: "
+        f"{ckpt_mb:.1f} MB, save {saved['save_s']:.3f} s, restore "
+        f"{restore_s:.3f} s; steps {FIG4_CKPT_STEP + 1}-"
+        f"{FIG4_CKPT_STEP + FIG4_RESUME} resumed vs uninterrupted rel "
+        f"{resume_rel:.3e} (bar {RESUME_TOL:g}) -> "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                    for k, v in checks.items()))
+    del fresh, state
+    free_memory()
+    if not all(checks.values()):
+        raise SystemExit(f"phase 13 (c) failed: {checks}")
+    return {"runs": runs, "step1_ce_rel": ce_rel, "ckpt_mb": ckpt_mb,
+            "save_s": saved["save_s"], "restore_s": restore_s,
+            "resumed": resumed, "resume_rel": resume_rel}
+
+
+def grad_guard_check(dev) -> dict:
+    """(d) Each kernel wrapper, given an operand on the card that requires
+    grad while autograd records, raises before launching anything: the
+    kernels have no backward."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, grad=False):
+        return torch.randn(*shape, generator=gen,
+                           device=dev).requires_grad_(grad)
+    i32 = dict(dtype=torch.int32, device=dev)
+    w1, w3, w2 = rnd(2, 8, 8, grad=True), rnd(2, 8, 8), rnd(2, 8, 8)
+    calls = {
+        "fused_moe_pipeline": lambda: ops.fused_moe_pipeline(
+            rnd(4, 8), w1, w3, w2, torch.tensor([0, 2], **i32),
+            torch.tensor([2, 2], **i32), torch.zeros(2, **i32),
+            torch.tensor([0, 1, 2, 3, 0, 0], **i32),
+            torch.ones(6, device=dev), capacity=2, block_c=2),
+        "grouped_swiglu": lambda: ops.grouped_swiglu(
+            rnd(2, 4, 8), w1, w3, w2, torch.tensor([4, 2], **i32),
+            torch.zeros(2, **i32)),
+        "ssd_chunk": lambda: ops.ssd_chunk(
+            rnd(2, 1, 4, 4, grad=True), rnd(2, 1, 4).abs() + 0.1,
+            -rnd(2).abs() - 0.5, rnd(1, 1, 4, 4), rnd(1, 1, 4, 4)),
+    }
+    reset_counts()
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as err:
+            raised[name] = "no backward" in str(err)
+    counts = read_counts()
+    ok = all(raised.values()) and not any(
+        v["launches"] or v["plain_calls"] for v in counts.values())
+    log(f"  (d) kernel wrappers on {dev.type} operands that require grad: "
+        f"raised {raised}; launches / plain calls {counts} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 13 (d): a kernel wrapper took an operand "
+                         "that requires grad")
+    return {"raised": raised, "counts": counts}
+
+
+def train_phase(dev) -> dict:
+    """Phase 13: (a) the card against the CPU, (b) full-width training,
+    (c) the Fig. 4 fine-tune with a checkpoint round trip, (d) the kernel
+    wrappers refusing operands that require grad. TF32 off, as ``main``
+    sets it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"parity": train_parity(dev), "full_width": train_full_width(dev),
+           "fig4": train_fig4(dev), "grad_guard": grad_guard_check(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2278,6 +2675,12 @@ def main() -> int:
     log("phase 12: serve MiniCPM3-4B (MLA, 62 layers), 4 x 512 x 16")
     mla = dense_serve(dev, "minicpm3-4b", None, 4, 512, 16, continuous=True)
     free_memory()
+    log(f"phase 13: train on the card: reduced Qwen3 card vs CPU; "
+        f"Qwen3-30B-A3B full width ({TRAIN_LAYERS} of 48 layers) "
+        f"{TRAIN_STEPS} steps at {TRAIN_B} x {TRAIN_S}; the Fig. 4 "
+        f"fine-tune, {FIG4_STEPS} steps x 2 at {FIG4_B} x {FIG4_S}, with a "
+        f"checkpoint round trip")
+    train = train_phase(dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2287,7 +2690,7 @@ def main() -> int:
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
-                   "minicpm3": mla},
+                   "minicpm3": mla, "train": train},
                   fh, indent=1)
 
     def kernel_entry(name, replaces, case_list, case, launches, at=None,

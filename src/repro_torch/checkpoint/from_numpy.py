@@ -16,10 +16,17 @@ block's attention leaves (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
 EP context, a tree prepared with ``n_ep_devices`` (strided placement)
 loads as this rank's S-ETP shard: each MoE layer keeps only the rank's
 sub-experts (``core.setp.expert_shard``). Nothing here imports JAX.
+
+The inverse maps restack a model's per-layer modules into that tree
+(``params_to_numpy``), and the AdamW state's moments likewise
+(``opt_state_to_numpy``: an ``optim.AdamWState`` of numpy leaves, whose
+fields flatten to ``step``, ``mu/...``, ``nu/...`` as JAX's ``AdamWState``
+does); ``load_params`` / ``load_opt_state`` copy such trees back into an
+existing model and state in place.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +34,10 @@ from torch import nn
 
 from ..models.model import empty_model
 from ..models.transformer import Transformer
+from ..optim import AdamWState
+
+# the modules whose leaves the JAX tree stacks over a leading layers axis
+_STACKED = ("blocks", "mamba_blocks")
 
 
 def _param(a, device) -> nn.Parameter:
@@ -72,3 +83,146 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda",
         from ..core import setp
         setp.shard_experts(model, dist)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The inverse: port modules / optimizer state -> the JAX tree
+# ---------------------------------------------------------------------------
+
+def _tree_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A parameter name's path in the JAX tree and its layer (None for a
+    leaf the tree does not stack): ``blocks.3.moe.w1`` -> (("blocks",
+    "moe", "w1"), 3)."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _nest(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _restack(named: Mapping[str, torch.Tensor], leaf: Callable,
+             stack: Callable) -> Dict:
+    """The nested JAX tree of ``named`` (parameter name -> tensor): each
+    per-layer leaf stacked over its layers by ``stack``, the others mapped
+    by ``leaf``."""
+    out: Dict = {}
+    layers: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        path, layer = _tree_path(name)
+        if layer is None:
+            _nest(out, path, leaf(t))
+        else:
+            layers.setdefault(path, {})[layer] = t
+    for path, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(by_layer)} "
+                             "are not 0..n-1")
+        _nest(out, path, stack([by_layer[i] for i in range(len(by_layer))]))
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _to_numpy_tree(named: Mapping[str, torch.Tensor]) -> Dict:
+    return _restack(named, _host, lambda ts: _host(torch.stack(ts)))
+
+
+def _check_unsharded(model: Transformer) -> None:
+    for m in model.modules():
+        if getattr(m, "ep_shards", 1) != 1:
+            raise ValueError("a model holding one rank's S-ETP shard of the "
+                             "experts has no JAX tree of its own")
+
+
+def params_to_numpy(model: Transformer) -> Dict:
+    """The model's weights as the JAX package's parameter tree of numpy
+    arrays (the layout ``params_from_numpy`` loads)."""
+    _check_unsharded(model)
+    return _to_numpy_tree(dict(model.named_parameters()))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The AdamW state with its moments restacked into the JAX tree, numpy
+    leaves throughout (``step`` an int32 scalar array)."""
+    return AdamWState(step=_host(state.step), mu=_to_numpy_tree(state.mu),
+                      nu=_to_numpy_tree(state.nu))
+
+
+def _spec_tree(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The tree of ``named`` as shape/dtype-only (meta) tensors: a restore
+    target that allocates nothing."""
+    def meta(shape, t):
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return _restack(named, lambda t: meta(t.shape, t),
+                    lambda ts: meta((len(ts),) + tuple(ts[0].shape), ts[0]))
+
+
+def train_state_spec(model: Transformer, state: AdamWState) -> Dict:
+    """``{"params": ..., "opt": AdamWState}`` of meta tensors shaped as the
+    JAX trees of the model and its AdamW state: the target
+    ``checkpoint.io.restore_checkpoint`` checks a training checkpoint
+    against."""
+    _check_unsharded(model)
+    return {"params": _spec_tree(dict(model.named_parameters())),
+            "opt": AdamWState(step=torch.empty((), dtype=state.step.dtype,
+                                               device="meta"),
+                              mu=_spec_tree(state.mu),
+                              nu=_spec_tree(state.nu))}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _unstack(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Parameter name -> array for every leaf of a JAX tree, the stacked
+    leaves split into their layers."""
+    out = {}
+    for path, v in _leaves(tree):
+        if path[0] in _STACKED:
+            for i in range(np.shape(v)[0]):
+                out[".".join((path[0], str(i)) + path[1:])] = v[i]
+        else:
+            out[".".join(path)] = v
+    return out
+
+
+@torch.no_grad()
+def _copy_into(dst: Mapping[str, torch.Tensor], tree: Mapping) -> None:
+    src = _unstack(tree)
+    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"tree and target differ: missing {missing}, "
+                       f"unexpected {extra}")
+    for k, t in dst.items():
+        a = np.asarray(src[k])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {k}: {a.shape} vs "
+                             f"{tuple(t.shape)}")
+        t.copy_(torch.from_numpy(a).to(t.dtype))
+
+
+def load_params(model: Transformer, tree: Mapping) -> None:
+    """Copy a JAX-layout parameter tree into the model's weights in place
+    (same leaves, same shapes)."""
+    _copy_into(dict(model.named_parameters()), tree)
+
+
+def load_opt_state(state: AdamWState, tree: AdamWState) -> None:
+    """Copy an AdamW state tree (JAX layout) into ``state`` in place."""
+    with torch.no_grad():
+        state.step.copy_(torch.as_tensor(np.asarray(tree.step)))
+    _copy_into(state.mu, tree.mu)
+    _copy_into(state.nu, tree.nu)

@@ -47,6 +47,14 @@ def route(x, wg, k: int, renorm: bool) -> Routing:
     return top_k_routing(gate_logits(x, wg), k, renorm)
 
 
+def load_balance_aux_loss(probs, idx, n_experts: int):
+    """Switch-style auxiliary load-balance loss for training runs: E times
+    the dot of the mean router probabilities and the routed token share."""
+    me = torch.mean(probs, dim=0)                              # (E,)
+    ce = expert_histogram(idx, n_experts).to(probs.dtype) / idx.shape[0]
+    return n_experts * torch.sum(me * ce)
+
+
 def expert_histogram(idx, n_experts: int, keep=None):
     """Token count per expert; ``keep`` optionally masks dropped pairs."""
     from .dispatch import group_histogram

@@ -80,6 +80,13 @@ def _shared_out(params: Dict, x):
     return h @ s["w2"]
 
 
+def aux_loss_for(params: Dict, x, cfg):
+    """Switch-style load-balance auxiliary loss for this MoE layer."""
+    r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
+    E = params["wg"].shape[1]
+    return gating.load_balance_aux_loss(r.probs, r.idx, E)
+
+
 def route_plain(params: Dict, x, cfg, n_experts=None) -> SubExpertPairs:
     """Routing with no partition/drop (P=1, keep everything)."""
     E = n_experts if n_experts is not None else params["wg"].shape[1]

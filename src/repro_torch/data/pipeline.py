@@ -1,11 +1,12 @@
 """Synthetic data on numpy generators: a seedable Markov-bigram token source
-for serving prompts and the calibration activations that neuron-importance
-profiling runs on (the JAX package draws the same distributions with
-``jax.random``, so the values differ between the packages)."""
+for serving prompts and training batches (``DataLoader``), and the
+calibration activations that neuron-importance profiling runs on (the JAX
+package draws the same distributions with ``jax.random``, so the values
+differ between the packages)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -45,6 +46,31 @@ class SyntheticLM:
         tokens = np.concatenate([base[:, :1], nxt], axis=1)
         return {"tokens": tokens[:, :-1].astype(np.int32),
                 "targets": tokens[:, 1:].astype(np.int32)}
+
+
+@dataclasses.dataclass
+class DataLoader:
+    """Deterministic epoch-less loader; step -> batch of int32 numpy
+    arrays, drawn from ``np.random.default_rng((seed, step))``."""
+    source: SyntheticLM
+    batch: int
+    seq: int
+    seed: int = 0
+
+    def get_batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        return self.source.sample_batch(rng, self.batch, self.seq)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.get_batch(step)
+            step += 1
+
+
+def make_loader(cfg, batch: int, seq: int, seed: int = 0) -> DataLoader:
+    return DataLoader(SyntheticLM(cfg.vocab_size, seed=seed), batch, seq,
+                      seed=seed)
 
 
 def calibration_activations(rng: np.random.Generator, n_tokens: int,

@@ -6,6 +6,13 @@ CUDA device — never one in place of the other. ``<wrapper>.launches``
 counts CUDA launches (nothing else adds to it), so a run can show that its
 main path went through the kernel; the MoE wrappers also count their
 launches on bfloat16 operands in ``<wrapper>.launches_bf16``.
+
+The kernels have no backward (nor has the reference's ``pallas_call``), so
+each wrapper raises, on every device, when autograd is recording and a
+floating operand requires grad: its output would carry no history and the
+weights below it would get no gradient without an error. Training takes
+the plain differentiable route instead (``transformer.forward(kernels=
+False)``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,19 @@ __all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref",
 fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
 grouped_swiglu_ref = ref.grouped_swiglu_ref
 ssd_chunk_ref = ref.ssd_chunk_ref
+
+
+def _check_no_grad(op: str, named) -> None:
+    if not torch.is_grad_enabled():
+        return
+    needs = [name for name, t in named.items()
+             if t.is_floating_point() and t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"{op}: {', '.join(needs)} require grad, and the kernel has no "
+            "backward: its output would carry no gradient; run it under "
+            "torch.no_grad(), or train through the plain differentiable "
+            "route (transformer.forward(kernels=False))")
 
 
 def _check_devices_and_layout(op: str, named, ref_device):
@@ -69,6 +89,7 @@ def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
     named = dict(x=x, w1=w1, w3=w3, w2=w2, group_offsets=group_offsets,
                  counts_full=counts_full, counts_major=counts_major,
                  tok_sorted=tok_sorted, combine_sorted=combine_sorted)
+    _check_no_grad("fused_moe_pipeline", named)
     _check_devices_and_layout("fused_moe_pipeline", named, x.device)
     _check_operand_dtypes("fused_moe_pipeline", named,
                           ("x", "w1", "w3", "w2"), ("combine_sorted",),
@@ -146,6 +167,7 @@ def _check_grouped_inputs(x, w1, w3, w2, counts_full, counts_major,
                           p_factor: int):
     named = dict(x=x, w1=w1, w3=w3, w2=w2, counts_full=counts_full,
                  counts_major=counts_major)
+    _check_no_grad("grouped_swiglu", named)
     _check_devices_and_layout("grouped_swiglu", named, x.device)
     _check_operand_dtypes("grouped_swiglu", named, ("x", "w1", "w3", "w2"),
                           (), ("counts_full", "counts_major"))
@@ -205,6 +227,7 @@ grouped_swiglu.launches_bf16 = 0
 
 def _check_ssd_inputs(x, dt, a, bm, cm):
     named = dict(x=x, dt=dt, a=a, bm=bm, cm=cm)
+    _check_no_grad("ssd_chunk", named)
     _check_devices_and_layout("ssd_chunk", named, x.device)
     _check_dtypes("ssd_chunk", named, tuple(named), ())
     if x.ndim != 4 or bm.ndim != 4:

@@ -238,14 +238,17 @@ def ssd_inputs(m: Mamba2, x_in, cfg):
 
 
 def mamba2_forward(m: Mamba2, x_in, cfg, chunk: int = 256,
-                   return_state: bool = False):
+                   return_state: bool = False, kernel: bool = True):
     """x_in: (B, S, d_model) -> (B, S, d_model), the prefill path. With
     ``return_state`` also returns the decode state after the sequence (the
-    prefill -> decode handoff)."""
+    prefill -> decode handoff). ``kernel=False`` runs the plain
+    ``ssd_chunked`` (the differentiable route training takes, as the
+    reference's ``mamba2_forward`` always does)."""
     B_, S, _ = x_in.shape
     z, xbc_raw, ssd_args = ssd_inputs(m, x_in, cfg)
     x = ssd_args[0]
-    y, h_final = ssd_chunked_kernel(*ssd_args, chunk=chunk)
+    ssd = ssd_chunked_kernel if kernel else ssd_chunked
+    y, h_final = ssd(*ssd_args, chunk=chunk)
     y = y + x * m.D[None, None, :, None]
     y = y.reshape(B_, S, cfg.d_inner).to(x_in.dtype)
     y = layers.rms_norm(y * F.silu(z), m.norm, cfg.norm_eps)

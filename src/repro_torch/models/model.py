@@ -1,10 +1,13 @@
-"""Model entry points: construction with the port's seeded init, and the
-prefill / serve step builders the engines call."""
+"""Model entry points: construction with the port's seeded init, the
+loss and the train step, and the prefill / serve step builders the engines
+call."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -32,6 +35,103 @@ def empty_model(cfg: ModelConfig, *, device="cuda") -> Transformer:
     dev = resolve_device(device)
     with torch.no_grad():
         return Transformer(cfg, device=dev, generator=None)
+
+
+def trainable(model: Transformer) -> Dict[str, torch.Tensor]:
+    """The model's leaves of the JAX parameter tree, by parameter name:
+    every parameter but a prepared MoE layer's ``thresholds``."""
+    return {k: p for k, p in model.named_parameters()
+            if k.rsplit(".", 1)[-1] != "thresholds"}
+
+
+def set_trainable(model: Transformer) -> Dict[str, torch.Tensor]:
+    """Turn on ``requires_grad`` for exactly ``trainable(model)``; returns
+    that dict."""
+    params = trainable(model)
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
+def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def cross_entropy(logits, targets):
+    """Mean token negative log-likelihood, in float32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+def loss_fn(model: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
+            policy=None, aux_coef: float = 0.0):
+    """Cross entropy (+ ``aux_coef`` times the Switch-style MoE
+    load-balance aux loss). Without a ``policy`` this is the training
+    loss: the differentiable route (``transformer.forward(kernels=False)``),
+    under whatever grad mode the caller set. Under a sparsity ``policy``
+    (prepared weights) it is the accuracy-side reading of that policy: no
+    gradient, the serving route with its kernels."""
+    batch = to_device(batch, model.device)
+    if policy is not None:
+        with torch.no_grad():
+            return _loss(model, batch, cfg, window, policy, aux_coef, True)
+    return _loss(model, batch, cfg, window, None, aux_coef, False)
+
+
+def _loss(model, batch, cfg, window, policy, aux_coef, kernels):
+    if aux_coef and cfg.is_moe:
+        logits, aux = transformer.forward(model, batch, cfg, window=window,
+                                          policy=policy, with_aux=True,
+                                          kernels=kernels)
+        return cross_entropy(logits, batch["targets"]) + aux_coef * aux
+    logits = transformer.forward(model, batch, cfg, window=window,
+                                 policy=policy, kernels=kernels)
+    return cross_entropy(logits, batch["targets"])
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, window: int = 0,
+                    aux_coef: float = 0.0, dist=None):
+    """(model, opt_state, batch) -> loss, after updating the model's
+    trainable leaves and ``opt_state`` in place (``optimizer`` from
+    ``optim.adamw``; its ``last_grad_norm`` holds the step's grad norm).
+    Turns on ``requires_grad`` for the trainable leaves. Training over EP
+    (a ``dist`` context) is not ported yet."""
+    if dist is not None:
+        raise NotImplementedError("training over expert parallelism is not "
+                                  "ported yet")
+
+    def step(model, opt_state, batch):
+        params = set_trainable(model)
+        with torch.enable_grad():
+            loss = loss_fn(model, batch, cfg, window=window,
+                           aux_coef=aux_coef)
+            # a leaf the batch does not reach (the vision stub's projection
+            # on text-only batches) gets zeros, as JAX's grad gives it
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        optimizer.update(dict(zip(params, grads)), opt_state, params)
+        return loss.detach()
+    return step
+
+
+def make_batch(rng: np.random.Generator, cfg: ModelConfig, batch: int,
+               seq: int, kind: str) -> Dict[str, np.ndarray]:
+    """Random numpy batch for smoke tests / examples: int32 ``tokens``
+    (and ``targets`` when ``kind == "train"``), and the vision stub's
+    float32 ``frontend`` embeddings ``0.1 * N(0, 1)``."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq),
+                                  dtype=np.int32)}
+    if kind == "train":
+        out["targets"] = rng.integers(0, cfg.vocab_size, (batch, seq),
+                                      dtype=np.int32)
+    if cfg.frontend == "vision":
+        out["frontend"] = (rng.standard_normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_model)) * 0.1).astype(
+                np.float32)
+    return out
 
 
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int = 0,

@@ -136,23 +136,31 @@ def _policy_of(policy):
 
 
 def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
-                 collect: bool = False, dist=None):
+                 collect: bool = False, dist=None, aux: bool = False,
+                 kernels: bool = True):
     """MoE layer forward under ``policy`` (default ``NoDrop``); on the
     S-ETP path when ``dist`` is an EP context with ``moe_impl`` "setp".
 
-    Returns ``(y, None, overflow)``; with ``collect`` the third value is the
-    per-layer obs stats dict (kept-pair expert_load histogram over
-    sub-expert ids plus kept_full/kept_major/dropped_pairs/overflow_pairs)
-    — same routing, same ``y``. On the S-ETP path overflow and stats are
-    summed over the mesh."""
+    Returns ``(y, aux_loss, overflow)``: aux_loss is None unless ``aux``
+    (training); with ``collect`` the third value is the per-layer obs
+    stats dict (kept-pair expert_load histogram over sub-expert ids plus
+    kept_full/kept_major/dropped_pairs/overflow_pairs) — same routing,
+    same ``y``. On the S-ETP path overflow and stats are summed over the
+    mesh. ``kernels=False`` takes the differentiable route the reference
+    trains through: the buffer path with the ``expert_ffn`` einsum."""
     B, S, d = x.shape
     params = moe.weights()
+    aux_val = moe_mod.aux_loss_for(params, x.reshape(-1, d), cfg) \
+        if aux else None
     if dist is not None and dist.moe_impl == "setp":
+        if not kernels:
+            raise NotImplementedError("the S-ETP layer has no "
+                                      "differentiable route yet")
         from ..core import setp as setp_mod
-        y, aux = setp_mod.setp_moe_forward(
+        y, of = setp_mod.setp_moe_forward(
             params, x, cfg, dist, policy=_policy_of(policy),
             return_overflow=True, return_stats=collect)
-        return y, None, aux
+        return y, aux_val, of
     xt = x.reshape(-1, d)
     # per-request (B,) threshold values -> per-token over the (B*S, d) block
     policy = _policy_of(policy).per_token(B, S)
@@ -160,9 +168,9 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
     y, overflow = moe_mod.moe_forward_dispatch(
         params, xt, cfg, pairs=pairs, capacity_factor=policy.capacity_factor,
         capacity=policy.dispatch_capacity(xt.shape[0]),
-        use_kernel=policy.use_kernel, return_overflow=True,
+        use_kernel=policy.use_kernel and kernels, return_overflow=True,
         mode_grouped=policy.kernel_mode_grouping,
-        fused_pipeline=policy.fused_pipeline)
+        fused_pipeline=policy.fused_pipeline if kernels else False)
     if collect:
         n_sub = params["w1"].shape[0]
         p_factor = pairs.idx.shape[1] // pairs.modes.shape[1]
@@ -171,8 +179,8 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
                                                         keep=pairs.keep),
                  "kept_full": kf, "kept_major": km, "dropped_pairs": dr,
                  "overflow_pairs": overflow}
-        return y.reshape(B, S, d), None, stats
-    return y.reshape(B, S, d), None, overflow
+        return y.reshape(B, S, d), aux_val, stats
+    return y.reshape(B, S, d), aux_val, overflow
 
 
 def _no_overflow(x):
@@ -196,17 +204,25 @@ def _attn_forward(bp: Block, h, positions, cfg, *, window: int, dist,
 def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
                   policy=None, capture_cap: int = 0,
                   cache_dtype=torch.bfloat16, collect_stats: bool = False,
-                  dist=None):
+                  dist=None, with_aux: bool = False, kernels: bool = True):
     """Full-sequence block forward. With ``capture_cap`` returns
     ``(x, cache_layer, moe_overflow)`` for the prefill -> decode handoff
     (the obs stats dict in the third slot under ``collect_stats``; a Mamba
-    block's cache layer is its {"conv", "ssm"} state)."""
+    block's cache layer is its {"conv", "ssm"} state); ``with_aux`` returns
+    ``(x, load-balance aux loss)`` (0 without a MoE layer) for training.
+    ``kernels=False`` takes the differentiable route (no kernel)."""
     h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
     if isinstance(bp, MambaBlock):
         if capture_cap:
-            y, st = mm.mamba2_forward(bp.mamba, h, cfg, return_state=True)
+            y, st = mm.mamba2_forward(bp.mamba, h, cfg, return_state=True,
+                                      kernel=kernels)
             return x + y, st, _no_overflow(x)
-        return x + mm.mamba2_forward(bp.mamba, h, cfg)
+        x = x + mm.mamba2_forward(bp.mamba, h, cfg, kernel=kernels)
+        return (x, _zero_aux(x)) if with_aux else x
+    if with_aux:
+        y = _attn_forward(bp, h, positions, cfg, window=window, dist=dist)
+        return _ffn(bp, x + y, cfg, policy, False, dist, kernels=kernels,
+                    aux=True)
     cache_layer = None
     if capture_cap:
         y, cache_layer = _attn_forward(bp, h, positions, cfg, window=window,
@@ -214,19 +230,28 @@ def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
                                        cache_dtype=cache_dtype)
     else:
         y = _attn_forward(bp, h, positions, cfg, window=window, dist=dist)
-    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist,
+                       kernels=kernels)
     return (x, cache_layer, overflow) if capture_cap else x
 
 
-def _ffn(bp: Block, x, cfg, policy, collect_stats: bool, dist=None):
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(bp: Block, x, cfg, policy, collect_stats: bool, dist=None,
+         kernels: bool = True, aux: bool = False):
     """The block's second half: norm, then MoE or MLP, residual added.
-    Returns ``(x, moe_overflow or obs stats dict)``."""
+    Returns ``(x, moe_overflow or obs stats dict)``, or with ``aux``
+    ``(x, load-balance aux loss)`` (0 without a MoE layer)."""
     h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
     if bp.moe is None:
-        return x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind), _no_overflow(x)
-    y, _, overflow = _moe_forward(bp.moe, h, cfg, policy,
-                                  collect=collect_stats, dist=dist)
-    return x + y, overflow
+        out = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
+        return out, _zero_aux(x) if aux else _no_overflow(x)
+    y, aux_val, overflow = _moe_forward(bp.moe, h, cfg, policy,
+                                        collect=collect_stats, dist=dist,
+                                        aux=aux, kernels=kernels)
+    return x + y, aux_val if aux else overflow
 
 
 def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
@@ -255,14 +280,24 @@ def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
 def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                   policy=None, capture_cap: int = 0,
                   cache_dtype=torch.bfloat16, metrics: bool = True,
-                  dist=None):
+                  dist=None, with_aux: bool = False, kernels: bool = True):
     """x: (B,S,d) -> (B,S,d) through all blocks. With ``capture_cap`` also
     returns the decode cache; ``metrics`` (MoE + capture only) puts a
-    ``MetricsState`` in it in place of the ``moe_overflow`` scalar."""
+    ``MetricsState`` in it in place of the ``moe_overflow`` scalar;
+    ``with_aux`` returns ``(x, summed MoE load-balance aux loss)``."""
     if cfg.family == "hybrid":
-        return _hybrid_forward(model, x, positions, cfg, window=window,
-                               capture_cap=capture_cap,
-                               cache_dtype=cache_dtype)
+        out = _hybrid_forward(model, x, positions, cfg, window=window,
+                              capture_cap=capture_cap,
+                              cache_dtype=cache_dtype, kernels=kernels)
+        return (out, _zero_aux(x)) if with_aux else out
+    if with_aux:
+        auxes = []
+        for bp in model.blocks:
+            x, aux = block_forward(bp, x, positions, cfg, window=window,
+                                   policy=policy, dist=dist, with_aux=True,
+                                   kernels=kernels)
+            auxes.append(aux)
+        return x, torch.stack(auxes).sum()
     collect = bool(metrics and capture_cap and cfg.is_moe)
     layers, outs = [], []
     for bp in model.blocks:
@@ -275,7 +310,7 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
             outs.append(of)
         else:
             x = block_forward(bp, x, positions, cfg, window=window,
-                              policy=policy, dist=dist)
+                              policy=policy, dist=dist, kernels=kernels)
     if not capture_cap:
         return x
     cache = {"layers": layers}
@@ -287,7 +322,8 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
 
 
 def _hybrid_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
-                    capture_cap: int = 0, cache_dtype=torch.bfloat16):
+                    capture_cap: int = 0, cache_dtype=torch.bfloat16,
+                    kernels: bool = True):
     """Zamba2: the shared attention + MLP block before every
     ``attn_every``-th Mamba layer. With ``capture_cap`` also returns the
     decode cache ({"mamba", "attn", "moe_overflow"}, as the JAX one)."""
@@ -310,7 +346,7 @@ def _hybrid_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                                          capture_cap=capture_cap)
                 mamba_caches.append(st)
             else:
-                x = block_forward(bp, x, positions, cfg)
+                x = block_forward(bp, x, positions, cfg, kernels=kernels)
     if not capture_cap:
         return x
     return x, {"mamba": mamba_caches, "attn": attn_caches,
@@ -396,6 +432,28 @@ def embed_inputs(model: Transformer, batch, cfg, offset: int = 0):
     if positions is None:
         positions = _positions_for(cfg, B, x.shape[1], offset, x.device)
     return x, positions, n_prefix
+
+
+def forward(model: Transformer, batch, cfg, *, window: int = 0, policy=None,
+            with_aux: bool = False, kernels: bool = True):
+    """Full-sequence forward with no cache -> logits (B, S, vocab) over the
+    token part; ``with_aux`` also returns the summed MoE load-balance aux
+    loss. ``kernels=False`` is the differentiable route the reference's
+    ``loss_fn`` trains through (the MoE buffer path's einsum, the plain
+    chunked SSD), for a backward pass: the kernels have none."""
+    x, positions, n_prefix = embed_inputs(model, batch, cfg)
+    aux = None
+    if with_aux:
+        x, aux = stack_forward(model, x, positions, cfg, window=window,
+                               policy=policy, with_aux=True, kernels=kernels)
+    else:
+        x = stack_forward(model, x, positions, cfg, window=window,
+                          policy=policy, kernels=kernels)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    logits = L.unembed(model.embed, x)
+    return (logits, aux) if with_aux else logits
 
 
 def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,

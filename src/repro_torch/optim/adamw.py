@@ -1,0 +1,112 @@
+"""AdamW + cosine schedule + global-norm clipping on plain tensors.
+
+The update is the JAX package's, term for term: float32 moments, bias
+correction by ``1 - b^step``, ``u = -lr_t * (m̂ / (√v̂ + eps) + wd * p)``
+with decay on every leaf (norms and embeddings included), and the clip
+scale ``min(1, max_norm / max(gn, 1e-9))``. ``torch.optim.AdamW`` and
+``clip_grad_norm_`` place eps and the clip's guard otherwise, so they are
+not used. Params, grads and moments are name -> tensor dicts (the
+trainable leaves of a model, ``models.model.trainable``); the state's
+``step`` is an int32 scalar tensor, as the reference's, so checkpoints of
+either package hold the same leaves.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, NamedTuple, Union
+
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor     # () int32: updates taken
+    mu: Tensors            # float32 first moments, by leaf name
+    nu: Tensors            # float32 second moments, by leaf name
+
+
+def cosine_schedule(peak_lr: float, total_steps: int, warmup: int = 100,
+                    final_frac: float = 0.1) -> Callable:
+    """step -> float32 learning rate: linear warmup to ``peak_lr``, then a
+    cosine down to ``final_frac * peak_lr`` at ``total_steps``."""
+    def lr(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = peak_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total_steps - warmup, 1),
+                           0, 1)
+        cos = final_frac + (1 - final_frac) * 0.5 * (
+            1 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, peak_lr * cos)
+    return lr
+
+
+def global_norm(grads: Tensors) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    sums = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    return torch.sqrt(sum(sums[1:], sums[0]))
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float):
+    """Scale every leaf by ``min(1, max_norm / max(gn, 1e-9))`` IN PLACE;
+    returns ``(grads, gn)`` with gn the norm before clipping."""
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    for g in grads.values():
+        g.mul_(scale.to(g.dtype))
+    return grads, gn
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """``init(params) -> AdamWState``; ``update(grads, state, params)``
+    clips ``grads``, advances ``state`` and adds the update to ``params``,
+    all in place, and returns the global grad norm before clipping (also
+    kept as ``last_grad_norm``)."""
+    init: Callable
+    update: Callable
+    last_grad_norm: Union[torch.Tensor, None] = None
+
+
+def adamw(lr: Union[float, Callable] = 1e-3, b1: float = 0.9,
+          b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.01,
+          max_grad_norm: float = 1.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: Tensors) -> AdamWState:
+        def zeros():
+            return {k: torch.zeros_like(p, dtype=torch.float32)
+                    for k, p in params.items()}
+        step = torch.zeros((), dtype=torch.int32,
+                           device=next(iter(params.values())).device)
+        return AdamWState(step=step, mu=zeros(), nu=zeros())
+
+    @torch.no_grad()
+    def update(grads: Tensors, state: AdamWState, params: Tensors):
+        if max_grad_norm:
+            grads, gn = clip_by_global_norm(grads, max_grad_norm)
+        else:
+            gn = global_norm(grads)
+        state.step.add_(1)
+        stepf = state.step.to(torch.float32)
+        b1t = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=stepf.device), stepf)
+        b2t = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=stepf.device), stepf)
+        lr_t = lr_fn(state.step)
+        for k, p in params.items():
+            g = grads[k].float()
+            m, v = state.mu[k], state.nu[k]
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            mhat = m / b1t
+            vhat = v / b2t
+            u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)
+                         + weight_decay * p.float())
+            p.add_(u.to(p.dtype))
+        opt.last_grad_norm = gn
+        return gn
+
+    opt = Optimizer(init=init, update=update)
+    return opt

@@ -57,6 +57,16 @@ def test_ep_and_mla_modules_are_checked():
         assert port / rel in PORT_FILES, rel
 
 
+def test_training_modules_are_checked():
+    """The optimizer, checkpoint IO and the train CLI are among the files
+    checked above."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("optim/__init__.py", "optim/adamw.py", "checkpoint/io.py",
+                "checkpoint/from_numpy.py", "launch/train.py",
+                "data/pipeline.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -133,3 +143,9 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+def test_train_cli_defaults_to_the_card(no_cuda):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
