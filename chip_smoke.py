@@ -67,11 +67,16 @@
    layer). Layer 0 on real hidden states: keep-all 2T at the float32 wire
    against the one-process dispatch path (bar REL_TOL), and load_aware at
    the bf16 wire, kernels against their plain versions (bar
-   BF16_REL_TOL). Then 8 x 128 x 16 on ``ServingEngine`` (the bf16 fused
-   kernel on every rank) and 8 requests on 4 ``ContinuousBatchingEngine``
-   slots on the buffer path (the bf16 grouped kernel); every rank serves
-   the same tokens. Then one ETP layer on (ep 2, tp 2) against the dense
-   oracle.
+   BF16_REL_TOL), the latter also at the paged run's shapes (one
+   slot's 64-token chunk, a decode batch of 4 slots). Then 8 x 128 x 16
+   on ``ServingEngine`` (the bf16 fused
+   kernel on every rank), 8 requests on 4 ``ContinuousBatchingEngine``
+   slots on the buffer path (the bf16 grouped kernel) and 8 requests on 4
+   ``PagedEngine`` slots (page 16, chunk 64, 4 requests sharing a 64-token
+   prefix; S-ETP in every chunk and decode step, the bf16 fused kernel);
+   every rank serves the same tokens (by construction: each takes the
+   first model rank's). Then one ETP layer on (ep 2, tp 2) against the
+   dense oracle.
 12. Serve MiniCPM3-4B (MLA) at full width and depth (62 layers) through
    ``ServingEngine``, 4 x 512 x 16, and ``ContinuousBatchingEngine``: no
    kernel of ours.
@@ -91,6 +96,14 @@
    runs steps 101-110 as the uninterrupted run did. (d) Each kernel
    wrapper, given a card operand that requires grad, raises and launches
    nothing.
+14. Serve Whisper-large-v3 (encoder-decoder, stub audio frontend) at full
+   width and depth (32 + 32 layers, 1.54 B float32 parameters) through
+   ``ServingEngine``: 8 requests x 1500 stub frames x 128-token prompts x
+   32 new tokens, greedy; the prefill split into encoder, cross K/V and
+   decoder; a profile of the decode step alone (wall against CUDA kernel
+   time). Then the card against the CPU at full width, depth cut to 2 +
+   2 layers, on the same weights: prefill logits, and 4 decode steps over
+   the bf16 caches. No kernel of ours.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
@@ -1870,6 +1883,9 @@ def dense_serve(dev, arch: str, n_layers, B: int, S: int, NEW: int,
 EP_B, EP_S, EP_NEW = 8, 128, 16
 EP_SLOTS, EP_REQ, EP_CONT_NEW = 4, 8, 8
 EP_TIMEOUT_S = 300      # a collective that waits longer raises on its rank
+# the paged run's page pool: twice the slots' demand, so no registered
+# prefix page is evicted before a later sharer is admitted
+EP_PAGES = 1 + 2 * EP_SLOTS * -(-(MAX_PROMPT + EP_CONT_NEW) // 16)
 
 
 class plain_kernels:
@@ -1993,7 +2009,8 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.distributed import DistContext, make_mesh
     from repro_torch.serving import (ContinuousBatchingEngine,
-                                     GenerationConfig, ServingEngine)
+                                     GenerationConfig, PagedEngine,
+                                     ServingEngine)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2)          # 4 ranks share the host's cores
@@ -2041,6 +2058,28 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
                                  collectives=spent["calls"])
         with plain_kernels():
             y_p = setp.setp_moe_forward(layer, h, cfg, ctx, policy=policy)
+        # the paged run's shapes: one slot's (1, CHUNK) chunk (CHUNK /
+        # SETP_RANKS tokens on each rank) and a decode batch of EP_SLOTS
+        # tokens (replicated over the ranks); the kernels against their
+        # plain versions, and their launches counted to show they ran here
+        paged_shapes = {}
+        for label, xin in (("chunk", h[:1, :CHUNK]),
+                           ("decode", h[:EP_SLOTS, -1:])):
+            reset_counts()
+            y_kp = setp.setp_moe_forward(layer, xin, cfg, ctx,
+                                         policy=policy)
+            launched = {k: v["launches_bf16"]
+                        for k, v in read_counts().items()
+                        if v.get("launches_bf16")}
+            with plain_kernels():
+                y_pp = setp.setp_moe_forward(layer, xin, cfg, ctx,
+                                             policy=policy)
+            diff = y_kp.float() - y_pp.float()
+            paged_shapes[label] = dict(
+                shape=list(xin.shape), launches_bf16=launched,
+                rel_err=float(diff.norm() / y_pp.float().norm()),
+                max_abs_err=float(diff.abs().max()),
+                finite=bool(torch.isfinite(y_kp).all()))
         torch.cuda.synchronize()
     check = dict(
         overflow_f32=int(of32), timing_bf16=timing,
@@ -2048,7 +2087,8 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
                                     / y_p.float().norm()),
         max_abs_err_bf16_vs_plain=float((y_k.float() - y_p.float())
                                         .abs().max()),
-        finite=bool(torch.isfinite(y_k).all() and torch.isfinite(y32).all()))
+        finite=bool(torch.isfinite(y_k).all() and torch.isfinite(y32).all()),
+        paged_shapes=paged_shapes)
     if rank == 0:
         y32 = y32.reshape(-1, d)
         check.update(rel_err_f32_vs_dispatch=float(
@@ -2089,7 +2129,32 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
     cst.update(prefill_inserts=ceng.n_admitted,
                tokens_out=[r.tokens for r in cres])
     res["continuous"] = cst
-    del eng, ceng, model
+
+    # the paged engine: chunked prefill and paged decode, S-ETP in every
+    # chunk step and decode step (the default route: the fused kernel at
+    # the bf16 wire), half the requests sharing a 64-token prefix; the
+    # measured run's collectives timed (the card synchronised around each)
+    pkw = dict(n_slots=EP_SLOTS, page_size=16, chunk_size=CHUNK,
+               max_prompt_len=MAX_PROMPT, max_new_tokens=EP_CONT_NEW,
+               n_pages=EP_PAGES, policy=policy, exact_moe=False, device=dev)
+    pprompts = slot_prompts(cfg.vocab_size, shared=64)[:EP_REQ]
+    PagedEngine(cfg, model, dist=ctx, **pkw).generate(
+        pprompts[:1], GenerationConfig(max_new_tokens=2))     # warm-up
+    tctx, spent = timed_collectives(ctx)
+    peng = PagedEngine(cfg, model, dist=tctx, **pkw)
+    pres, pwall, pcounts = serve_slots(peng, pprompts,
+                                       [EP_CONT_NEW] * EP_REQ)
+    pst = slot_stats(peng, pres, pwall, pcounts)
+    pst.update(chunk_steps=peng.chunk_steps,
+               chunk_step_ms=statistics.median(
+                   peng.tracer.durations("prefill_chunk")) * 1e3,
+               prefix_hits=peng.prefix_hits,
+               prefix_misses=peng.prefix_misses,
+               prefix_hit_rate=peng.prefix_hit_rate,
+               collective_ms=spent["ms"], collectives=spent["calls"],
+               tokens_out=[r.tokens for r in pres])
+    res["paged"] = pst
+    del eng, ceng, peng, model
     free_memory()
 
     # ETP: one layer at Qwen3 widths on (ep 2, tp 2) against the oracle
@@ -2171,6 +2236,29 @@ def ep_phase(dev) -> dict:
         f"{cst['overflow_pairs']}; grouped_swiglu bf16 launches per rank "
         + ", ".join(str(r['continuous']['counts']['grouped_swiglu']
                         ['launches_bf16']) for r in ranks))
+    log("  layer 0 at the paged run's shapes, S-ETP load_aware at the bf16 "
+        "wire, kernels vs plain versions (ranks 0-3, bar "
+        f"{BF16_REL_TOL:g}): "
+        + "; ".join(f"{k} {v['shape']} rel_err "
+                    + ", ".join(f"{r['layer0']['paged_shapes'][k]['rel_err']:.3e}"
+                                for r in ranks)
+                    + f" (bf16 launches on rank 0: {v['launches_bf16']})"
+                    for k, v in chk["paged_shapes"].items()))
+    pst = r0["paged"]
+    log(f"  paged (page 16, chunk {CHUNK}, {EP_SLOTS} slots, {EP_REQ} "
+        f"requests, 4 sharing a 64-token prefix), rank 0: {pst['tokens']} "
+        f"tokens in {pst['wall_s']:.3f}s ({pst['tok_per_s']:.1f} tok/s), "
+        f"{pst['chunk_steps']} chunk steps (median "
+        f"{pst['chunk_step_ms']:.3f} ms), {pst['decode_steps']} decode "
+        f"steps (median {pst['decode_step_ms']:.3f} ms), prefix hit rate "
+        f"{pst['prefix_hit_rate']:.3f} ({pst['prefix_hits']} hits / "
+        f"{pst['prefix_misses']} misses), overflow {pst['overflow_pairs']}; "
+        f"collectives {pst['collective_ms']:.1f} ms in "
+        f"{pst['collectives']} calls of {1e3 * pst['wall_s']:.1f} ms; "
+        "bf16 launches per rank (fused, grouped): "
+        + ", ".join(f"({r['paged']['counts']['fused_moe_pipeline']['launches_bf16']}, "
+                    f"{r['paged']['counts']['grouped_swiglu']['launches_bf16']})"
+                    for r in ranks))
     etp = r0["etp"]
     log(f"  ETP (ep 2 x tp 2), one layer at Qwen3 widths, 4 x 64 tokens: "
         f"rel_err vs the dense oracle {etp['rel_err']:.3e}, "
@@ -2194,10 +2282,31 @@ def ep_phase(dev) -> dict:
             raise AssertionError(f"rank {r['rank']}: launches {c} / {cc} "
                                  f"(expected {sync_expected} fused bf16, "
                                  f"{cont_expected} grouped bf16, 0 plain)")
+        pc = r["paged"]["counts"]
+        paged_expected = N_LAYERS * (r["paged"]["chunk_steps"]
+                                     + r["paged"]["decode_steps"])
+        paged_bf16 = sum(pc[k]["launches_bf16"] for k in
+                         ("fused_moe_pipeline", "grouped_swiglu"))
+        paged_all = sum(pc[k]["launches"] for k in
+                        ("fused_moe_pipeline", "grouped_swiglu"))
+        if not (paged_bf16 == paged_all == paged_expected
+                and not any(v["plain_calls"] for v in pc.values())):
+            raise AssertionError(f"rank {r['rank']}: paged launches {pc} "
+                                 f"(expected {paged_expected} bf16, 0 "
+                                 "plain)")
+        # every engine feeds each rank the model axis' first rank's tokens
+        # (``DistContext.host_view``, a broadcast), so this holds by
+        # construction: it checks the engines' SPMD plumbing, not values
         if r["sync"]["tokens_out"] != st["tokens_out"] or \
-                r["continuous"]["tokens_out"] != cst["tokens_out"]:
+                r["continuous"]["tokens_out"] != cst["tokens_out"] or \
+                r["paged"]["tokens_out"] != pst["tokens_out"]:
             raise AssertionError(f"rank {r['rank']} served other tokens "
                                  "than rank 0")
+        for k, v in r["layer0"]["paged_shapes"].items():
+            if not (v["rel_err"] <= BF16_REL_TOL and v["finite"]
+                    and sum(v["launches_bf16"].values()) > 0):
+                raise AssertionError(f"rank {r['rank']}: the {k} check at "
+                                     f"the paged run's shapes: {v}")
         if not (r["layer0"]["rel_err_bf16_vs_plain"] <= BF16_REL_TOL
                 and r["layer0"]["finite"] and r["etp"]["finite"]
                 and r["layer0"]["overflow_f32"] == 0):
@@ -2207,8 +2316,11 @@ def ep_phase(dev) -> dict:
             and etp["rel_err"] <= REL_TOL):
         raise AssertionError("S-ETP or ETP disagrees with its reference")
     if not all(len(t) == EP_NEW for t in st["tokens_out"]) or \
-            not all(len(t) == EP_CONT_NEW for t in cst["tokens_out"]):
+            not all(len(t) == EP_CONT_NEW for t in cst["tokens_out"]
+                    + pst["tokens_out"]):
         raise AssertionError("a request did not return every token")
+    if not pst["prefix_hit_rate"] > 0:
+        raise AssertionError("paged engine over EP: no prefix-cache hit")
     return dict(wall_s=wall, ranks=ranks)
 
 
@@ -2593,6 +2705,193 @@ def train_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: Whisper-large-v3 (encoder-decoder, audio stub) on the card
+# ---------------------------------------------------------------------------
+
+WHISPER_B, WHISPER_S, WHISPER_NEW = 8, 128, 32
+WHISPER_CHECK_LAYERS = 2    # encoder + decoder layers of the card-vs-CPU check
+WHISPER_CHECK_B, WHISPER_CHECK_S, WHISPER_CHECK_STEPS = 2, 16, 4
+WHISPER_PREFILL_TOL = 1e-4  # float32, TF32 off: products summed otherwise
+WHISPER_DECODE_TOL = 1e-3   # the bf16 caches round a float32 tie otherwise
+WHISPER_PROFILE_STEPS = 8   # decode steps of the decode-only profile window
+
+
+def whisper_check(dev, cfg) -> dict:
+    """Whisper at full width with depth cut to 2 + 2 layers, on the card
+    and on the CPU from the same weights (the card's init through the
+    weight bridge) and the same inputs (1500 stub frames: blockwise
+    encoder attention): prefill logits norm-rel <= WHISPER_PREFILL_TOL,
+    then WHISPER_CHECK_STEPS decode steps over each side's bf16 cache,
+    both fed the CPU's greedy tokens, logits norm-rel <=
+    WHISPER_DECODE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.from_numpy import (params_from_numpy,
+                                                   params_to_numpy)
+    from repro_torch.models import model as M
+    small = dataclasses.replace(cfg, n_layers=WHISPER_CHECK_LAYERS,
+                                encoder_layers=WHISPER_CHECK_LAYERS)
+    card = M.init_params(small, seed=1, device=dev)
+    host = params_from_numpy(params_to_numpy(card), small, device="cpu")
+    b = M.make_batch(np.random.default_rng(3), small, WHISPER_CHECK_B,
+                     WHISPER_CHECK_S, "prefill")
+    ctx = WHISPER_CHECK_S + WHISPER_CHECK_STEPS
+    sides = {}
+    for name, model, d in (("card", card, dev),
+                           ("cpu", host, torch.device("cpu"))):
+        batch = M.to_device(b, d)
+        batch["tokens"] = batch["tokens"].long()
+        sides[name] = M.make_prefill_step(small, cache_len=ctx)(model, batch)
+    pre = norm_rel(sides["card"][0].cpu(), sides["cpu"][0])
+    steps = []
+    tok = torch.argmax(sides["cpu"][0][:, -1:], dim=-1)
+    caches = {k: v[1] for k, v in sides.items()}
+    for _ in range(WHISPER_CHECK_STEPS):
+        out = {}
+        for name, model in (("card", card), ("cpu", host)):
+            out[name], caches[name] = M.make_serve_step(small)(
+                model, tok.to(model.device), caches[name])
+        steps.append(norm_rel(out["card"].cpu(), out["cpu"]))
+        tok = torch.argmax(out["cpu"][:, -1:], dim=-1)
+    res = dict(prefill_norm_rel=pre, decode_norm_rel=steps,
+               finite=bool(torch.isfinite(sides["card"][0]).all()))
+    log(f"  card vs CPU at full width, {WHISPER_CHECK_LAYERS} + "
+        f"{WHISPER_CHECK_LAYERS} layers, {WHISPER_CHECK_B} x "
+        f"({cfg.n_frontend_tokens} frames, {WHISPER_CHECK_S} tokens): "
+        f"prefill logits norm-rel {pre:.3e} (bar {WHISPER_PREFILL_TOL:g}); "
+        f"decode steps " + ", ".join(f"{e:.3e}" for e in steps)
+        + f" (bar {WHISPER_DECODE_TOL:g}, bf16 caches)")
+    if not (pre <= WHISPER_PREFILL_TOL and res["finite"]
+            and max(steps) <= WHISPER_DECODE_TOL):
+        raise AssertionError(f"phase 14: the card disagrees with the CPU: "
+                             f"{res}")
+    del card, host, sides, caches
+    free_memory()
+    return res
+
+
+def whisper_phase(dev) -> dict:
+    """Phase 14: Whisper-large-v3 at full width and depth (32 + 32 layers)
+    through ``ServingEngine``: WHISPER_B requests x 1500 stub frames x
+    WHISPER_S-token prompts x WHISPER_NEW new tokens, greedy; the prefill
+    split into encoder, cross K/V and decoder; a profile window; then the
+    card against the CPU at full width and cut depth. No kernel of ours
+    runs (no MoE, no SSM). TF32 off, as ``main`` sets it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models import whisper as W
+    from repro_torch.serving import GenerationConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("whisper-large-v3")
+    B, S, NEW = WHISPER_B, WHISPER_S, WHISPER_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    parts = {"encoder": model.encoder, "decoder": model.decoder,
+             "embedding": model.embed, "frontend_proj": None}
+    sizes = {k: (sum(p.numel() for p in m.parameters()) if m is not None
+                 else model.frontend_proj.numel()) / 1e6
+             for k, m in parts.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  whisper-large-v3: {cfg.encoder_layers} + {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff} "
+        f"(gelu), vocab {cfg.vocab_size} (tied); init "
+        f"{time.perf_counter() - t0:.2f}s, {n_params / 1e9:.3f} B float32 "
+        f"parameters (" + ", ".join(f"{k} {v:.1f} M" for k, v in
+                                    sizes.items())
+        + f"); {B} x ({cfg.n_frontend_tokens} frames, {S} tokens) x {NEW}")
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [src.sample_batch(rng, 1, S)["tokens"][0] for _ in range(B)]
+    kw = dict(batch_size=B, max_prompt_len=S, max_new_tokens=NEW, device=dev)
+    ServingEngine(cfg, model, **kw).generate(
+        prompts, GenerationConfig(max_new_tokens=2))          # warm-up
+    eng = ServingEngine(cfg, model, **kw)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, GenerationConfig(max_new_tokens=NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = served_stats(eng, results, wall, counts, NEW)
+    st.update(requests=B, frames=cfg.n_frontend_tokens, prompt_len=S,
+              new_tokens=NEW, params_b=n_params / 1e9, params_m=sizes)
+    # the prefill's parts, each timed alone on the same batch (median of 3
+    # CUDA-event timings); the decoder's share is the rest of the prefill
+    tokens = torch.from_numpy(np.stack(prompts)).long().to(dev)
+    batch = {"tokens": tokens, **M.frontend_inputs(cfg, B, dev)}
+    with torch.no_grad():
+        enc = W.encode(model, batch["audio_embeds"], cfg)
+        split = {name: cuda_ms(fn, 3) for name, fn in (
+            ("encoder_ms", lambda: W.encode(model, batch["audio_embeds"],
+                                            cfg)),
+            ("cross_kv_ms", lambda: W._enc_kv(model, enc, cfg)),
+            ("prefill_ms", lambda: W.prefill(model, batch, cfg,
+                                             cache_len=S + NEW)))}
+        logits, cache = W.prefill(model, batch, cfg, cache_len=S + NEW)
+    split["decoder_ms"] = split["prefill_ms"] - split["encoder_ms"] \
+        - split["cross_kv_ms"]
+    st["prefill_split"] = split
+    finite = bool(torch.isfinite(logits).all())
+    cross_gb = (cache["cross_k"].numel() + cache["cross_v"].numel()) \
+        * cache["cross_k"].element_size() / 1e9
+    st.update(cross_cache_gb=cross_gb, finite=finite)
+    log(f"  served {B} x {S} x {NEW}: {st['tokens']} tokens in {wall:.3f}s "
+        f"({st['tok_per_s']:.1f} tok/s), prefill {st['prefill_ms']:.2f} ms "
+        f"(alone: encoder {split['encoder_ms']:.2f}, cross K/V "
+        f"{split['cross_kv_ms']:.2f}, decoder {split['decoder_ms']:.2f} of "
+        f"{split['prefill_ms']:.2f} ms), decode step "
+        f"{st['decode_step_ms']:.3f} ms (mean of {NEW - 1}); bf16 cross "
+        f"K/V cache {cross_gb:.2f} GB; peak memory {st['peak_mem_gb']:.2f} "
+        f"GB; counts {counts}")
+    if not all(len(r.tokens) == NEW for r in results):
+        raise AssertionError("a request did not return every token")
+    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"whisper called a MoE or SSD kernel: {counts}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or not finite or \
+            cache["pos"] != S or tuple(cache["cross_k"].shape) != (
+                cfg.n_layers, B, cfg.n_frontend_tokens, cfg.n_kv_heads,
+                cfg.resolved_head_dim):
+        raise AssertionError("whisper prefill: logits not finite or cache "
+                             "misshaped")
+    # the decode step alone: WHISPER_PROFILE_STEPS steps from the prefill's
+    # cache, each reading its greedy tokens back as the engine does; the
+    # device-busy share says how much of a step the host's launches take
+    step = M.make_serve_step(cfg)
+    first = torch.argmax(logits[:, -1:], dim=-1)
+
+    def decode_window():
+        c, tok = cache, first
+        with torch.no_grad():
+            for _ in range(WHISPER_PROFILE_STEPS):
+                out, c = step(model, tok, c)
+                tok = torch.argmax(out[:, -1:], dim=-1)
+                tok.cpu()
+    dprof = profile_run(f"{WHISPER_PROFILE_STEPS} decode steps alone",
+                        decode_window)
+    st["decode_profile"] = dict(
+        dprof, step_wall_ms=dprof["wall_ms"] / WHISPER_PROFILE_STEPS,
+        step_device_ms=dprof["device_busy_ms"] / WHISPER_PROFILE_STEPS)
+    log(f"  decode step alone: {st['decode_profile']['step_wall_ms']:.3f} "
+        f"ms wall, {st['decode_profile']['step_device_ms']:.3f} ms of CUDA "
+        "kernels")
+    del logits, cache, enc, batch, first
+    st["profile"] = profile_run(
+        "1 prefill + 3 decode steps",
+        lambda: eng.generate(prompts, GenerationConfig(max_new_tokens=4)))
+    del eng, model
+    free_memory()
+    st["check"] = whisper_check(dev, cfg)
+    return st
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2670,7 +2969,8 @@ def main() -> int:
         f"wire through host memory; times are not an EP step time): "
         f"Qwen3-30B-A3B ({N_LAYERS} of 48 layers) under load_aware, "
         f"{EP_B} x {EP_S} x {EP_NEW} sync + {EP_REQ} requests on "
-        f"{EP_SLOTS} continuous slots; then ETP on (ep 2, tp 2)")
+        f"{EP_SLOTS} continuous slots + {EP_REQ} requests on {EP_SLOTS} "
+        f"paged slots; then ETP on (ep 2, tp 2)")
     ep = ep_phase(dev)
     log("phase 12: serve MiniCPM3-4B (MLA, 62 layers), 4 x 512 x 16")
     mla = dense_serve(dev, "minicpm3-4b", None, 4, 512, 16, continuous=True)
@@ -2681,6 +2981,11 @@ def main() -> int:
         f"fine-tune, {FIG4_STEPS} steps x 2 at {FIG4_B} x {FIG4_S}, with a "
         f"checkpoint round trip")
     train = train_phase(dev)
+    free_memory()
+    log(f"phase 14: serve Whisper-large-v3 (32 + 32 layers), {WHISPER_B} x "
+        f"(1500 stub frames, {WHISPER_S} tokens) x {WHISPER_NEW}; card vs "
+        f"CPU at {WHISPER_CHECK_LAYERS} + {WHISPER_CHECK_LAYERS} layers")
+    whisper = whisper_phase(dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2690,7 +2995,7 @@ def main() -> int:
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
-                   "minicpm3": mla, "train": train},
+                   "minicpm3": mla, "train": train, "whisper": whisper},
                   fh, indent=1)
 
     def kernel_entry(name, replaces, case_list, case, launches, at=None,
@@ -2728,17 +3033,19 @@ def main() -> int:
         "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
         "max_abs_err", "rel_err")}
     ep_ranks = ep["ranks"]
+    log(smi.splitlines()[0])          # the card's line, again beside the result
     print(json.dumps({"kernels": [
         fused,
         kernel_entry("fused_moe_pipeline[bf16]",
                      "src/repro/kernels/dualsparse_ffn.py:498", cases,
                      "setp_prefill_bf16",
-                     sum(r["sync"]["counts"]["fused_moe_pipeline"]
-                         ["launches_bf16"] for r in ep_ranks),
+                     sum(r[run]["counts"]["fused_moe_pipeline"]
+                         ["launches_bf16"] for r in ep_ranks
+                         for run in ("sync", "paged")),
                      at="S-ETP local seating of rank 0, prefill (T_local "
                         "256, 4736 received rows, 64 local sub-experts, "
-                        "c2 96), bf16; launches of phase 11's sync run, "
-                        "4 ranks", dtype="bfloat16"),
+                        "c2 96), bf16; launches of phase 11's sync and "
+                        "paged runs, 4 ranks", dtype="bfloat16"),
         kernel_entry("grouped_swiglu",
                      "src/repro/kernels/dualsparse_ffn.py:192", grouped,
                      "chunk",
@@ -2746,11 +3053,13 @@ def main() -> int:
         kernel_entry("grouped_swiglu[bf16]",
                      "src/repro/kernels/dualsparse_ffn.py:192", grouped,
                      "setp_decode_bf16",
-                     sum(r["continuous"]["counts"]["grouped_swiglu"]
-                         ["launches_bf16"] for r in ep_ranks),
+                     sum(r[run]["counts"]["grouped_swiglu"]
+                         ["launches_bf16"] for r in ep_ranks
+                         for run in ("continuous", "paged")),
                      at="S-ETP local buffers of rank 0, decode (T_local 8, "
                         "160 received rows, c2 8), bf16; launches of "
-                        "phase 11's continuous run (buffer path), 4 ranks",
+                        "phase 11's continuous (buffer path) and paged "
+                        "runs, 4 ranks",
                      dtype="bfloat16"),
         # no single PyTorch call computes the intra-chunk SSD either
         kernel_entry("ssd_chunk", "src/repro/kernels/ssd_chunk.py:59", ssd,

@@ -8,7 +8,9 @@ leading layers axis, which this splits into the per-layer modules (for
 ``ssm`` a block is ``{"ln1", "mamba": {...}}``). The hybrid tree holds
 ``"mamba_blocks"`` (stacked) and ``"shared_attn"`` (one block, unstacked)
 in place of ``"blocks"``; a vision-frontend tree adds
-``"frontend_proj"``. Trees of prepared (partitioned) MoE weights load as
+``"frontend_proj"``. The Whisper tree (``audio``) holds ``"encoder"`` and
+``"decoder"`` (stacked, like ``"blocks"``) and the single leaves
+``"enc_norm"`` and ``"frontend_proj"``. Trees of prepared (partitioned) MoE weights load as
 well: the expert tensors take the tree's shapes, and a ``per_layer``
 policy's ``moe["thresholds"]`` (layers, 2) loads into each layer. An MLA
 block's attention leaves (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
@@ -37,7 +39,7 @@ from ..models.transformer import Transformer
 from ..optim import AdamWState
 
 # the modules whose leaves the JAX tree stacks over a leading layers axis
-_STACKED = ("blocks", "mamba_blocks")
+_STACKED = ("blocks", "mamba_blocks", "encoder", "decoder")
 
 
 def _param(a, device) -> nn.Parameter:
@@ -59,13 +61,18 @@ def _load(module: nn.Module, tree: Mapping, layer: Optional[int],
                 _param(value if layer is None else value[layer], device))
 
 
-def params_from_numpy(tree: Mapping, cfg, device="cuda",
-                      dist=None) -> Transformer:
-    """A ``Transformer`` holding the weights of the numpy tree; with an EP
-    context ``dist``, only this rank's shard of every MoE layer's placed
-    experts (over the ``model`` axis)."""
+def params_from_numpy(tree: Mapping, cfg, device="cuda", dist=None):
+    """A ``Transformer`` (a ``Whisper`` for the audio family) holding the
+    weights of the numpy tree; with an EP context ``dist``, only this
+    rank's shard of every MoE layer's placed experts (over the ``model``
+    axis)."""
     model = empty_model(cfg, device=device)
     dev = model.device
+    if cfg.family == "audio":
+        if dist is not None:
+            raise NotImplementedError("Whisper has no expert shard")
+        load_params(model, tree)
+        return model
     model.embed.embedding = _param(tree["embed"]["embedding"], dev)
     if "lm_head" in tree["embed"]:
         model.embed.lm_head = _param(tree["embed"]["lm_head"], dev)

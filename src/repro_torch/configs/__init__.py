@@ -1,6 +1,7 @@
 """Config registry of the PyTorch port: the architectures the port
 serves — MoE decoders, the dense GQA decoders, MiniCPM3-4B (MLA), the
-Qwen2-VL decoder with its vision stub, Mamba2 and the Zamba2 hybrid (its
+Qwen2-VL decoder with its vision stub, Mamba2, the Zamba2 hybrid and the
+Whisper-large-v3 encoder-decoder with its audio stub (its
 own copy of the JAX package's dataclasses, so the port never imports that
 package)."""
 from __future__ import annotations
@@ -17,6 +18,7 @@ from . import granite_20b
 from . import starcoder2_3b
 from . import qwen2_vl_7b
 from . import minicpm3_4b
+from . import whisper_large_v3
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -30,7 +32,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b,
              dbrx_132b, qwen2_7b, granite_20b, starcoder2_3b, qwen2_vl_7b,
-             minicpm3_4b):
+             minicpm3_4b, whisper_large_v3):
     for _cfg in _mod.CONFIGS:
         register(_cfg)
 

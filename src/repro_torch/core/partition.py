@@ -61,3 +61,11 @@ def invert_partial(params: Dict, p: int) -> Dict:
     out.update({"w1": merge_in(w1), "w3": merge_in(w3),
                 "w2": w2.reshape(E, p * fp, d)})
     return out
+
+
+def dense_ffn_partition(w1, w3, w2, p: int):
+    """Exact partition of a dense SwiGLU FFN, w1/w3 (d, f) and w2 (f, d),
+    into p uniform sub-FFNs (gate 1 each): (p, d, f/p) x2 and (p, f/p, d),
+    with sum_j f_j(x) == f(x). No entry point calls it; it is the form
+    S-ETP-style AlltoAll sharding would take for a dense FFN."""
+    return _partition_expert_weights(w1[None], w3[None], w2[None], p)

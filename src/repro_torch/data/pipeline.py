@@ -6,7 +6,7 @@ differ between the packages)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -51,15 +51,23 @@ class SyntheticLM:
 @dataclasses.dataclass
 class DataLoader:
     """Deterministic epoch-less loader; step -> batch of int32 numpy
-    arrays, drawn from ``np.random.default_rng((seed, step))``."""
+    arrays, drawn from ``np.random.default_rng((seed, step))``. With
+    ``audio`` = (n_frames, d_model) each batch also carries the audio
+    stub's float32 ``audio_embeds`` ``0.1 * N(0, 1)`` of (batch, n_frames,
+    d_model), drawn after the tokens."""
     source: SyntheticLM
     batch: int
     seq: int
     seed: int = 0
+    audio: Tuple[int, ...] = ()
 
     def get_batch(self, step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed, step))
-        return self.source.sample_batch(rng, self.batch, self.seq)
+        out = self.source.sample_batch(rng, self.batch, self.seq)
+        if self.audio:
+            out["audio_embeds"] = (rng.standard_normal(
+                (self.batch,) + tuple(self.audio)) * 0.1).astype(np.float32)
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0
@@ -69,8 +77,12 @@ class DataLoader:
 
 
 def make_loader(cfg, batch: int, seq: int, seed: int = 0) -> DataLoader:
+    """The training loader of ``cfg``: token batches, with the audio stub's
+    frame embeddings for an audio-frontend model (the encoder's input)."""
+    audio = (cfg.n_frontend_tokens, cfg.d_model) \
+        if cfg.frontend == "audio" else ()
     return DataLoader(SyntheticLM(cfg.vocab_size, seed=seed), batch, seq,
-                      seed=seed)
+                      seed=seed, audio=audio)
 
 
 def calibration_activations(rng: np.random.Generator, n_tokens: int,

@@ -1,6 +1,7 @@
 """Model entry points: construction with the port's seeded init, the
 loss and the train step, and the prefill / serve step builders the engines
-call."""
+call. Family routing, as in the JAX package: ``audio`` -> ``models.whisper``
+(encoder-decoder), every other family -> ``models.transformer``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -11,12 +12,25 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer
+from . import transformer, whisper
 from .transformer import Transformer
+from .whisper import Whisper
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda") -> Transformer:
+def _mod(cfg: ModelConfig):
+    """The family's model module (the JAX package's ``_mod``)."""
+    return whisper if cfg.family == "audio" else transformer
+
+
+def _model_class(cfg: ModelConfig):
+    return {whisper: Whisper, transformer: Transformer}[_mod(cfg)]
+
+
+# the batch key of each stub frontend's (B, n_frontend_tokens, d) inputs
+_FRONTEND_KEY = {"vision": "frontend", "audio": "audio_embeds"}
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """The model with weights drawn from ``seed`` on ``device`` (default the
     card), in float32 from the JAX package's distributions: every matrix
     ``0.02 * N(0, 1)``, norms ones, the Mamba2 leaves as
@@ -27,24 +41,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.no_grad():
-        return Transformer(cfg, device=dev, generator=gen)
+        return _model_class(cfg)(cfg, device=dev, generator=gen)
 
 
-def empty_model(cfg: ModelConfig, *, device="cuda") -> Transformer:
+def empty_model(cfg: ModelConfig, *, device="cuda"):
     """The model with allocated, undrawn weights (to be loaded)."""
     dev = resolve_device(device)
     with torch.no_grad():
-        return Transformer(cfg, device=dev, generator=None)
+        return _model_class(cfg)(cfg, device=dev, generator=None)
 
 
-def trainable(model: Transformer) -> Dict[str, torch.Tensor]:
+def trainable(model) -> Dict[str, torch.Tensor]:
     """The model's leaves of the JAX parameter tree, by parameter name:
     every parameter but a prepared MoE layer's ``thresholds``."""
     return {k: p for k, p in model.named_parameters()
             if k.rsplit(".", 1)[-1] != "thresholds"}
 
 
-def set_trainable(model: Transformer) -> Dict[str, torch.Tensor]:
+def set_trainable(model) -> Dict[str, torch.Tensor]:
     """Turn on ``requires_grad`` for exactly ``trainable(model)``; returns
     that dict."""
     params = trainable(model)
@@ -65,14 +79,16 @@ def cross_entropy(logits, targets):
     return -torch.mean(ll)
 
 
-def loss_fn(model: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
+def loss_fn(model, batch, cfg: ModelConfig, *, window: int = 0,
             policy=None, aux_coef: float = 0.0):
     """Cross entropy (+ ``aux_coef`` times the Switch-style MoE
     load-balance aux loss). Without a ``policy`` this is the training
     loss: the differentiable route (``transformer.forward(kernels=False)``),
     under whatever grad mode the caller set. Under a sparsity ``policy``
     (prepared weights) it is the accuracy-side reading of that policy: no
-    gradient, the serving route with its kernels."""
+    gradient, the serving route with its kernels. Whisper has no MoE layer:
+    its loss is the cross entropy alone, never the aux term, and no kernel
+    runs on its path."""
     batch = to_device(batch, model.device)
     if policy is not None:
         with torch.no_grad():
@@ -86,8 +102,8 @@ def _loss(model, batch, cfg, window, policy, aux_coef, kernels):
                                           policy=policy, with_aux=True,
                                           kernels=kernels)
         return cross_entropy(logits, batch["targets"]) + aux_coef * aux
-    logits = transformer.forward(model, batch, cfg, window=window,
-                                 policy=policy, kernels=kernels)
+    logits = _mod(cfg).forward(model, batch, cfg, window=window,
+                               policy=policy, kernels=kernels)
     return cross_entropy(logits, batch["targets"])
 
 
@@ -121,14 +137,17 @@ def make_batch(rng: np.random.Generator, cfg: ModelConfig, batch: int,
                seq: int, kind: str) -> Dict[str, np.ndarray]:
     """Random numpy batch for smoke tests / examples: int32 ``tokens``
     (and ``targets`` when ``kind == "train"``), and the vision stub's
-    float32 ``frontend`` embeddings ``0.1 * N(0, 1)``."""
+    float32 ``frontend`` embeddings or the audio stub's float32
+    ``audio_embeds``, each ``0.1 * N(0, 1)`` of (batch, n_frontend_tokens,
+    d_model)."""
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq),
                                   dtype=np.int32)}
     if kind == "train":
         out["targets"] = rng.integers(0, cfg.vocab_size, (batch, seq),
                                       dtype=np.int32)
-    if cfg.frontend == "vision":
-        out["frontend"] = (rng.standard_normal(
+    key = _FRONTEND_KEY.get(cfg.frontend)
+    if key is not None:
+        out[key] = (rng.standard_normal(
             (batch, cfg.n_frontend_tokens, cfg.d_model)) * 0.1).astype(
                 np.float32)
     return out
@@ -139,13 +158,15 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int = 0,
                       cache_dtype=torch.bfloat16, metrics: bool = True,
                       dist=None):
     """(model, batch) -> (logits (B,S,vocab), populated decode cache).
-    ``dist``: an EP context (``distributed.DistContext``) for S-ETP."""
+    ``dist``: an EP context (``distributed.DistContext``) for S-ETP.
+    ``policy`` and ``metrics`` do not apply to Whisper (no MoE, no
+    metrics seam in its cache)."""
     def step(model, batch):
         with torch.no_grad():
-            return transformer.prefill(model, batch, cfg,
-                                       cache_len=cache_len, window=window,
-                                       policy=policy, cache_dtype=cache_dtype,
-                                       metrics=metrics, dist=dist)
+            return _mod(cfg).prefill(model, batch, cfg, cache_len=cache_len,
+                                     window=window, policy=policy,
+                                     cache_dtype=cache_dtype,
+                                     metrics=metrics, dist=dist)
     return step
 
 
@@ -154,26 +175,29 @@ def make_serve_step(cfg: ModelConfig, *, window: int = 0, policy=None,
     """(model, token (B,1), cache) -> (logits, cache) — ONE new token."""
     def step(model, token, cache):
         with torch.no_grad():
-            return transformer.decode_step(model, token, cache, cfg,
-                                           window=window, policy=policy,
-                                           dist=dist)
+            return _mod(cfg).decode_step(model, token, cache, cfg,
+                                         window=window, policy=policy,
+                                         dist=dist)
     return step
 
 
 def frontend_len(cfg: ModelConfig) -> int:
     """Positions the vision stub's patch embeddings take before a prompt's
-    tokens (0 without a vision frontend)."""
+    tokens. 0 for any other model, the audio stub's too: its frames live in
+    the cross-attention cache, not in the self-attention positions."""
     return cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
 
 
 def frontend_inputs(cfg: ModelConfig, batch: int, device) -> dict:
-    """The vision stub's zero patch embeddings ``{"frontend": (batch,
-    n_frontend_tokens, d_model)}`` the serving engines feed a
-    vision-frontend model ({} for any other)."""
-    if not frontend_len(cfg):
+    """The stub frontend's zero inputs the serving engines feed: the vision
+    stub's patch embeddings ``{"frontend": ...}`` or the audio stub's frame
+    embeddings ``{"audio_embeds": ...}``, each (batch, n_frontend_tokens,
+    d_model); {} without a frontend."""
+    key = _FRONTEND_KEY.get(cfg.frontend)
+    if key is None:
         return {}
-    return {"frontend": torch.zeros((batch, cfg.n_frontend_tokens,
-                                     cfg.d_model), device=device)}
+    return {key: torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
+                             device=device)}
 
 
 def context_len_for(cfg: ModelConfig, prompt_len: int,
@@ -188,10 +212,12 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int, *,
                per_slot_pos: bool = False,
                metrics_spec: Optional[tuple] = None, device="cuda"):
     """Empty contiguous decode cache on ``device`` (default the card);
-    ``per_slot_pos`` gives each of the ``batch`` slots its own position."""
-    return transformer.init_cache(cfg, batch, context_len, window=window,
-                                  dtype=dtype, per_slot_pos=per_slot_pos,
-                                  metrics_spec=metrics_spec, device=device)
+    ``per_slot_pos`` gives each of the ``batch`` slots its own position.
+    A Whisper cache holds the cross K/V as well and has neither per-slot
+    positions nor a metrics seam."""
+    return _mod(cfg).init_cache(cfg, batch, context_len, window=window,
+                                dtype=dtype, per_slot_pos=per_slot_pos,
+                                metrics_spec=metrics_spec, device=device)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,

@@ -102,9 +102,10 @@ class Transformer(nn.Module):
         super().__init__()
         if not _ported(cfg):
             raise NotImplementedError(
-                f"{cfg.arch_id}: only gqa decoders of the moe/dense/vlm/"
-                "hybrid families, mla decoders of the moe/dense families "
-                "and the ssm family are ported yet")
+                f"{cfg.arch_id}: this stack builds the gqa decoders of the "
+                "moe/dense/vlm/hybrid families, the mla decoders of the "
+                "moe/dense families and the ssm family; the audio family "
+                "(Whisper) is models.whisper.Whisper")
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
         self.embed = L.Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
@@ -500,29 +501,34 @@ def decode_step(model: Transformer, token, cache, cfg, *, window: int = 0,
 
 def chunk_block(bp: Block, x, cache_layer, slot: int, start: int,
                 valid_len: int, cfg, *, layout, page_table=None,
-                read_len=None, policy=None, collect_stats: bool = False):
+                read_len=None, policy=None, collect_stats: bool = False,
+                dist=None):
     """One block over a (1,C,d) prompt chunk of one slot, appending its K/V
     to the cache. Returns ``(x, cache_layer, moe_overflow)`` — the obs
     stats dict in the third slot under ``collect_stats``. Padding rows pass
-    through the MoE layer as in the JAX package (they route and count)."""
+    through the MoE layer as in the JAX package (they route and count).
+    ``dist``: an EP context sends the MoE layer through S-ETP."""
     h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
     y, cache_layer = attn.gqa_chunk_attention(
         bp.attn, h, cache_layer, slot, start, valid_len, cfg, layout=layout,
         page_table=page_table, read_len=read_len)
-    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats)
+    x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return x, cache_layer, overflow
 
 
 def chunk_step(model: Transformer, tokens, slot: int, start: int,
                valid_len: int, cache, cfg, *, layout, page_table=None,
-               read_len=None, policy=None):
+               read_len=None, policy=None, dist=None):
     """Advance ONE slot's prompt by a fixed-size chunk.
 
     tokens: (1, C) prompt tokens at absolute positions ``start..start+C-1``
     (rows at or past ``valid_len`` are padding: their K/V writes are
     dropped, their logits are garbage the caller ignores). Returns
     ``(logits (1, C, vocab), cache)`` with ``cache["pos"][slot]`` set to
-    ``start + valid_len`` (a device-side write). gqa attention only."""
+    ``start + valid_len`` (a device-side write). gqa attention only.
+    Under an EP context ``dist`` the chunk's batch of 1 is replicated over
+    the (pod, data) axes and its sequence split over ``model`` where that
+    divides it (``core.setp``'s token-block rule)."""
     if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError("chunked prefill requires gqa attention")
     collect = "metrics" in cache
@@ -532,7 +538,7 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
         x, cl, of = chunk_block(bp, x, cl, slot, start, valid_len, cfg,
                                 layout=layout, page_table=page_table,
                                 read_len=read_len, policy=policy,
-                                collect_stats=collect)
+                                collect_stats=collect, dist=dist)
         new_layers.append(cl)
         outs.append(of)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)

@@ -32,8 +32,9 @@ each step kind (warm-up: kernel build and load, allocator growth) makes
 state. Decode steps read back only the greedy tokens; positions, page
 tables and metrics stay on the device.
 
-Expert parallelism: ``ServingEngine`` and ``ContinuousBatchingEngine`` take
-an EP context (``dist``, a ``distributed.DistContext``); every rank builds
+Expert parallelism: ``ServingEngine``, ``ContinuousBatchingEngine`` and
+``serving.paged.PagedEngine`` take an EP context (``dist``, a
+``distributed.DistContext``); every rank builds
 the engine over its shard of the model and serves the same requests in
 SPMD while each MoE layer runs S-ETP across the ranks (``core.setp``).
 Every rank takes its next tokens from the ``model`` axis' first rank
@@ -323,6 +324,27 @@ class _SlotState:
     n_emitted: int = 0
 
 
+def _check_setp_slots(cfg, dist, n_slots: int, policy) -> None:
+    """Refuse a slot count that S-ETP would split over the batch axes while
+    the policy carries per-slot thresholds: the (n_slots,) threshold
+    tensors enter every rank's S-ETP body whole while its decode block
+    holds only its share of the slots, so the first decode step fails to
+    broadcast (as in the JAX package; ROADMAP.md §C)."""
+    if dist is None or dist.moe_impl != "setp" or not cfg.is_moe \
+            or policy is None or not len(policy.thresholds()):
+        return
+    from ..distributed.sharding import batch_axes
+    split = 1
+    for axis in batch_axes(n_slots, dist):
+        split *= dist.size(axis)
+    if split > 1:
+        raise NotImplementedError(
+            f"{n_slots} slots split over the batch axes "
+            f"{batch_axes(n_slots, dist)} ({split} blocks), but the "
+            "policy's per-slot thresholds cannot be split with them under "
+            "S-ETP yet; pick a slot count those axes do not divide")
+
+
 class SlotEngineBase(EngineBase):
     """What the slot engines share: slots, per-slot policies, emission,
     retirement, the batched decode step and its sampling."""
@@ -351,6 +373,7 @@ class SlotEngineBase(EngineBase):
         self.policy = policy
         self._slot_pol = (SlotPolicies(policy, n_slots, self.device)
                           if policy is not None else None)
+        _check_setp_slots(cfg, dist, n_slots, policy)
         self._metrics_spec = metrics_spec(cfg, model) if metrics else None
         self._slots: List = [None] * n_slots
         self._last = np.full((n_slots, 1), pad_token, np.int32)

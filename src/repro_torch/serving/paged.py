@@ -41,7 +41,7 @@ from ..models import model as M
 from ..models import transformer
 from ..obs import MetricsSnapshot
 from .api import GenerationConfig
-from .engine import SlotEngineBase
+from .engine import SlotEngineBase, _host_view
 
 
 class PageAllocator:
@@ -141,7 +141,13 @@ class PagedEngine(SlotEngineBase):
     """Paged-KV continuous-batching engine with chunked prefill and prefix
     caching on ``device`` (default the card; the model must live there).
     Speaks the unified ``submit()``/``step()``/``drain()`` API. gqa
-    attention models only."""
+    attention models only.
+
+    Given an EP context (``dist``), every rank builds the engine over its
+    shard of the model and serves the same requests in SPMD: each MoE
+    layer of a chunk step or a decode step runs S-ETP across the ranks,
+    and every rank feeds the tokens of the ``model`` axis' first rank, as
+    ``ContinuousBatchingEngine`` does."""
 
     def __init__(self, cfg: ModelConfig, model, *, n_slots: int = 8,
                  page_size: int = 16, chunk_size: int = 64,
@@ -150,7 +156,7 @@ class PagedEngine(SlotEngineBase):
                  policy: Optional[SparsityPolicy] = None,
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
                  prefix_cache: bool = True, metrics: bool = True,
-                 device="cuda"):
+                 device="cuda", dist=None):
         if (cfg.attn_kind != "gqa" or cfg.family in ("audio", "ssm",
                                                       "hybrid")
                 or cfg.frontend):
@@ -162,7 +168,7 @@ class PagedEngine(SlotEngineBase):
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,
                          policy=policy, exact_moe=exact_moe, metrics=metrics,
-                         device=device)
+                         device=device, dist=dist)
         self.page_size = page_size
         self.chunk_size = chunk_size
         self.prefix_cache = prefix_cache
@@ -272,8 +278,9 @@ class PagedEngine(SlotEngineBase):
             logits, self._cache = transformer.chunk_step(
                 self.model, tokens, slot, start, valid, self._cache,
                 self.cfg, layout=self._layout, page_table=self._pt_dev,
-                read_len=self.max_prompt_len, policy=policy)
-        return torch.argmax(logits[0, valid - 1])
+                read_len=self.max_prompt_len, policy=policy, dist=self.dist)
+        return _host_view(self.dist,
+                          torch.argmax(logits[0, valid - 1]).reshape(1))[0]
 
     def _advance_prefill(self) -> bool:
         """Advance ONE prefilling slot by ONE chunk. On the final chunk the

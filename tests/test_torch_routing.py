@@ -164,6 +164,35 @@ def test_partition_transforms_match_jax(p):
         np.testing.assert_array_equal(_np(back[k]), _np(back_j[k]))
 
 
+@pytest.mark.parametrize("p", [2, 4])
+def test_dense_ffn_partition_matches_jax(p):
+    """A dense SwiGLU FFN split into p uniform sub-FFNs: leaves bit for bit
+    JAX's ``dense_ffn_partition``, and the sub-FFNs' outputs sum to the
+    whole FFN's (rel 1e-6 of its largest magnitude)."""
+    rng = np.random.default_rng(11)
+    d, f = 32, 64
+    w1, w3 = (rng.standard_normal((d, f)).astype(np.float32) * 0.1
+              for _ in range(2))
+    w2 = rng.standard_normal((f, d)).astype(np.float32) * 0.1
+    x = rng.standard_normal((8, d)).astype(np.float32)
+    got = tpart.dense_ffn_partition(*(torch.from_numpy(w)
+                                      for w in (w1, w3, w2)), p)
+    want = jpart.dense_ffn_partition(*(jnp.asarray(w) for w in (w1, w3, w2)),
+                                     p)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    assert tuple(got[0].shape) == (p, d, f // p)
+    assert tuple(got[2].shape) == (p, f // p, d)
+    xt = torch.from_numpy(x).double()
+    whole = (torch.nn.functional.silu(xt @ torch.from_numpy(w1).double())
+             * (xt @ torch.from_numpy(w3).double())) \
+        @ torch.from_numpy(w2).double()
+    parts = sum((torch.nn.functional.silu(xt @ a.double()) * (xt @ b.double()))
+                @ c.double() for a, b, c in zip(*got))
+    err = (parts - whole).abs().max() / whole.abs().max()
+    assert float(err) <= 1e-6
+
+
 @pytest.mark.parametrize("method", ["gate", "abs_gate", "gate_up",
                                     "abs_gate_up"])
 @pytest.mark.parametrize("routed_only", [True, False])

@@ -18,7 +18,14 @@ compare:
     once per ``data`` rank when the batch does not divide over ``data``;
   * ETP against the dense oracle (1e-5) and JAX's ETP;
   * the sync and continuous engines under ``load_aware`` S-ETP (bf16 wire,
-    the default): JAX's greedy tokens.
+    the default): JAX's greedy tokens;
+  * the paged engine (chunked prefill, prefix cache) under ``load_aware``
+    S-ETP, on (1, 4) and on (2, 2): JAX's greedy tokens, overflow and
+    prefix hits on every rank; on (2, 2) every step's batch (a chunk's 1,
+    a decode step's 3 slots) is replicated over ``data``, and the loads
+    the policy reads are twice the true histogram in both packages;
+  * the slot engines refusing, when built, a slot count that ``data``
+    divides (2 or 4 on (2, 2)), where JAX fails on the first decode step.
 """
 import json
 import os
@@ -54,6 +61,24 @@ CASES = [
 OVERFLOW_CAPS = dict(cap_factor=0.25, local_cap_factor=64.0)
 ENGINE_LAYERS = 2
 PROMPTS = [(12, 4), (9, 4), (5, 3)]          # (prompt length, new tokens)
+# the paged engine: page 4, chunk 8; a 4th request shares prompt 0's first
+# 8 tokens (two pages) and is admitted after prompt 0 registered them (a
+# pool with room to spare: no cached page is evicted before that)
+PAGED = dict(page_size=4, chunk_size=8, max_prompt_len=12, max_new_tokens=4,
+             n_pages=17)
+PAGED_SLOTS = {(1, 4): 2, (2, 2): 3}         # 3 slots: replicated on data
+
+
+def _paged_prompts(prompts):
+    shared = np.concatenate([prompts[0][:8], prompts[1][:2]])
+    return list(prompts) + [shared.astype(prompts[0].dtype)], \
+        [n for _, n in PROMPTS] + [3]
+
+
+def _local_hist(sub_idx, n_dev):
+    """The pre-drop load of one rank's own token block, per device."""
+    return np.bincount(np.asarray(sub_idx).reshape(-1) % n_dev,
+                       minlength=n_dev).astype(np.float32)
 
 
 def _inputs():
@@ -99,6 +124,7 @@ def jax_main(out: Path) -> None:
     from repro.models.transformer import DistContext
     from repro.serving import (ContinuousBatchingEngine, GenerationConfig,
                                ServingEngine)
+    from repro.serving.paged import PagedEngine
 
     cfg = get_config(ARCH)
     layer, xs, calib = _inputs()
@@ -199,6 +225,53 @@ def jax_main(out: Path) -> None:
                 for p, (_, n) in zip(prompts, PROMPTS)]
         ceng.drain()
         res["cont_tokens"] = [ceng.result(u).tokens for u in uids]
+
+    # the paged engine over EP: (1, 4) on the weights above; (2, 2) on the
+    # same init prepared for 2 EP devices, its loads recorded per call
+    t2params, pol2 = P.make_policy("load_aware", ecfg.dualsparse).prepare(
+        params, ecfg, ecalib, n_ep_devices=2)
+    flat = jax.tree_util.tree_flatten_with_path(t2params)[0]
+    for path, leaf in flat:
+        arrays["model2." + ".".join(p.key for p in path)] = np.asarray(leaf)
+    pprompts, pnew = _paged_prompts(prompts)
+    calls = []
+    orig = P.LoadAwareTwoT.sub_pair_keep
+
+    def rec(self, score, is_major, sub_idx, cfg, *, n_dev=1, loads=None,
+            thresholds=None):
+        coords = jnp.stack([jax.lax.axis_index("data"),
+                            jax.lax.axis_index("model")])
+        jax.debug.callback(
+            lambda c, l, s: calls.append(
+                (tuple(int(v) for v in c), np.asarray(l),
+                 _local_hist(s, n_dev), int(s.shape[0]))),
+            coords, loads, sub_idx)
+        return orig(self, score, is_major, sub_idx, cfg, n_dev=n_dev,
+                    loads=loads, thresholds=thresholds)
+
+    for shape, tp, tpol in (((1, 4), tparams, pol), ((2, 2), t2params, pol2)):
+        tag = f"paged{shape[0]}{shape[1]}"
+        mesh = make_mesh_auto(shape, ("data", "model"))
+        pdist = DistContext(mesh=mesh, moe_impl="setp", policy=tpol)
+        if shape == (2, 2):
+            P.LoadAwareTwoT.sub_pair_keep = rec
+        with use_mesh(mesh):
+            peng = PagedEngine(ecfg, tp, n_slots=PAGED_SLOTS[shape],
+                               dist=pdist, **PAGED)
+            uids = [peng.submit(p, GenerationConfig(max_new_tokens=n))
+                    for p, n in zip(pprompts, pnew)]
+            peng.drain()
+        jax.effects_barrier()
+        P.LoadAwareTwoT.sub_pair_keep = orig
+        res[f"{tag}_tokens"] = [peng.result(u).tokens for u in uids]
+        res[f"{tag}_overflow"] = int(peng.overflow_pairs)
+        res[f"{tag}_hits"] = int(peng.prefix_hits)
+    for c in {c for c, *_ in calls}:
+        mine = [x for x in calls if x[0] == c]
+        key = f"{c[0]}{c[1]}"
+        arrays[f"paged22.loads.{key}"] = np.stack([x[1] for x in mine])
+        arrays[f"paged22.local.{key}"] = np.stack([x[2] for x in mine])
+        arrays[f"paged22.ntok.{key}"] = np.asarray([x[3] for x in mine])
     np.savez(out / "jax.npz", **arrays)
     (out / "jax.json").write_text(json.dumps(res))
 
@@ -218,7 +291,8 @@ def _rank_main(rank: int, out: str) -> None:
     from repro_torch.core import setp
     from repro_torch.distributed import DistContext, make_mesh
     from repro_torch.serving import (ContinuousBatchingEngine,
-                                     GenerationConfig, ServingEngine)
+                                     GenerationConfig, PagedEngine,
+                                     ServingEngine)
 
     torch.set_num_threads(1)
     out = Path(out)
@@ -283,15 +357,17 @@ def _rank_main(rank: int, out: str) -> None:
 
     ctx = meshes[(1, 4)]
     ecfg = dataclasses.replace(cfg, n_layers=ENGINE_LAYERS)
-    tree = {}
-    for key in ref.files:
-        if key.startswith("model."):
-            node = tree
-            *path, leaf = key.split(".")[1:]
-            for p in path:
-                node = node.setdefault(p, {})
-            node[leaf] = ref[key]
-    model = params_from_numpy(tree, ecfg, device="cpu", dist=ctx)
+    def tree_of(prefix):
+        tree = {}
+        for key in ref.files:
+            if key.startswith(prefix + "."):
+                node = tree
+                *path, leaf = key.split(".")[1:]
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = ref[key]
+        return tree
+    model = params_from_numpy(tree_of("model"), ecfg, device="cpu", dist=ctx)
     pol = P.make_policy("load_aware", ecfg.dualsparse)
     prompts = [ref[f"prompt.{i}"] for i in range(len(PROMPTS))]
     eng = ServingEngine(ecfg, model, batch_size=2, max_prompt_len=12,
@@ -310,6 +386,57 @@ def _rank_main(rank: int, out: str) -> None:
     ceng.drain()
     res["cont_tokens"] = [ceng.result(u).tokens for u in uids]
     res["expert_shape"] = list(model.blocks[0].moe.w1.shape)
+
+    # the paged engine over EP, (1, 4) then (2, 2), loads recorded on (2, 2)
+    pprompts, pnew = _paged_prompts(prompts)
+    calls = []
+    orig = P.LoadAwareTwoT.sub_pair_keep
+
+    def rec(self, score, is_major, sub_idx, cfg, *, n_dev=1, loads=None,
+            thresholds=None):
+        calls.append((loads.clone().numpy(), _local_hist(sub_idx, n_dev),
+                      int(sub_idx.shape[0])))
+        return orig(self, score, is_major, sub_idx, cfg, n_dev=n_dev,
+                    loads=loads, thresholds=thresholds)
+
+    for shape, prefix in (((1, 4), "model"), ((2, 2), "model2")):
+        tag = f"paged{shape[0]}{shape[1]}"
+        pctx = meshes[shape]
+        pmodel = model if prefix == "model" else params_from_numpy(
+            tree_of(prefix), ecfg, device="cpu", dist=pctx)
+        if shape == (2, 2):
+            P.LoadAwareTwoT.sub_pair_keep = rec
+        peng = PagedEngine(ecfg, pmodel, n_slots=PAGED_SLOTS[shape],
+                           policy=pol, device="cpu", dist=pctx, **PAGED)
+        uids = [peng.submit(p, GenerationConfig(max_new_tokens=n))
+                for p, n in zip(pprompts, pnew)]
+        peng.drain()
+        P.LoadAwareTwoT.sub_pair_keep = orig
+        res[f"{tag}_tokens"] = [peng.result(u).tokens for u in uids]
+        res[f"{tag}_overflow"] = int(peng.overflow_pairs)
+        res[f"{tag}_hits"] = int(peng.prefix_hits)
+    c = f"{meshes[(2, 2)].coord('data')}{meshes[(2, 2)].coord('model')}"
+    res["paged22_coords"] = c
+    # slot counts that data = 2 divides: both slot engines refuse up front
+    refused = {}
+    for n_slots in (2, 4):
+        for name, mk in (
+                ("paged", lambda: PagedEngine(
+                    ecfg, pmodel, n_slots=n_slots, policy=pol,
+                    device="cpu", dist=meshes[(2, 2)], **PAGED)),
+                ("continuous", lambda: ContinuousBatchingEngine(
+                    ecfg, pmodel, n_slots=n_slots, max_prompt_len=12,
+                    max_new_tokens=4, policy=pol, device="cpu",
+                    dist=meshes[(2, 2)]))):
+            try:
+                mk()
+                refused[f"{name}{n_slots}"] = "built"
+            except NotImplementedError as e:
+                refused[f"{name}{n_slots}"] = str(e)
+    res["refused_on_data"] = refused
+    arrays[f"paged22.loads.{c}"] = np.stack([x[0] for x in calls])
+    arrays[f"paged22.local.{c}"] = np.stack([x[1] for x in calls])
+    arrays[f"paged22.ntok.{c}"] = np.asarray([x[2] for x in calls])
     np.savez(out / f"torch{rank}.npz", **arrays)
     (out / f"torch{rank}.json").write_text(json.dumps(res))
     dist.barrier()
@@ -497,6 +624,68 @@ def test_engines_serve_jax_tokens_under_setp(worlds):
         assert r["sync_overflow"] == jr["sync_overflow"]
         assert r["sync_subpairs"] == ranks[0][1]["sync_subpairs"]
     assert sum(ranks[0][1]["sync_subpairs"].values()) > 0
+
+
+def test_paged_engine_serves_jax_tokens_under_setp(worlds):
+    """The paged engine (chunked prefill, page 4, chunk 8, a shared 8-token
+    prefix) with the EP context, load_aware at the bf16 wire: JAX's
+    ``PagedEngine(dist=...)`` greedy tokens, overflow count and prefix
+    hits on every rank, on (1, 4) and on (2, 2)."""
+    _, jr, ranks = worlds
+    for tag in ("paged14", "paged22"):
+        assert jr[f"{tag}_hits"] == 2
+        for _, r in ranks:
+            assert r[f"{tag}_tokens"] == jr[f"{tag}_tokens"], tag
+            assert r[f"{tag}_overflow"] == jr[f"{tag}_overflow"], tag
+            assert r[f"{tag}_hits"] == jr[f"{tag}_hits"], tag
+        assert [len(t) for t in jr[f"{tag}_tokens"]] == [4, 4, 3, 3]
+
+
+def test_quirk_paged_loads_counted_per_data_rank(worlds):
+    """Reference quirk, mirrored on the paged engine's every step: a
+    chunk's batch of 1 and a decode step's 3 slots do not divide over
+    ``data`` = 2, so the batch is replicated there, yet the loads
+    all-reduce sums over ``data``: the loads the policy reads are twice the
+    true histogram (each token counted once: the sum of the local blocks
+    over ``model``), in both packages. Decode steps (3 tokens, replicated
+    over ``model`` too) are checked per call, chunk steps (4 tokens, the
+    chunk's halves over ``model``) in sum, the calls' order being the
+    devices' own in JAX."""
+    ja, _, ranks = worlds
+    port = {}
+    for a, r in ranks:
+        c = r["paged22_coords"]
+        port[c] = {k: a[f"paged22.{k}.{c}"] for k in ("loads", "local",
+                                                       "ntok")}
+    jax_side = {c: {k: ja[f"paged22.{k}.{c}"] for k in ("loads", "local",
+                                                        "ntok")}
+                for c in _coords((2, 2))}
+    for side in (jax_side, port):
+        assert sorted(side) == _coords((2, 2))
+        for c, rec in side.items():
+            dec, chk = rec["ntok"] == 3, rec["ntok"] == 4
+            assert dec.sum() > 0 and chk.sum() > 0
+            assert dec.sum() + chk.sum() == len(rec["ntok"])
+            np.testing.assert_array_equal(rec["loads"][dec],
+                                          2 * rec["local"][dec])
+            both = sum(side[f"{c[0]}{m}"]["local"][
+                side[f"{c[0]}{m}"]["ntok"] == 4].sum(0) for m in range(2))
+            np.testing.assert_array_equal(rec["loads"][chk].sum(0),
+                                          2 * both)
+
+
+def test_slot_engines_refuse_slot_counts_split_over_data(worlds):
+    """Under S-ETP a decode batch of n_slots splits over ``data`` when
+    ``data`` divides it, while the per-slot thresholds enter whole; both
+    slot engines refuse such a slot count when they are built (JAX fails
+    on the first decode step instead), on every rank of (2, 2)."""
+    _, _, ranks = worlds
+    for _, r in ranks:
+        got = r["refused_on_data"]
+        assert sorted(got) == ["continuous2", "continuous4", "paged2",
+                               "paged4"]
+        for key, msg in got.items():
+            assert "per-slot thresholds" in msg and "('data',)" in msg, key
 
 
 if __name__ == "__main__":
