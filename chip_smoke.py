@@ -104,6 +104,28 @@
    time). Then the card against the CPU at full width, depth cut to 2 +
    2 layers, on the same weights: prefill logits, and 4 decode steps over
    the bf16 caches. No kernel of ours.
+15. Train over EP: a world of 4 ranks on this card over gloo, as phase
+   11, on a (data 1, model 4) mesh with ``remat``. (a) Reduced
+   Qwen3-30B-A3B prepared by ``load_aware`` for the 4 ranks: the
+   gradients of ``loss_fn`` and two AdamW steps on the card and on the
+   CPU in each rank (TF32 off), at the float32 wire (bars as phase 13
+   (a)) and at the default bf16 wire (the bf16 bars of
+   tests/test_torch_train_world.py); at the float32 wire a sharded
+   checkpoint after step 1 (the experts gathered over ``model``, the
+   first rank writes), restored into a fresh model and state, runs step
+   2 as the straight run did, bit for bit. (b) Qwen3-30B-A3B at full
+   width, depth cut from 48 to 2 layers, ``none`` placed for the 4 ranks
+   (32 of 128 experts each), 4 AdamW steps at 4 x 256: each rank's step
+   time, tokens/s, the collectives' host time in the forward and in the
+   backward pass (the remat recompute included), peak memory; one step
+   with ``remat`` off (fewer collectives in its backward pass, which
+   shows it ran without the recompute), and the peak of one forward and
+   backward alone with and without ``remat``; the ranks' losses equal
+   and their
+   replicated leaves bit for bit equal (deterministic algorithms on).
+   (c) Whisper-large-v3 at full width, 4 + 4 of 32 + 32 layers: one
+   train step under the context against one without (rel 1e-5), prefill
+   and a decode step under it. No kernel of ours.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
@@ -1906,11 +1928,14 @@ class plain_kernels:
 
 
 def timed_collectives(ctx):
-    """A copy of the EP context whose collectives add their host time, the
-    card synchronised before and after each, to ``spent``."""
+    """A copy of the EP context (every field) whose collectives add their
+    host time, the card synchronised before and after each, to
+    ``spent["ms"]`` / ``spent["calls"]``, and those that autograd's
+    backward pass runs (a remat recompute's included) also to
+    ``spent["backward_ms"]`` / ``spent["backward_calls"]``."""
     import torch
     from repro_torch.distributed import DistContext
-    spent = {"ms": 0.0, "calls": 0}
+    spent = {"ms": 0.0, "calls": 0, "backward_ms": 0.0, "backward_calls": 0}
 
     class Timed(DistContext):
         def _timed(self, name, *args):
@@ -1918,8 +1943,12 @@ def timed_collectives(ctx):
             t0 = time.perf_counter()
             out = getattr(DistContext, name)(self, *args)
             torch.cuda.synchronize()
-            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            spent["ms"] += ms
             spent["calls"] += 1
+            if torch._C._current_graph_task_id() != -1:
+                spent["backward_ms"] += ms
+                spent["backward_calls"] += 1
             return out
 
         def psum(self, t, axis):
@@ -1931,7 +1960,11 @@ def timed_collectives(ctx):
         def all_gather(self, t, axis):
             return self._timed("all_gather", t, axis)
 
-    return Timed(ctx.mesh, ctx.moe_impl), spent
+        def psum_scatter(self, t, axis):
+            return self._timed("psum_scatter", t, axis)
+
+    return Timed(**{f.name: getattr(ctx, f.name)
+                    for f in dataclasses.fields(ctx)}), spent
 
 
 def _unplace(w, n_dev: int):
@@ -1995,11 +2028,28 @@ def _ep_prepare(rank: int, ctx, cfg, tokens, dev):
     return model, policy, y_ref, info
 
 
+def join_ep_world(rank: int, out: Path, dev_type: str):
+    """This rank's setup in a world of SETP_RANKS processes on the one card
+    (TF32 off, two host threads, gloo over a FileStore under ``out``):
+    returns the rank's device."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)          # 4 ranks share the host's cores
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), SETP_RANKS),
+        rank=rank, world_size=SETP_RANKS,
+        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    return torch.device(dev_type)
+
+
 def ep_rank(rank: int, out: str, dev_type: str) -> None:
     """One rank of phase 11 (run by ``ep_phase`` in its own process, all
     ranks on the one device of type ``dev_type``, gloo over a FileStore).
     Writes ``rank<r>.json``; any failure raises out of the process."""
-    import datetime
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2011,16 +2061,8 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      GenerationConfig, PagedEngine,
                                      ServingEngine)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(2)          # 4 ranks share the host's cores
-    dev = torch.device(dev_type)
-    torch.cuda.set_device(0)
     out = Path(out)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(str(out / "store"), SETP_RANKS),
-        rank=rank, world_size=SETP_RANKS,
-        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    dev = join_ep_world(rank, out, dev_type)
     ctx = DistContext(make_mesh((1, SETP_RANKS), ("data", "model")))
     full = get_config("qwen3-moe-30b-a3b")
     cfg = dataclasses.replace(full, n_layers=N_LAYERS)
@@ -2892,6 +2934,456 @@ def whisper_phase(dev) -> dict:
     return st
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training over EP, 4 ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TRAIN_EP_LAYERS = 2     # depth cut of the full-width EP training (of 48)
+TRAIN_EP_B, TRAIN_EP_S, TRAIN_EP_STEPS = 4, 256, 4
+TRAIN_EP_PARITY_B, TRAIN_EP_PARITY_S = 4, 64
+WHISPER_EP_LAYERS = 4   # encoder and decoder layers of (c) (of 32 + 32)
+WHISPER_EP_B, WHISPER_EP_S = 2, 64
+WHISPER_EP_TOL = 1e-5   # the step under the context vs without: same ops
+# (a)'s bars per wire: float32 those of phase 13; bf16 those of
+# tests/test_torch_train_world.py's bf16 case (the two devices' float32
+# sums land some elements one bf16 ulp apart before each cast; "moved":
+# the share of a leaf's elements whose update differs by more than half
+# the leaf's largest update)
+TRAIN_EP_BARS = {
+    "float32": dict(loss=PARITY_LOSS_TOL, grad=PARITY_UPDATE_TOL,
+                    update=PARITY_UPDATE_TOL, moved=0.0),
+    "bfloat16": dict(loss=1e-4, grad=1e-2, update=0.15, moved=0.01)}
+
+
+def _moved(got, want) -> float:
+    ref = want.abs().max()
+    return float(((got - want).abs() > 0.5 * ref).double().mean())
+
+
+def _train_ep_parity(ctx, dev, wire: str, ckpt: bool) -> dict:
+    """(a) Reduced Qwen3-30B-A3B prepared by ``load_aware`` for the EP
+    ranks, ``remat`` on, S-ETP's wire at ``wire`` (``setp_moe_forward``'s
+    default, bf16, patched for this run as the tests patch it): the
+    gradients of ``loss_fn`` and two AdamW steps on the card and on the
+    CPU in this rank, held to ``TRAIN_EP_BARS[wire]`` by the caller. With
+    ``ckpt``, on the card a checkpoint after step 1 (sharded: the experts
+    gathered, the first rank writes), restored into a fresh model and
+    state, runs step 2 as the straight run did, bit for bit."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.from_numpy import (params_from_numpy,
+                                                   params_to_numpy)
+    from repro_torch.configs import get_config
+    from repro_torch.core import setp
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import pipeline
+    from repro_torch.data.pipeline import calibration_activations
+    from repro_torch.launch.train import restore_state, save_state
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    model = M.init_params(cfg, seed=3, device="cpu")
+    calib = calibration_activations(np.random.default_rng(7), 256,
+                                    cfg.d_model, device="cpu")
+    model, policy = make_policy("load_aware", cfg.dualsparse).prepare(
+        model, cfg, calib, n_ep_devices=ctx.size("model"))
+    tree = params_to_numpy(model)
+    loader = pipeline.make_loader(cfg, TRAIN_EP_PARITY_B, TRAIN_EP_PARITY_S,
+                                  seed=3)
+    ckpt_dir = ROOT / "build" / "train_ep_ckpt"
+    if ckpt and ctx.is_origin():
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.distributed.barrier()
+
+    def fresh(d):
+        m = params_from_numpy(tree, cfg, device=d, dist=ctx)
+        opt = adamw(cosine_schedule(TRAIN_LR, 2, warmup=1))
+        return m, opt, opt.init(M.trainable(m)), M.make_train_step(
+            cfg, opt, aux_coef=AUX_COEF, dist=ctx, policy=policy)
+    defaults = setp.setp_moe_forward.__kwdefaults__
+    default_wire = defaults["wire_dtype"]
+    defaults["wire_dtype"] = getattr(torch, wire)
+    out = {}
+    try:
+        for where, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            m, opt, st, step = fresh(d)
+            start = {n: p.detach().cpu().clone() for n, p in
+                     m.named_parameters()}
+            params = M.set_trainable(m)
+            with torch.enable_grad():
+                loss = M.loss_fn(m, loader.get_batch(0), cfg,
+                                 aux_coef=AUX_COEF, dist=ctx, policy=policy)
+                grads = torch.autograd.grad(loss, list(params.values()))
+            losses = [float(step(m, st, loader.get_batch(0)))]
+            if ckpt and where == "cuda":
+                save_state(str(ckpt_dir), 1, m, st, dist=ctx)
+            losses.append(float(step(m, st, loader.get_batch(1))))
+            out[where] = {"losses": [float(loss.detach())] + losses,
+                          "grads": {n: g.cpu() for n, g in zip(params,
+                                                               grads)},
+                          "update": {n: p.detach().cpu() - start[n]
+                                     for n, p in m.named_parameters()}}
+            if ckpt and where == "cuda":
+                m2, _, st2, step2 = fresh(d)
+                restore_state(str(ckpt_dir), m2, st2, dist=ctx)
+                resumed = float(step2(m2, st2, loader.get_batch(1)))
+                out["resume_bitwise"] = resumed == losses[1] and all(
+                    torch.equal(a, b) for a, b in zip(m2.parameters(),
+                                                      m.parameters()))
+                del m2, st2
+            del m, st
+    finally:
+        defaults["wire_dtype"] = default_wire
+    c, p = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(c["losses"], p["losses"]))
+    grad_rel = {n: norm_rel(c["grads"][n], p["grads"][n])
+                for n in c["grads"]}
+    upd_rel = {n: norm_rel(c["update"][n], p["update"][n])
+               for n in c["update"]}
+    moved = {n: _moved(c["update"][n], p["update"][n]) for n in c["update"]}
+    wg, wu = max(grad_rel, key=grad_rel.get), max(upd_rel, key=upd_rel.get)
+    wm = max(moved, key=moved.get)
+    return {"wire": wire, "losses_card": c["losses"],
+            "losses_cpu": p["losses"],
+            "loss_rel": loss_rel, "worst_grad": [wg, grad_rel[wg]],
+            "worst_update": [wu, upd_rel[wu]], "worst_moved": [wm, moved[wm]],
+            "expert_shape": list(c["grads"]["blocks.0.moe.w1"].shape),
+            "resume_bitwise": out.get("resume_bitwise")}
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _train_ep_full(ctx, dev) -> dict:
+    """(b) Qwen3-30B-A3B at full width, ``TRAIN_EP_LAYERS`` of 48 layers,
+    ``none`` prepared for the EP ranks (strided placement, 32 of 128
+    experts per rank), ``remat`` on: ``TRAIN_EP_STEPS`` AdamW steps of
+    TRAIN_EP_B x TRAIN_EP_S tokens; then one step with ``remat`` off, and
+    the peak of one forward and backward alone with and without it."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import setp
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              n_layers=TRAIN_EP_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    model, policy = make_policy("none", cfg.dualsparse).prepare(
+        model, cfg, n_ep_devices=ctx.size("model"))
+    setp.shard_experts(model, ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    names = M.expert_shard_names(model)
+    n_params = sum(p.numel() for p in M.trainable(model).values())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if n in names)
+    tctx, spent = timed_collectives(ctx)
+    opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_EP_STEPS, warmup=1))
+    state = opt.init(M.trainable(model))
+    step = M.make_train_step(cfg, opt, aux_coef=AUX_COEF, dist=tctx,
+                             policy=policy)
+    loader = pipeline.make_loader(cfg, TRAIN_EP_B, TRAIN_EP_S, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    for i in range(TRAIN_EP_STEPS):
+        for k in spent:
+            spent[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model, state, loader.get_batch(i))
+        torch.cuda.synchronize()
+        steps.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+            grad_norm=float(opt.last_grad_norm),
+            forward_ms=spent["ms"] - spent["backward_ms"],
+            forward_calls=spent["calls"] - spent["backward_calls"],
+            backward_ms=spent["backward_ms"],
+            backward_calls=spent["backward_calls"]))
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    digests = {n: _digest(p) for n, p in model.named_parameters()
+               if n not in names}
+    # remat off: one step (its time, collectives and peak); then one
+    # forward and backward alone under each setting, for the peak that
+    # remat can lower (AdamW's update, which may set a step's peak, left
+    # out). The recompute's collectives run in the backward pass, so the
+    # step without remat runs fewer there.
+    plain_ctx = dataclasses.replace(tctx, remat=False)
+    plain = M.make_train_step(cfg, opt, aux_coef=AUX_COEF, dist=plain_ctx,
+                              policy=policy)
+    for k in spent:
+        spent[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = plain(model, state, loader.get_batch(TRAIN_EP_STEPS))
+    torch.cuda.synchronize()
+    no_remat = dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    backward_ms=spent["backward_ms"],
+                    backward_calls=spent["backward_calls"])
+    del plain
+    params = M.set_trainable(model)
+    grad_peak = {}
+    for name, c in (("remat", tctx), ("no_remat", plain_ctx)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            loss = M.loss_fn(model, loader.get_batch(0), cfg,
+                             aux_coef=AUX_COEF, dist=c, policy=policy)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        peak = torch.cuda.max_memory_allocated()
+        grad_peak[name] = dict(peak_gb=peak / 1e9,
+                               above_resident_gb=(peak - base) / 1e9,
+                               loss=float(loss.detach()))
+        del loss, grads
+    del model, state, opt, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"setup_s": setup_s, "resident_gb": resident_gb,
+            "n_params": n_params,
+            "n_expert_params": n_expert, "steps": steps, "peak_gb": peak_gb,
+            "digests": digests, "counts": counts, "no_remat": no_remat,
+            "grad_peak": grad_peak}
+
+
+def _train_ep_whisper(ctx, dev) -> dict:
+    """(c) Whisper-large-v3 at full width, WHISPER_EP_LAYERS + same of 32 +
+    32 layers: one AdamW step under the EP context (``remat`` on) against
+    the same step without it; prefill and a decode step under the
+    context against those without."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              n_layers=WHISPER_EP_LAYERS,
+                              encoder_layers=WHISPER_EP_LAYERS)
+    model = M.init_params(cfg, seed=0, device=dev)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loader = pipeline.make_loader(cfg, WHISPER_EP_B, WHISPER_EP_S, seed=0)
+    batch = loader.get_batch(0)
+    got = {}
+    for name, d in (("ctx", ctx), ("plain", None)):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        opt = adamw(TRAIN_LR)
+        st = opt.init(M.trainable(model))
+        step = M.make_train_step(cfg, opt, dist=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(model, st, batch))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        update = {n: p.detach() - init[n]
+                  for n, p in model.named_parameters()}
+        with torch.no_grad():
+            pb = M.to_device({k: v for k, v in batch.items()
+                              if k != "targets"}, dev)
+            pb["tokens"] = pb["tokens"].long()
+            logits, cache = M.make_prefill_step(
+                cfg, cache_len=WHISPER_EP_S + 1, dist=d)(model, pb)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            dlogits, _ = M.make_serve_step(cfg, dist=d)(model, tok, cache)
+        got[name] = dict(loss=loss, ms=ms, update=update, prefill=logits,
+                         decode=dlogits)
+        del st, opt, cache
+    c, p = got["ctx"], got["plain"]
+    upd = max(norm_rel(c["update"][n], p["update"][n]) for n in init)
+    res = {"loss_ctx": c["loss"], "loss_plain": p["loss"],
+           "loss_rel": abs(c["loss"] - p["loss"]) / abs(p["loss"]),
+           "worst_update_rel": upd, "step_ms_ctx": c["ms"],
+           "step_ms_plain": p["ms"],
+           "prefill_rel": norm_rel(c["prefill"], p["prefill"]),
+           "decode_rel": norm_rel(c["decode"], p["decode"]),
+           "finite": bool(torch.isfinite(c["prefill"]).all()
+                          and torch.isfinite(c["decode"]).all())}
+    del model, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_ep_rank(rank: int, out: str, dev_type: str) -> None:
+    """One rank of phase 15 (run by ``train_ep_phase`` in its own process,
+    all ranks on the one device of type ``dev_type``, gloo over a
+    FileStore). Deterministic algorithms on, so the ranks' replicated
+    leaves stay bit for bit equal (the embedding's backward accumulates
+    with atomics otherwise). Writes ``rank<r>.json``."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import DistContext, make_mesh
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = Path(out)
+    dev = join_ep_world(rank, out, dev_type)
+    ctx = DistContext(make_mesh((1, SETP_RANKS), ("data", "model")),
+                      remat=True)
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    res["parity"] = [_train_ep_parity(ctx, dev, "float32", ckpt=True),
+                     _train_ep_parity(ctx, dev, "bfloat16", ckpt=False)]
+    res["parity_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["full"] = _train_ep_full(ctx, dev)
+    res["full"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["whisper"] = _train_ep_whisper(ctx, dev)
+    res["whisper"]["wall_s"] = time.perf_counter() - t0
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_ep_phase(dev) -> dict:
+    """Phase 15: spawn the 4 ranks (one process each, all on ``dev``'s
+    card, gloo over a FileStore under build/), wait for them (a failing
+    rank fails the phase), read their results and hold them to the bars.
+    No kernel of ours launches: training runs the differentiable route."""
+    import math
+    import shutil
+    import torch.multiprocessing as mp
+    import torch
+    out = ROOT / "build" / "train_ep_world"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        log(f"  the card before the ranks start: {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free")
+    t0 = time.perf_counter()
+    mp.spawn(train_ep_rank, args=(str(out), dev.type), nprocs=SETP_RANKS,
+             join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(SETP_RANKS)]
+    ok = {}
+    for i, wire in enumerate(TRAIN_EP_BARS):
+        a, bar = [r["parity"][i] for r in ranks], TRAIN_EP_BARS[wire]
+        assert all(x["wire"] == wire for x in a)
+        ok[f"a_card_vs_cpu_{wire}"] = all(
+            x["loss_rel"] <= bar["loss"] and x["worst_grad"][1] <= bar["grad"]
+            and x["worst_update"][1] <= bar["update"]
+            and x["worst_moved"][1] <= bar["moved"] for x in a)
+        log(f"  (a) reduced Qwen3, load_aware for {SETP_RANKS} EP ranks "
+            f"(experts {a[0]['expert_shape']} per rank), remat, {wire} "
+            "wire, 2 steps, card "
+            f"vs CPU: losses {[round(v, 6) for v in a[0]['losses_card']]} vs "
+            f"{[round(v, 6) for v in a[0]['losses_cpu']]}; per rank loss rel "
+            + ", ".join(f"{x['loss_rel']:.2e}" for x in a)
+            + f" (bar {bar['loss']:g}), worst gradient "
+            + ", ".join(f"{x['worst_grad'][0]} {x['worst_grad'][1]:.2e}"
+                        for x in a)
+            + f" (bar {bar['grad']:g}), worst update "
+            + ", ".join(f"{x['worst_update'][0]} {x['worst_update'][1]:.2e}"
+                        for x in a)
+            + f" (bar {bar['update']:g}), most moved "
+            + ", ".join(f"{x['worst_moved'][0]} {x['worst_moved'][1]:.2e}"
+                        for x in a)
+            + f" (bar {bar['moved']:g})")
+    a = [r["parity"][0] for r in ranks]
+    ok["a_resume_bitwise"] = all(x["resume_bitwise"] for x in a)
+    log("  (a) sharded checkpoint after step 1 (float32 wire), resumed step "
+        f"2 bitwise: {[x['resume_bitwise'] for x in a]}; (a) took "
+        + ", ".join(f"{r['parity_wall_s']:.1f}" for r in ranks) + " s")
+    b = [r["full"] for r in ranks]
+    tokens = TRAIN_EP_B * TRAIN_EP_S
+    for r, x in zip(ranks, b):
+        med = statistics.median(s["ms"] for s in x["steps"][1:])
+        x["median_step_ms"] = med
+        x["tokens_per_s"] = tokens / (med / 1e3)
+        x["median_forward_collective_ms"] = statistics.median(
+            s["forward_ms"] for s in x["steps"][1:])
+        x["median_backward_collective_ms"] = statistics.median(
+            s["backward_ms"] for s in x["steps"][1:])
+        log(f"  (b) rank {r['rank']}: steps "
+            + ", ".join(f"{s['ms']:.1f}" for s in x["steps"])
+            + f" ms (median of 2-{TRAIN_EP_STEPS} {med:.1f} ms, "
+            f"{x['tokens_per_s']:.0f} tokens/s); collectives forward "
+            f"{x['median_forward_collective_ms']:.1f} ms in "
+            f"{x['steps'][-1]['forward_calls']} calls, backward "
+            f"{x['median_backward_collective_ms']:.1f} ms in "
+            f"{x['steps'][-1]['backward_calls']} calls; losses "
+            f"{[round(s['loss'], 5) for s in x['steps']]}; grad norms "
+            f"{[round(s['grad_norm'], 4) for s in x['steps']]}; peak "
+            f"{x['peak_gb']:.2f} GB; remat off: step "
+            f"{x['no_remat']['ms']:.1f} ms, peak "
+            f"{x['no_remat']['peak_gb']:.2f} GB, backward collectives "
+            f"{x['no_remat']['backward_ms']:.1f} ms in "
+            f"{x['no_remat']['backward_calls']} calls; forward and backward "
+            "alone, peak with / without remat "
+            f"{x['grad_peak']['remat']['peak_gb']:.2f} / "
+            f"{x['grad_peak']['no_remat']['peak_gb']:.2f} GB ("
+            f"{x['grad_peak']['remat']['above_resident_gb']:.2f} / "
+            f"{x['grad_peak']['no_remat']['above_resident_gb']:.2f} above "
+            f"resident); setup {x['setup_s']:.1f} s, "
+            f"{x['resident_gb']:.2f} GB resident")
+    b0 = b[0]
+    log(f"  (b) Qwen3-30B-A3B full width, {TRAIN_EP_LAYERS} of 48 layers, "
+        f"none for {SETP_RANKS} EP ranks, remat: {b0['n_params'] / 1e6:.1f} "
+        f"M trainable parameters per rank ({b0['n_expert_params'] / 1e6:.1f}"
+        f" M of them expert shards), {TRAIN_EP_B} x {TRAIN_EP_S} tokens, "
+        f"aux {AUX_COEF}, lr {TRAIN_LR}; kernel counters {b0['counts']}")
+    ok["b_losses_equal"] = all(
+        [s["loss"] for s in x["steps"]] == [s["loss"] for s in b0["steps"]]
+        and x["no_remat"]["loss"] == b0["no_remat"]["loss"] for x in b)
+    ok["b_remat_off_ran"] = all(
+        x["no_remat"]["backward_calls"] < x["steps"][-1]["backward_calls"]
+        and x["grad_peak"]["remat"]["loss"]
+        == x["grad_peak"]["no_remat"]["loss"] for x in b)
+    ok["b_replicated_leaves_bitwise"] = all(x["digests"] == b0["digests"]
+                                            for x in b)
+    ok["b_finite"] = all(math.isfinite(s["loss"]) for s in b0["steps"])
+    ok["b_no_kernel_launched"] = all(
+        not any(v["launches"] or v["plain_calls"] or
+                v.get("launches_bf16", 0) for v in x["counts"].values())
+        for x in b)
+    c = [r["whisper"] for r in ranks]
+    ok["c_whisper_step_equal"] = all(
+        x["loss_rel"] <= WHISPER_EP_TOL
+        and x["worst_update_rel"] <= WHISPER_EP_TOL for x in c)
+    ok["c_whisper_serve_equal"] = all(
+        x["finite"] and x["prefill_rel"] <= WHISPER_EP_TOL
+        and x["decode_rel"] <= WHISPER_EP_TOL for x in c)
+    log(f"  (c) Whisper-large-v3 full width, {WHISPER_EP_LAYERS} + "
+        f"{WHISPER_EP_LAYERS} of 32 + 32 layers, {WHISPER_EP_B} x "
+        f"(1500 frames, {WHISPER_EP_S} tokens): one step under the context "
+        "(remat) vs without, per rank: loss rel "
+        + ", ".join(f"{x['loss_rel']:.2e}" for x in c)
+        + ", worst update rel "
+        + ", ".join(f"{x['worst_update_rel']:.2e}" for x in c)
+        + f" (bar {WHISPER_EP_TOL:g}); step {c[0]['step_ms_ctx']:.1f} ms "
+        f"under it vs {c[0]['step_ms_plain']:.1f} ms; prefill / decode "
+        "logits rel "
+        + ", ".join(f"{x['prefill_rel']:.2e} / {x['decode_rel']:.2e}"
+                    for x in c))
+    log(f"  phase 15: {SETP_RANKS} ranks in {wall:.1f} s (spawn to join) "
+        "-> " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                          for k, v in ok.items()))
+    if not all(ok.values()):
+        raise SystemExit(f"phase 15 failed: {ok}")
+    return dict(wall_s=wall, ranks=ranks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2986,6 +3478,16 @@ def main() -> int:
         f"(1500 stub frames, {WHISPER_S} tokens) x {WHISPER_NEW}; card vs "
         f"CPU at {WHISPER_CHECK_LAYERS} + {WHISPER_CHECK_LAYERS} layers")
     whisper = whisper_phase(dev)
+    free_memory()
+    log(f"phase 15: train over EP, {SETP_RANKS} ranks on this card (gloo, "
+        f"the wire through host memory): reduced Qwen3 card vs CPU at the "
+        f"float32 and bf16 wires with a sharded checkpoint round trip; "
+        f"Qwen3-30B-A3B full width "
+        f"({TRAIN_EP_LAYERS} of 48 layers) {TRAIN_EP_STEPS} steps at "
+        f"{TRAIN_EP_B} x {TRAIN_EP_S}, remat; Whisper-large-v3 "
+        f"({WHISPER_EP_LAYERS} + {WHISPER_EP_LAYERS} layers) under the "
+        f"context vs without")
+    train_ep = train_ep_phase(dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2995,7 +3497,8 @@ def main() -> int:
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
-                   "minicpm3": mla, "train": train, "whisper": whisper},
+                   "minicpm3": mla, "train": train, "whisper": whisper,
+                   "train_ep": train_ep},
                   fh, indent=1)
 
     def kernel_entry(name, replaces, case_list, case, launches, at=None,

@@ -24,7 +24,11 @@ The inverse maps restack a model's per-layer modules into that tree
 (``opt_state_to_numpy``: an ``optim.AdamWState`` of numpy leaves, whose
 fields flatten to ``step``, ``mu/...``, ``nu/...`` as JAX's ``AdamWState``
 does); ``load_params`` / ``load_opt_state`` copy such trees back into an
-existing model and state in place.
+existing model and state in place. A model holding its rank's S-ETP
+expert shards maps to the JAX package's global arrays given its EP
+context: each expert leaf (and its moments) is all-gathered over
+``model`` into the full stack in placement order, and loading keeps the
+rank's slice of it again.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.model import empty_model
+from ..models.model import empty_model, expert_shard_names
 from ..models.transformer import Transformer
 from ..optim import AdamWState
 
@@ -141,47 +145,89 @@ def _to_numpy_tree(named: Mapping[str, torch.Tensor]) -> Dict:
     return _restack(named, _host, lambda ts: _host(torch.stack(ts)))
 
 
-def _check_unsharded(model: Transformer) -> None:
-    for m in model.modules():
-        if getattr(m, "ep_shards", 1) != 1:
-            raise ValueError("a model holding one rank's S-ETP shard of the "
-                             "experts has no JAX tree of its own")
+def _shards(model: Transformer, dist) -> Tuple[str, ...]:
+    """The model's expert-shard leaves; they need the EP context."""
+    names = expert_shard_names(model)
+    if names and dist is None:
+        raise ValueError("a model holding one rank's S-ETP shard of the "
+                         "experts has no JAX tree of its own: pass its EP "
+                         "context")
+    return names
 
 
-def params_to_numpy(model: Transformer) -> Dict:
+def _gathered(named: Mapping[str, torch.Tensor], shards, dist
+              ) -> Dict[str, torch.Tensor]:
+    """``named`` with each leaf of ``shards`` all-gathered over ``model``
+    into the full stack in placement order, on the host (every rank joins
+    each gather, in the same order)."""
+    out = dict(named)
+    for k in shards:
+        if k in out:
+            t = out[k].detach()
+            out[k] = dist.all_gather(t, "model").cpu().reshape(
+                (-1,) + tuple(t.shape[1:]))
+    return out
+
+
+def join_gathers(model: Transformer, state: AdamWState, dist) -> None:
+    """What a rank that writes no checkpoint runs while the writing rank
+    builds ``params_to_numpy`` and ``opt_state_to_numpy``: the same
+    all-gathers in the same order, their results dropped."""
+    shards = _shards(model, dist)
+    for named in (dict(model.named_parameters()), state.mu, state.nu):
+        for k in shards:
+            if k in named:
+                dist.all_gather(named[k].detach(), "model")
+
+
+def params_to_numpy(model: Transformer, dist=None) -> Dict:
     """The model's weights as the JAX package's parameter tree of numpy
-    arrays (the layout ``params_from_numpy`` loads)."""
-    _check_unsharded(model)
-    return _to_numpy_tree(dict(model.named_parameters()))
+    arrays (the layout ``params_from_numpy`` loads); a model of expert
+    shards needs its EP context ``dist`` (every rank joins the gathers)."""
+    named = dict(model.named_parameters())
+    return _to_numpy_tree(_gathered(named, _shards(model, dist), dist))
 
 
-def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+def opt_state_to_numpy(state: AdamWState, model: Optional[Transformer] = None,
+                       dist=None) -> AdamWState:
     """The AdamW state with its moments restacked into the JAX tree, numpy
-    leaves throughout (``step`` an int32 scalar array)."""
-    return AdamWState(step=_host(state.step), mu=_to_numpy_tree(state.mu),
-                      nu=_to_numpy_tree(state.nu))
+    leaves throughout (``step`` an int32 scalar array). The moments of a
+    model of expert shards (``model``, with its EP context ``dist``) are
+    gathered as the weights are."""
+    shards = _shards(model, dist) if model is not None else ()
+    return AdamWState(step=_host(state.step),
+                      mu=_to_numpy_tree(_gathered(state.mu, shards, dist)),
+                      nu=_to_numpy_tree(_gathered(state.nu, shards, dist)))
 
 
-def _spec_tree(named: Mapping[str, torch.Tensor]) -> Dict:
+def _spec_tree(named: Mapping[str, torch.Tensor], shards=(), n_dev: int = 1
+               ) -> Dict:
     """The tree of ``named`` as shape/dtype-only (meta) tensors: a restore
-    target that allocates nothing."""
+    target that allocates nothing (the leaves of ``shards`` at their
+    gathered size, ``n_dev`` shards)."""
     def meta(shape, t):
         return torch.empty(shape, dtype=t.dtype, device="meta")
+    named = {k: meta((n_dev * t.shape[0],) + tuple(t.shape[1:]), t)
+             if k in shards else t for k, t in named.items()}
     return _restack(named, lambda t: meta(t.shape, t),
                     lambda ts: meta((len(ts),) + tuple(ts[0].shape), ts[0]))
 
 
-def train_state_spec(model: Transformer, state: AdamWState) -> Dict:
+def train_state_spec(model: Transformer, state: AdamWState,
+                     dist=None) -> Dict:
     """``{"params": ..., "opt": AdamWState}`` of meta tensors shaped as the
     JAX trees of the model and its AdamW state: the target
     ``checkpoint.io.restore_checkpoint`` checks a training checkpoint
-    against."""
-    _check_unsharded(model)
-    return {"params": _spec_tree(dict(model.named_parameters())),
+    against (a model of expert shards, with its EP context: the global
+    arrays' shapes)."""
+    shards = _shards(model, dist)
+    n_dev = dist.size("model") if shards else 1
+    return {"params": _spec_tree(dict(model.named_parameters()), shards,
+                                 n_dev),
             "opt": AdamWState(step=torch.empty((), dtype=state.step.dtype,
                                                device="meta"),
-                              mu=_spec_tree(state.mu),
-                              nu=_spec_tree(state.nu))}
+                              mu=_spec_tree(state.mu, shards, n_dev),
+                              nu=_spec_tree(state.nu, shards, n_dev))}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -207,7 +253,11 @@ def _unstack(tree: Mapping) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def _copy_into(dst: Mapping[str, torch.Tensor], tree: Mapping) -> None:
+def _copy_into(dst: Mapping[str, torch.Tensor], tree: Mapping, shards=(),
+               dist=None) -> None:
+    """Copy the leaves of ``tree`` into ``dst``; each leaf of ``shards``
+    is a global stack of which ``dst`` keeps the rank's slice at its
+    ``model`` coordinate (``core.setp.expert_shard``)."""
     src = _unstack(tree)
     missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
     if missing or extra:
@@ -215,21 +265,30 @@ def _copy_into(dst: Mapping[str, torch.Tensor], tree: Mapping) -> None:
                        f"unexpected {extra}")
     for k, t in dst.items():
         a = np.asarray(src[k])
+        if k in shards:
+            n = a.shape[0] // dist.size("model")
+            a = a[dist.coord("model") * n:(dist.coord("model") + 1) * n]
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {k}: {a.shape} vs "
                              f"{tuple(t.shape)}")
         t.copy_(torch.from_numpy(a).to(t.dtype))
 
 
-def load_params(model: Transformer, tree: Mapping) -> None:
+def load_params(model: Transformer, tree: Mapping, dist=None) -> None:
     """Copy a JAX-layout parameter tree into the model's weights in place
-    (same leaves, same shapes)."""
-    _copy_into(dict(model.named_parameters()), tree)
+    (same leaves, same shapes; a model of expert shards keeps its slice of
+    each global expert stack, given its EP context ``dist``)."""
+    _copy_into(dict(model.named_parameters()), tree, _shards(model, dist),
+               dist)
 
 
-def load_opt_state(state: AdamWState, tree: AdamWState) -> None:
-    """Copy an AdamW state tree (JAX layout) into ``state`` in place."""
+def load_opt_state(state: AdamWState, tree: AdamWState,
+                   model: Optional[Transformer] = None, dist=None) -> None:
+    """Copy an AdamW state tree (JAX layout) into ``state`` in place (the
+    moments of a model of expert shards as ``load_params`` slices its
+    weights)."""
+    shards = _shards(model, dist) if model is not None else ()
     with torch.no_grad():
         state.step.copy_(torch.as_tensor(np.asarray(tree.step)))
-    _copy_into(state.mu, tree.mu)
-    _copy_into(state.nu, tree.nu)
+    _copy_into(state.mu, tree.mu, shards, dist)
+    _copy_into(state.nu, tree.nu, shards, dist)

@@ -20,6 +20,12 @@ only its expert shard: the contiguous L = E*P/D placed sub-experts at its
 ``model`` coordinate (``shard_experts``). The local seating runs the fused
 MoE kernel (or the grouped SwiGLU kernel on the buffer path) on operands
 cast to the wire type, bfloat16 by default, as the JAX body does.
+
+Both layers are differentiable: the block boundary, the weights' entry
+and the collectives inside go through ``distributed.context``'s
+differentiable forms, whose backward is JAX's ``shard_map`` transpose.
+``kernels=False`` takes the route JAX trains through (the buffer path's
+``expert_ffn`` einsum; the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed import context as dctx
+from ..distributed.sharding import BATCH_AXES, TokenBlock, token_block
 from . import dispatch as dispatch_mod
 from . import drop as drop_mod
 from . import gating
@@ -92,14 +100,16 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
                token_axes: tuple, policy, thresholds=None,
                cap_factor: float, local_cap_factor: float,
                cap_multiple: int = 8, wire_dtype=torch.bfloat16,
-               tokens_on_axis: bool = True, collect_stats: bool = False):
+               tokens_on_axis: bool = True, collect_stats: bool = False,
+               kernels: bool = True):
     """One rank's S-ETP MoE (``_setp_body`` of the JAX package, step for
     step). x_loc: (B_l, S_l, d); w1/w3/w2: this rank's L placed
     sub-experts. Returns ``(y_loc, overflow)`` or, with
     ``collect_stats``, ``(y_loc, stats)``; overflow and stats are summed
-    over the token axes and the expert axis."""
+    over the token axes and the expert axis. ``kernels=False``: the
+    buffer path's einsum, never a kernel."""
     p_factor = policy.partition_p
-    use_kernel = policy.use_kernel
+    use_kernel = policy.use_kernel and kernels
     Bl, Sl, d = x_loc.shape
     xt = x_loc.reshape(-1, d)
     T = xt.shape[0]
@@ -160,8 +170,8 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
                                       fill=-1)
 
     # --- the S-ETP collective: ONE AlltoAll each way (Fig. 5b) ---
-    recv_x = ctx.all_to_all(send_x, axis)
-    recv_e = ctx.all_to_all(send_e, axis)
+    recv_x = dctx.all_to_all(ctx, send_x, axis)
+    recv_e = ctx.all_to_all(send_e, axis)         # ids: no gradient
 
     # --- local grouped expert FFN (mode-ordered rows) ---
     rx = recv_x.reshape(n_dev * cap, d)
@@ -173,7 +183,7 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
     c2 = _ceil_mult(local_cap_factor * n_dev * cap / L, cap_multiple)
     plan_loc = dispatch_mod.sort_dispatch(loc, valid, n_groups=L,
                                           capacity=c2, major_only=mfl)
-    fused = policy.fused_pipeline
+    fused = policy.fused_pipeline if kernels else False
     if fused is None:
         fused = dispatch_mod.prefer_fused_pipeline(
             rx.shape[0], L, use_kernel=use_kernel, device=rx.device)
@@ -203,7 +213,7 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
         out_tok = out_tok * valid[:, None].to(out_tok.dtype)
 
     # --- return AlltoAll + combine on the source rank ---
-    back = ctx.all_to_all(out_tok.reshape(n_dev, cap, d), axis)
+    back = dctx.all_to_all(ctx, out_tok.reshape(n_dev, cap, d), axis)
     back = F.pad(back, (0, 0, 0, 1))
     out_pair = back[plan_dev.group.long(), plan_dev.slot.long()]  # (T*Kp, d)
     w = combine.reshape(-1) * keep.reshape(-1).to(combine.dtype)
@@ -221,24 +231,12 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
     return y, overflow
 
 
-def _gather_blocks(y_loc, block, ctx):
-    """The replicated (B, S, d) tensor from every rank's block: all-gather
-    over the sequence axis, then over the batch axes (last axis minor)."""
-    if block.seq_axis is not None:
-        parts = ctx.all_gather(y_loc, block.seq_axis)       # (n, Bl, Sl, d)
-        y_loc = torch.cat(list(parts), dim=1)
-    for axis in reversed(block.batch_axes):
-        parts = ctx.all_gather(y_loc, axis)
-        y_loc = torch.cat(list(parts), dim=0)
-    return y_loc
-
-
 def setp_moe_forward(params: Dict, x, cfg, ctx, *,
                      expert_axis: str = "model", policy=None,
                      cap_factor: float = 1.15, local_cap_factor: float = 1.25,
                      cap_multiple: int = 8, wire_dtype=torch.bfloat16,
                      return_overflow: bool = False,
-                     return_stats: bool = False):
+                     return_stats: bool = False, kernels: bool = True):
     """S-ETP MoE layer under a ``SparsityPolicy`` (default ``NoDrop``) on
     the ``DistContext`` ``ctx``. ``params``: this rank's layer — the router
     and any shared expert replicated, w1/w3/w2 its shard of experts
@@ -252,24 +250,33 @@ def setp_moe_forward(params: Dict, x, cfg, ctx, *,
     (B, S, d) output; ``return_overflow`` also returns the global count of
     kept token/sub-expert pairs discarded by capacity overflow;
     ``return_stats`` instead returns ``(y, stats)``, the ``obs`` per-layer
-    dict summed over the mesh."""
+    dict summed over the mesh.
+
+    Differentiable, with the gradients of JAX's ``shard_map``: ``wg``
+    enters as ``P()`` (its gradient summed over every mesh axis), the
+    expert shards as ``P(expert_axis)`` (summed over the token axes), x
+    and y as their token blocks (``distributed.context.block_take`` /
+    ``block_gather``); a per-layer ``thresholds`` takes no gradient.
+    ``kernels=False`` runs the local experts through the einsum."""
     if policy is None:
         from .policy import NoDrop
         policy = NoDrop()
-    from ..distributed import token_block
-    from ..distributed.sharding import BATCH_AXES
     n_dev = ctx.size(expert_axis)
     token_axes = tuple(a for a in BATCH_AXES if ctx.has(a))
     block = token_block(x.shape[0], x.shape[1], ctx, expert_axis)
+    shard_axes = dctx.replicated_axes(ctx, split=(expert_axis,))
+    w1, w3, w2 = (dctx.replicate(ctx, params[k], shard_axes)
+                  for k in ("w1", "w3", "w2"))
     y_loc, aux = _setp_body(
-        params["wg"], params["w1"], params["w3"], params["w2"],
-        block.take(x), cfg=cfg, ctx=ctx, n_dev=n_dev, axis=expert_axis,
+        dctx.replicate(ctx, params["wg"], ctx.axes()), w1, w3, w2,
+        dctx.block_take(ctx, x, block), cfg=cfg, ctx=ctx, n_dev=n_dev,
+        axis=expert_axis,
         token_axes=token_axes, policy=policy,
         thresholds=params.get("thresholds"), cap_factor=cap_factor,
         local_cap_factor=local_cap_factor, cap_multiple=cap_multiple,
         wire_dtype=wire_dtype, tokens_on_axis=block.seq_axis is not None,
-        collect_stats=return_stats)
-    y = _gather_blocks(y_loc, block, ctx)
+        collect_stats=return_stats, kernels=kernels)
+    y = dctx.block_gather(ctx, y_loc, block)
     if "shared" in params:
         s = params["shared"]
         h = F.silu(x @ s["w1"]) * (x @ s["w3"])
@@ -304,7 +311,7 @@ def _etp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_ep: int, n_tp: int,
                                       fill=-1)
     # dispatch: AlltoAll over ep, then AllGather over tp (each tp rank
     # routed its own copy of the tokens; the experts need the ep group's)
-    recv_x = ctx.all_gather(ctx.all_to_all(send_x, "ep"), "tp")
+    recv_x = dctx.all_gather(ctx, dctx.all_to_all(ctx, send_x, "ep"), "tp")
     recv_e = ctx.all_gather(ctx.all_to_all(send_e, "ep"), "tp")
     rx = recv_x.reshape(-1, d)
     re = recv_e.reshape(-1)
@@ -320,7 +327,7 @@ def _etp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_ep: int, n_tp: int,
     out_tok = out_tok.reshape(n_tp, n_ep, cap, d)
     # return: ReduceScatter over tp (sum the partial FFN outputs, keep this
     # rank's copy), then AlltoAll over ep
-    back = ctx.all_to_all(ctx.psum_scatter(out_tok, "tp"), "ep")
+    back = dctx.all_to_all(ctx, dctx.psum_scatter(ctx, out_tok, "tp"), "ep")
     back = F.pad(back, (0, 0, 0, 1))
     out_pair = back[plan_dev.group.long(), plan_dev.slot.long()]
     w = r.combine.reshape(-1)
@@ -350,7 +357,9 @@ def etp_moe_forward(params: Dict, x, cfg, ctx, *, ep_axis: str = "ep",
     """ETP baseline on ``ctx`` (a mesh with ``ep`` and ``tp`` axes).
     ``params``: this rank's ``etp_shard``. x: (B, S, d), the same on every
     rank, its batch split over ``ep_axis``; returns the replicated
-    output."""
+    output. Differentiable as ``setp_moe_forward``: ``wg`` enters as
+    ``P()``, the expert shards split over both axes, x and y as blocks
+    split over ``ep_axis`` and replicated over ``tp_axis``."""
     n_ep, n_tp = ctx.size(ep_axis), ctx.size(tp_axis)
     B = x.shape[0]
     if B % n_ep:
@@ -358,8 +367,12 @@ def etp_moe_forward(params: Dict, x, cfg, ctx, *, ep_axis: str = "ep",
                          f"do not divide over {n_ep} ranks")
     bl = B // n_ep
     i = ctx.coord(ep_axis)
-    y_loc = _etp_body(params["wg"], params["w1"], params["w3"], params["w2"],
-                      x[i * bl:(i + 1) * bl], cfg=cfg, ctx=ctx, n_ep=n_ep,
-                      n_tp=n_tp, cap_factor=cap_factor,
+    block = TokenBlock(i * bl, (i + 1) * bl, 0, x.shape[1], (ep_axis,), None)
+    shard_axes = dctx.replicated_axes(ctx, split=(ep_axis, tp_axis))
+    w1, w3, w2 = (dctx.replicate(ctx, params[k], shard_axes)
+                  for k in ("w1", "w3", "w2"))
+    y_loc = _etp_body(dctx.replicate(ctx, params["wg"], ctx.axes()), w1, w3,
+                      w2, dctx.block_take(ctx, x, block), cfg=cfg, ctx=ctx,
+                      n_ep=n_ep, n_tp=n_tp, cap_factor=cap_factor,
                       local_cap_factor=local_cap_factor)
-    return torch.cat(list(ctx.all_gather(y_loc, ep_axis)), dim=0)
+    return dctx.block_gather(ctx, y_loc, block)

@@ -12,8 +12,11 @@ package resumes from the other's.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
+
+import torch
 
 from repro_torch.checkpoint import from_numpy as bridge
 from repro_torch.checkpoint import io as ckpt
@@ -24,21 +27,35 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw, cosine_schedule
 
 
-def save_state(ckpt_dir: str, step: int, model, opt_state, **kw) -> str:
-    """Write the model's weights and its AdamW state as one checkpoint."""
-    return ckpt.save_checkpoint(
-        ckpt_dir, step, {"params": bridge.params_to_numpy(model),
-                         "opt": bridge.opt_state_to_numpy(opt_state)}, **kw)
+def save_state(ckpt_dir: str, step: int, model, opt_state, dist=None,
+               **kw) -> str:
+    """Write the model's weights and its AdamW state as one checkpoint.
+    Under an EP context ``dist`` every rank calls this: the expert leaves
+    and their moments are gathered into the global arrays the JAX package
+    saves, the rank at coordinate 0 of every axis writes, and every rank
+    returns once the files are there; only the writing rank builds the
+    host tree."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist is None or dist.is_origin():
+        tree = {"params": bridge.params_to_numpy(model, dist),
+                "opt": bridge.opt_state_to_numpy(opt_state, model, dist)}
+        path = ckpt.save_checkpoint(ckpt_dir, step, tree, **kw)
+    else:
+        bridge.join_gathers(model, opt_state, dist)
+    if dist is not None:
+        torch.distributed.barrier()
+    return path
 
 
 def restore_state(ckpt_dir: str, model, opt_state,
-                  step: Optional[int] = None) -> None:
+                  step: Optional[int] = None, dist=None) -> None:
     """Load a checkpoint (the latest without ``step``) into the model and
-    its AdamW state in place."""
+    its AdamW state in place; under an EP context ``dist`` every rank reads
+    the file and keeps its expert shard."""
     tree = ckpt.restore_checkpoint(
-        ckpt_dir, bridge.train_state_spec(model, opt_state), step=step)
-    bridge.load_params(model, tree["params"])
-    bridge.load_opt_state(opt_state, tree["opt"])
+        ckpt_dir, bridge.train_state_spec(model, opt_state, dist), step=step)
+    bridge.load_params(model, tree["params"], dist)
+    bridge.load_opt_state(opt_state, tree["opt"], model, dist)
 
 
 def build_parser() -> argparse.ArgumentParser:

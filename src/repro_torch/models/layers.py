@@ -1,9 +1,11 @@
 """Shared building blocks: RMSNorm, RoPE and M-RoPE, the SwiGLU and GELU
-MLPs, embed/unembed and the seeded normal init (scale 0.02, float32) the
-JAX package uses."""
+MLPs, embed/unembed, the seeded normal init (scale 0.02, float32) the
+JAX package uses, and the per-block activation checkpointing of an EP
+context (``remat``)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import functools
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,3 +159,39 @@ def tensors_of(module: nn.Module) -> Dict[str, torch.Tensor]:
     """A module's direct parameters as a name -> tensor dict (the form the
     ``core`` functions take, mirroring the JAX param dicts)."""
     return {k: v for k, v in module.named_parameters(recurse=False)}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of matrix products without batch dims (``mm`` / ``addmm``,
+    and the ``bmm`` of batch 1 that ``einsum`` lowers such a product to),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, dist, policy: Optional[str] = None) -> Callable:
+    """``fn`` checkpointed as the JAX package's ``jax.checkpoint`` of a
+    block when the EP context ``dist`` asks for it (``dist.remat``): its
+    activations are recomputed in the backward pass, the collectives
+    inside it again, in the same order on every rank. ``policy``
+    (default ``dist.remat_policy``): "none" recomputes the whole block,
+    "dots" keeps the products without batch dims. ``fn`` itself without
+    a context or without ``remat``."""
+    if dist is None or not dist.remat:
+        return fn
+    from torch.utils import checkpoint as ckpt
+    policy = dist.remat_policy if policy is None else policy
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw,
+                               **kwargs)
+    return run

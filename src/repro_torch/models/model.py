@@ -4,7 +4,7 @@ call. Family routing, as in the JAX package: ``audio`` -> ``models.whisper``
 (encoder-decoder), every other family -> ``models.transformer``."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +58,15 @@ def trainable(model) -> Dict[str, torch.Tensor]:
             if k.rsplit(".", 1)[-1] != "thresholds"}
 
 
+def expert_shard_names(model) -> Tuple[str, ...]:
+    """The parameter names of the S-ETP expert shards the model holds (the
+    w1 / w3 / w2 of every MoE layer ``core.setp.shard_experts`` cut): the
+    leaves that are one rank's slice of a stack split over ``model``."""
+    return tuple(f"{name}.{k}" for name, m in model.named_modules()
+                 if getattr(m, "ep_shards", 1) > 1
+                 for k in ("w1", "w3", "w2"))
+
+
 def set_trainable(model) -> Dict[str, torch.Tensor]:
     """Turn on ``requires_grad`` for exactly ``trainable(model)``; returns
     that dict."""
@@ -80,7 +89,7 @@ def cross_entropy(logits, targets):
 
 
 def loss_fn(model, batch, cfg: ModelConfig, *, window: int = 0,
-            policy=None, aux_coef: float = 0.0):
+            policy=None, aux_coef: float = 0.0, dist=None):
     """Cross entropy (+ ``aux_coef`` times the Switch-style MoE
     load-balance aux loss). Without a ``policy`` this is the training
     loss: the differentiable route (``transformer.forward(kernels=False)``),
@@ -88,47 +97,64 @@ def loss_fn(model, batch, cfg: ModelConfig, *, window: int = 0,
     (prepared weights) it is the accuracy-side reading of that policy: no
     gradient, the serving route with its kernels. Whisper has no MoE layer:
     its loss is the cross entropy alone, never the aux term, and no kernel
-    runs on its path."""
+    runs on its path.
+
+    Under an EP context ``dist`` the loss is the training loss over the
+    S-ETP layers (``kernels=False``), with ``policy`` the one the JAX
+    package's ``DistContext`` carries (weights prepared for the EP size):
+    every rank computes the same full loss, the mean over the whole
+    batch."""
     batch = to_device(batch, model.device)
+    if dist is not None:
+        return _loss(model, batch, cfg, window, policy, aux_coef, False,
+                     dist)
     if policy is not None:
         with torch.no_grad():
             return _loss(model, batch, cfg, window, policy, aux_coef, True)
     return _loss(model, batch, cfg, window, None, aux_coef, False)
 
 
-def _loss(model, batch, cfg, window, policy, aux_coef, kernels):
+def _loss(model, batch, cfg, window, policy, aux_coef, kernels, dist=None):
     if aux_coef and cfg.is_moe:
         logits, aux = transformer.forward(model, batch, cfg, window=window,
                                           policy=policy, with_aux=True,
-                                          kernels=kernels)
+                                          kernels=kernels, dist=dist)
         return cross_entropy(logits, batch["targets"]) + aux_coef * aux
     logits = _mod(cfg).forward(model, batch, cfg, window=window,
-                               policy=policy, kernels=kernels)
+                               policy=policy, kernels=kernels, dist=dist)
     return cross_entropy(logits, batch["targets"])
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, window: int = 0,
-                    aux_coef: float = 0.0, dist=None):
+                    aux_coef: float = 0.0, dist=None, policy=None):
     """(model, opt_state, batch) -> loss, after updating the model's
     trainable leaves and ``opt_state`` in place (``optimizer`` from
     ``optim.adamw``; its ``last_grad_norm`` holds the step's grad norm).
-    Turns on ``requires_grad`` for the trainable leaves. Training over EP
-    (a ``dist`` context) is not ported yet."""
-    if dist is not None:
-        raise NotImplementedError("training over expert parallelism is not "
-                                  "ported yet")
+    Turns on ``requires_grad`` for the trainable leaves.
+
+    ``dist``: an EP context (``distributed.DistContext``, the JAX
+    package's ``make_train_step(dist=...)``): every rank runs the step on
+    the same batch, its MoE layers through S-ETP on its expert shard,
+    checkpointing blocks under ``dist.remat``; ``policy`` is the sparsity
+    policy beside it (default ``NoDrop``). The gradient is JAX's through
+    the ``shard_map``, so no rank rescales it; the clip's global norm sums
+    each expert shard's share over ``model``."""
+    if policy is not None and dist is None:
+        raise ValueError("a policy trains beside an EP context only; off "
+                         "EP, loss_fn under a policy takes no gradient")
 
     def step(model, opt_state, batch):
         params = set_trainable(model)
         with torch.enable_grad():
             loss = loss_fn(model, batch, cfg, window=window,
-                           aux_coef=aux_coef)
+                           aux_coef=aux_coef, dist=dist, policy=policy)
             # a leaf the batch does not reach (the vision stub's projection
             # on text-only batches) gets zeros, as JAX's grad gives it
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True,
                                         materialize_grads=True)
-        optimizer.update(dict(zip(params, grads)), opt_state, params)
+        optimizer.update(dict(zip(params, grads)), opt_state, params,
+                         dist=dist, sharded=expert_shard_names(model))
         return loss.detach()
     return step
 

@@ -26,7 +26,9 @@ An EP context (``dist``: a ``distributed.DistContext`` with ``moe_impl``
 "setp") sends every MoE layer through ``core.setp.setp_moe_forward``, as
 the JAX package's ``_moe_forward`` does: each rank holds its shard of the
 experts and the rest of the model replicated, and runs the steps on the
-same inputs (SPMD).
+same inputs (SPMD). The training forward takes it too (``kernels=False``:
+the differentiable S-ETP route), and checkpoints every block when the
+context asks for ``remat``.
 """
 from __future__ import annotations
 
@@ -148,19 +150,18 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
     kept_full/kept_major/dropped_pairs/overflow_pairs) — same routing,
     same ``y``. On the S-ETP path overflow and stats are summed over the
     mesh. ``kernels=False`` takes the differentiable route the reference
-    trains through: the buffer path with the ``expert_ffn`` einsum."""
+    trains through: the buffer path with the ``expert_ffn`` einsum, on the
+    S-ETP path too (its local seating)."""
     B, S, d = x.shape
     params = moe.weights()
     aux_val = moe_mod.aux_loss_for(params, x.reshape(-1, d), cfg) \
         if aux else None
     if dist is not None and dist.moe_impl == "setp":
-        if not kernels:
-            raise NotImplementedError("the S-ETP layer has no "
-                                      "differentiable route yet")
         from ..core import setp as setp_mod
+        # the wire type is setp_moe_forward's default (bf16), as in JAX
         y, of = setp_mod.setp_moe_forward(
             params, x, cfg, dist, policy=_policy_of(policy),
-            return_overflow=True, return_stats=collect)
+            return_overflow=True, return_stats=collect, kernels=kernels)
         return y, aux_val, of
     xt = x.reshape(-1, d)
     # per-request (B,) threshold values -> per-token over the (B*S, d) block
@@ -285,18 +286,23 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
     """x: (B,S,d) -> (B,S,d) through all blocks. With ``capture_cap`` also
     returns the decode cache; ``metrics`` (MoE + capture only) puts a
     ``MetricsState`` in it in place of the ``moe_overflow`` scalar;
-    ``with_aux`` returns ``(x, summed MoE load-balance aux loss)``."""
+    ``with_aux`` returns ``(x, summed MoE load-balance aux loss)``. Under
+    an EP context with ``remat`` each block is checkpointed (never when
+    capturing a cache), as the JAX package's ``jax.checkpoint`` of the
+    scanned block."""
     if cfg.family == "hybrid":
         out = _hybrid_forward(model, x, positions, cfg, window=window,
                               capture_cap=capture_cap,
-                              cache_dtype=cache_dtype, kernels=kernels)
+                              cache_dtype=cache_dtype, kernels=kernels,
+                              dist=dist)
         return (out, _zero_aux(x)) if with_aux else out
+    fwd = block_forward if capture_cap else L.remat(block_forward, dist)
     if with_aux:
         auxes = []
         for bp in model.blocks:
-            x, aux = block_forward(bp, x, positions, cfg, window=window,
-                                   policy=policy, dist=dist, with_aux=True,
-                                   kernels=kernels)
+            x, aux = fwd(bp, x, positions, cfg, window=window,
+                         policy=policy, dist=dist, with_aux=True,
+                         kernels=kernels)
             auxes.append(aux)
         return x, torch.stack(auxes).sum()
     collect = bool(metrics and capture_cap and cfg.is_moe)
@@ -310,8 +316,8 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
             layers.append(cl)
             outs.append(of)
         else:
-            x = block_forward(bp, x, positions, cfg, window=window,
-                              policy=policy, dist=dist, kernels=kernels)
+            x = fwd(bp, x, positions, cfg, window=window, policy=policy,
+                    dist=dist, kernels=kernels)
     if not capture_cap:
         return x
     cache = {"layers": layers}
@@ -324,11 +330,14 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
 
 def _hybrid_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                     capture_cap: int = 0, cache_dtype=torch.bfloat16,
-                    kernels: bool = True):
+                    kernels: bool = True, dist=None):
     """Zamba2: the shared attention + MLP block before every
     ``attn_every``-th Mamba layer. With ``capture_cap`` also returns the
-    decode cache ({"mamba", "attn", "moe_overflow"}, as the JAX one)."""
+    decode cache ({"mamba", "attn", "moe_overflow"}, as the JAX one).
+    Under ``dist.remat`` the Mamba blocks are checkpointed whole (the JAX
+    package applies no ``remat_policy`` here), the shared block not."""
     every, shared = cfg.attn_every, model.shared_attn
+    mamba_fwd = L.remat(block_forward, dist, policy="none")
     attn_caches, mamba_caches = [], []
     for occ in range(n_shared_occurrences(cfg)):
         h = L.rms_norm(x, shared.ln1, cfg.norm_eps)
@@ -347,7 +356,7 @@ def _hybrid_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                                          capture_cap=capture_cap)
                 mamba_caches.append(st)
             else:
-                x = block_forward(bp, x, positions, cfg, kernels=kernels)
+                x = mamba_fwd(bp, x, positions, cfg, kernels=kernels)
     if not capture_cap:
         return x
     return x, {"mamba": mamba_caches, "attn": attn_caches,
@@ -436,20 +445,22 @@ def embed_inputs(model: Transformer, batch, cfg, offset: int = 0):
 
 
 def forward(model: Transformer, batch, cfg, *, window: int = 0, policy=None,
-            with_aux: bool = False, kernels: bool = True):
+            with_aux: bool = False, kernels: bool = True, dist=None):
     """Full-sequence forward with no cache -> logits (B, S, vocab) over the
     token part; ``with_aux`` also returns the summed MoE load-balance aux
     loss. ``kernels=False`` is the differentiable route the reference's
     ``loss_fn`` trains through (the MoE buffer path's einsum, the plain
-    chunked SSD), for a backward pass: the kernels have none."""
+    chunked SSD), for a backward pass: the kernels have none. ``dist``: an
+    EP context (S-ETP MoE layers, ``remat``)."""
     x, positions, n_prefix = embed_inputs(model, batch, cfg)
     aux = None
     if with_aux:
         x, aux = stack_forward(model, x, positions, cfg, window=window,
-                               policy=policy, with_aux=True, kernels=kernels)
+                               policy=policy, with_aux=True, kernels=kernels,
+                               dist=dist)
     else:
         x = stack_forward(model, x, positions, cfg, window=window,
-                          policy=policy, kernels=kernels)
+                          policy=policy, kernels=kernels, dist=dist)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]

@@ -19,6 +19,14 @@ carry different rounding, as in the JAX package.
 The entry points take the keywords ``models.model`` hands every family
 (``policy``, ``metrics``, ``kernels``, ``metrics_spec``) and ignore them:
 Whisper has no MoE layer, no kernel on its path and no metrics seam.
+
+Under an EP context ``dist`` (as the JAX package's ``dist``) ``forward``
+checkpoints each encoder and decoder block when ``dist.remat`` (the whole
+block: the JAX package applies no ``remat_policy`` here), and the
+decoder's self- and cross-attention take their blockwise query block
+from ``attention.context_q_block``. Its other effect in the JAX package,
+a sharding constraint on those query blocks, places data and does no
+arithmetic: here every rank computes every block.
 """
 from __future__ import annotations
 
@@ -88,13 +96,6 @@ class Whisper(nn.Module):
         return self.final_norm.device
 
 
-def _no_dist(dist) -> None:
-    if dist is not None:
-        raise NotImplementedError("Whisper over expert parallelism (sharded "
-                                  "attention blocks, per-block remat) is "
-                                  "not ported yet")
-
-
 @functools.lru_cache(maxsize=8)
 def _sinusoid(n: int, d: int, device) -> torch.Tensor:
     """(n, d) absolute positions ``[sin | cos]`` for prefill and training:
@@ -123,11 +124,12 @@ def _step_sinusoid(pos: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)])
 
 
-def _full_attention(q, k, v, *, causal: bool):
-    """Blockwise past 1024 queries (default 512 / 1024 blocks), else
+def _full_attention(q, k, v, *, causal: bool, q_block: int = 512):
+    """Blockwise past 1024 queries (``q_block`` / 1024 blocks), else
     plain."""
     if q.shape[1] > 1024:
-        return attn.blockwise_attention(q, k, v, causal=causal)
+        return attn.blockwise_attention(q, k, v, causal=causal,
+                                        q_block=q_block)
     return attn.plain_attention(q, k, v, causal=causal)
 
 
@@ -135,31 +137,37 @@ def _out_proj(a: attn.Attention, o):
     return torch.einsum("bshgk,hgkd->bsd", o.to(a.wo.dtype), a.wo)
 
 
-def _cross_attn(a: attn.Attention, x, k, v):
+def _cross_attn(a: attn.Attention, x, k, v, dist=None):
     """x (B,S,d) queries over pre-projected encoder K/V (B,T,Hkv,D); no
     RoPE."""
     q = torch.einsum("bsd,dhgk->bshgk", x, a.wq)
     if a.bq is not None:
         q = q + a.bq
-    return _out_proj(a, _full_attention(q, k, v, causal=False))
+    return _out_proj(a, _full_attention(
+        q, k, v, causal=False,
+        q_block=attn.context_q_block(dist, x.shape[1])))
+
+
+def _enc_block(bp: EncoderBlock, x, zero, cfg):
+    a = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    # non-causal over absolute-position embeddings; RoPE at position 0 is
+    # the identity
+    q, k, v = attn.gqa_project_qkv(bp.attn, a, zero, cfg)
+    x = x + _out_proj(bp.attn, _full_attention(q, k, v, causal=False))
+    a = L.rms_norm(x, bp.ln2, cfg.norm_eps)
+    return x + L.apply_mlp(bp.mlp, a, cfg.mlp_kind)
 
 
 def encode(model: Whisper, audio_embeds, cfg, dist=None):
     """audio_embeds (B, T, d), the stub frontend's output -> the encoder
-    output (B, T, d)."""
-    _no_dist(dist)
+    output (B, T, d); each block checkpointed under ``dist.remat``."""
     x = audio_embeds @ model.frontend_proj
     B, T = x.shape[:2]
     x = x + _sinusoid(T, cfg.d_model, x.device).to(x.dtype)
     zero = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    block = L.remat(_enc_block, dist, policy="none")
     for bp in model.encoder:
-        a = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-        # non-causal over absolute-position embeddings; RoPE at position 0
-        # is the identity
-        q, k, v = attn.gqa_project_qkv(bp.attn, a, zero, cfg)
-        x = x + _out_proj(bp.attn, _full_attention(q, k, v, causal=False))
-        a = L.rms_norm(x, bp.ln2, cfg.norm_eps)
-        x = x + L.apply_mlp(bp.mlp, a, cfg.mlp_kind)
+        x = block(bp, x, zero, cfg)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
@@ -187,21 +195,30 @@ def _embed_tokens(model: Whisper, tokens, cfg):
     return x, pos.expand(B, S)
 
 
+def _dec_block(bp: DecoderBlock, x, pos, k_l, v_l, cfg, dist):
+    a = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+    x = x + attn.gqa_attention(bp.attn, a, pos, cfg, causal=True, dist=dist)
+    a = L.rms_norm(x, bp.ln_x, cfg.norm_eps)
+    x = x + _cross_attn(bp.xattn, a, k_l, v_l, dist)
+    a = L.rms_norm(x, bp.ln2, cfg.norm_eps)
+    return x + L.apply_mlp(bp.mlp, a, cfg.mlp_kind)
+
+
 def forward(model: Whisper, batch, cfg, *, window: int = 0, policy=None,
             kernels: bool = False, dist=None):
     """Training / scoring: batch {"tokens" (B,S), "audio_embeds" (B,T,d)}
-    -> logits (B, S, vocab). Differentiable (no kernel on this path)."""
-    _no_dist(dist)
-    enc_out = encode(model, batch["audio_embeds"], cfg)
+    -> logits (B, S, vocab). Differentiable (no kernel on this path).
+    Under an EP context ``dist``: the blocks checkpointed under
+    ``dist.remat``, the decoder's blockwise query block from
+    ``attention.context_q_block`` (as the JAX package's ``dist``; each
+    layer's cross K/V are projected outside its block, as JAX's
+    ``_enc_kv`` does)."""
+    enc_out = encode(model, batch["audio_embeds"], cfg, dist=dist)
     x, pos = _embed_tokens(model, batch["tokens"], cfg)
+    block = L.remat(_dec_block, dist, policy="none")
     for bp in model.decoder:
         k_l, v_l = _enc_kv_layer(bp, enc_out)
-        a = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-        x = x + attn.gqa_attention(bp.attn, a, pos, cfg, causal=True)
-        a = L.rms_norm(x, bp.ln_x, cfg.norm_eps)
-        x = x + _cross_attn(bp.xattn, a, k_l, v_l)
-        a = L.rms_norm(x, bp.ln2, cfg.norm_eps)
-        x = x + L.apply_mlp(bp.mlp, a, cfg.mlp_kind)
+        x = block(bp, x, pos, k_l, v_l, cfg, dist)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed(model.embed, x)
 
@@ -211,8 +228,8 @@ def prefill(model: Whisper, batch, cfg, *, cache_len: int = 0,
             metrics: bool = True, dist=None):
     """Encoder pass + decoder pass over the prompt: ``(logits (B,S,vocab),
     cache)`` with the self-attention K/V and the cross K/V filled and
-    ``cache["pos"]`` = S."""
-    _no_dist(dist)
+    ``cache["pos"]`` = S. ``dist`` sets the decoder's blockwise query
+    block (``attention.context_q_block``)."""
     enc_out = encode(model, batch["audio_embeds"], cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -230,13 +247,13 @@ def prefill(model: Whisper, batch, cfg, *, cache_len: int = 0,
         k_l, v_l = _enc_kv_layer(bp, enc_out)
         cross_k[i], cross_v[i] = k_l, v_l
         a = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-        y, cl = attn.gqa_prefill_attention(bp.attn, a, pos, cfg,
-                                           window=window, cap=cap,
-                                           cache_dtype=cache_dtype)
+        y, cl = attn.gqa_prefill_attention(
+            bp.attn, a, pos, cfg, window=window, cap=cap,
+            cache_dtype=cache_dtype, dist=dist)
         layers.append(cl)
         x = x + y
         a = L.rms_norm(x, bp.ln_x, cfg.norm_eps)
-        x = x + _cross_attn(bp.xattn, a, k_l, v_l)
+        x = x + _cross_attn(bp.xattn, a, k_l, v_l, dist)
         a = L.rms_norm(x, bp.ln2, cfg.norm_eps)
         x = x + L.apply_mlp(bp.mlp, a, cfg.mlp_kind)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -282,8 +299,8 @@ def decode_step(model: Whisper, token, cache, cfg, *, window: int = 0,
                 policy=None, dist=None):
     """token (B,1) -> (logits (B,1,vocab), cache): one decoder step at the
     host position ``cache["pos"]``, self-attention K/V appended in
-    place, cross-attention over the cached cross K/V."""
-    _no_dist(dist)
+    place, cross-attention over the cached cross K/V. ``dist`` changes
+    nothing here: one query per request takes no blockwise attention."""
     pos = int(cache["pos"])
     x = L.embed(model.embed, token)
     x = x + _step_sinusoid(pos, cfg.d_model, x.device)[None, None].to(x.dtype)

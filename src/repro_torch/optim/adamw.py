@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple, Union
+from typing import Callable, Dict, Iterable, NamedTuple, Union
 
 import torch
 
@@ -42,16 +42,38 @@ def cosine_schedule(peak_lr: float, total_steps: int, warmup: int = 100,
     return lr
 
 
-def global_norm(grads: Tensors) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    return torch.sqrt(sum(sums[1:], sums[0]))
+def _sum_squares(leaves) -> torch.Tensor:
+    sums = [torch.sum(torch.square(g.float())) for g in leaves]
+    return sum(sums[1:], sums[0])
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float):
+def global_norm(grads: Tensors, dist=None,
+                sharded: Iterable[str] = ()) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares:
+    the norm of the global arrays. ``sharded`` names the leaves that hold
+    one rank's slice of a stack split over ``dist``'s ``model`` axis (the
+    S-ETP expert shards): their share is summed over ``model`` (not over
+    ``data``, where the shards are replicas); every other leaf is
+    replicated and counted once."""
+    sharded = set(sharded)
+    rep = [g for k, g in grads.items() if k not in sharded]
+    total = _sum_squares(rep) if rep else None
+    if sharded:
+        if dist is None:
+            raise ValueError("the norm over expert shards needs their EP "
+                             "context")
+        part = dist.psum(_sum_squares([grads[k] for k in grads
+                                       if k in sharded]), "model")
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float, dist=None,
+                        sharded: Iterable[str] = ()):
     """Scale every leaf by ``min(1, max_norm / max(gn, 1e-9))`` IN PLACE;
-    returns ``(grads, gn)`` with gn the norm before clipping."""
-    gn = global_norm(grads)
+    returns ``(grads, gn)`` with gn the norm before clipping
+    (``global_norm`` over ``dist``'s expert shards ``sharded``)."""
+    gn = global_norm(grads, dist, sharded)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale.to(g.dtype))
@@ -60,10 +82,12 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
 
 @dataclasses.dataclass
 class Optimizer:
-    """``init(params) -> AdamWState``; ``update(grads, state, params)``
-    clips ``grads``, advances ``state`` and adds the update to ``params``,
-    all in place, and returns the global grad norm before clipping (also
-    kept as ``last_grad_norm``)."""
+    """``init(params) -> AdamWState``; ``update(grads, state, params,
+    dist=None, sharded=())`` clips ``grads``, advances ``state`` and adds
+    the update to ``params``, all in place, and returns the global grad
+    norm before clipping (also kept as ``last_grad_norm``); ``sharded``
+    names the leaves that are expert shards over ``dist``'s ``model``
+    axis (``global_norm``)."""
     init: Callable
     update: Callable
     last_grad_norm: Union[torch.Tensor, None] = None
@@ -83,11 +107,13 @@ def adamw(lr: Union[float, Callable] = 1e-3, b1: float = 0.9,
         return AdamWState(step=step, mu=zeros(), nu=zeros())
 
     @torch.no_grad()
-    def update(grads: Tensors, state: AdamWState, params: Tensors):
+    def update(grads: Tensors, state: AdamWState, params: Tensors,
+               dist=None, sharded: Iterable[str] = ()):
         if max_grad_norm:
-            grads, gn = clip_by_global_norm(grads, max_grad_norm)
+            grads, gn = clip_by_global_norm(grads, max_grad_norm, dist,
+                                            sharded)
         else:
-            gn = global_norm(grads)
+            gn = global_norm(grads, dist, sharded)
         state.step.add_(1)
         stepf = state.step.to(torch.float32)
         b1t = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
@@ -98,13 +124,16 @@ def adamw(lr: Union[float, Callable] = 1e-3, b1: float = 0.9,
         for k, p in params.items():
             g = grads[k].float()
             m, v = state.mu[k], state.nu[k]
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            mhat = m / b1t
-            vhat = v / b2t
-            u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)
-                         + weight_decay * p.float())
+            # the reference's expressions, every product and sum rounded
+            # as there, in place on at most three leaf-sized temporaries
+            # (written out of place, a large leaf's update holds ~6)
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            u = torch.div(v, b2t).sqrt_().add_(eps)       # sqrt(v̂) + eps
+            u = torch.div(m, b1t).div_(u)                 # m̂ / (...)
+            u.add_(p.float() * weight_decay).mul_(-lr_t)
             p.add_(u.to(p.dtype))
+            del g, u
         opt.last_grad_norm = gn
         return gn
 

@@ -3,13 +3,16 @@ inputs, in one process: the policies' ``sub_pair_keep`` keep masks, the
 strided placement, and ``setp_moe_forward`` in a world of one rank (gloo
 over a ``FileStore`` in ``tmp_path``) against JAX's on a one-device mesh —
 the counts_major and overflow checks of ``tests/test_dispatch.py``
-mirrored. The 4-rank worlds are ``test_torch_setp_world.py``.
+mirrored — and its gradient (``kernels=False``) against ``jax.grad`` of
+JAX's; on one rank the differentiable collectives' backward is plain
+autograd. The 4-rank worlds are ``test_torch_setp_world.py`` and
+``test_torch_train_world.py``.
 
 Tolerances:
   * keep masks and the strided placement: exact (the same float32
     comparisons, thresholds formed in JAX's order);
-  * S-ETP at the float32 wire: within 1e-5 of the output's largest
-    magnitude (the same products summed in other orders), and within 2e-4
+  * S-ETP at the float32 wire, output and gradients: within 1e-5 of the
+    largest magnitude (the same products summed in other orders), and within 2e-4
     / 1e-4 of the dense oracle as ``test_dispatch.py`` holds JAX's;
   * S-ETP at the bf16 wire (the default): within 2e-2 of the largest
     magnitude — both round x, the weights, h and each expert output to
@@ -315,3 +318,95 @@ def test_setp_stats_equal_jax(world1):
     for k, v in st_j.items():
         np.testing.assert_array_equal(st_t[k].numpy(), np.asarray(v))
     assert int(st_t["dropped_pairs"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# The differentiable route on one rank
+# ---------------------------------------------------------------------------
+
+def test_boundary_backward_is_plain_autograd_on_one_rank(world1):
+    """On one rank ``block_take`` / ``block_gather`` / ``replicate`` and the
+    differentiable AlltoAll, all-gather and psum_scatter are the identity
+    on values and gradients: the gradient through them equals plain
+    autograd's bit for bit."""
+    from repro_torch.distributed import context as C
+    from repro_torch.distributed import token_block
+    ctx = world1
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 6, generator=g)
+    w = torch.randn(6, 6, generator=g)
+    r = torch.randn(2, 8, 6, generator=g)
+
+    def plain(x, w):
+        return torch.tanh(x @ w) * r
+
+    def through(x, w):
+        block = token_block(2, 8, ctx, "model")
+        h = C.block_take(ctx, x, block)
+        h = torch.tanh(h @ C.replicate(ctx, w, ctx.axes()))
+        h = C.all_to_all(ctx, h[None], "model")[0]
+        h = C.psum_scatter(ctx, C.all_gather(ctx, h, "data"), "data")
+        return C.block_gather(ctx, h, block) * r
+
+    want = torch.autograd.grad(plain(x.requires_grad_(), w.requires_grad_())
+                               .sum(), (x, w))
+    got = torch.autograd.grad(through(x, w).sum(), (x, w))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_collectives_refuse_to_cut_a_gradient(world1):
+    """``DistContext``'s collectives return tensors with no history: given
+    a tensor that requires grad while autograd records they raise, rather
+    than cut the gradient silently; ``psum`` detaches by design (loads,
+    stats, overflow)."""
+    t = torch.ones(1, 3, requires_grad=True)
+    for name in ("all_to_all", "all_gather", "psum_scatter"):
+        with pytest.raises(RuntimeError, match="cut the gradient"):
+            getattr(world1, name)(t, "model")
+        with torch.no_grad():
+            getattr(world1, name)(t, "model")
+    assert not world1.psum(t, "model").requires_grad
+
+
+@pytest.mark.parametrize("name", ["load_aware", "keep_all"])
+def test_setp_gradient_world_of_one_equals_jax(world1, name):
+    """The gradient of ``setp_moe_forward`` (``kernels=False``, float32
+    wire) in a world of one against ``jax.grad`` of JAX's on a one-device
+    mesh: x, the router and every expert, within 1e-5 of each one's
+    largest magnitude."""
+    cfg_t, cfg_j = get_config(ARCH), jax_config(ARCH)
+    rng = np.random.default_rng(6)
+    params = _layer_params(rng, cfg_j, router_scale=20.0)
+    x = (rng.normal(size=(2, 16, cfg_j.d_model)) * 0.5).astype(np.float32)
+    r = rng.normal(size=x.shape).astype(np.float32)
+    if name == "keep_all":
+        pj = jpolicy.TwoTDrop(partition_p=2, t_major=-1.0, t_minor=-1.0)
+        pt = tpolicy.TwoTDrop(partition_p=2, t_major=-1.0, t_minor=-1.0)
+    else:
+        pj = jpolicy.make_policy(name, cfg_j.dualsparse)
+        pt = tpolicy.make_policy(name, cfg_t.dualsparse)
+    prepared, pj = pj.prepare({k: jnp.asarray(v) for k, v in params.items()},
+                              cfg_j, jnp.asarray(x.reshape(-1, x.shape[-1])),
+                              n_ep_devices=1)
+    keys = ("wg", "w1", "w3", "w2")
+    mesh = make_host_mesh(1)
+
+    def jloss(xx, *ws):
+        p = dict(prepared, **dict(zip(keys, ws)))
+        y = jsetp.setp_moe_forward(p, xx, cfg_j, mesh, policy=pj,
+                                   wire_dtype=jnp.float32, cap_factor=4.0,
+                                   local_cap_factor=8.0)
+        return jnp.sum(y * r)
+    want = jax.jit(jax.grad(jloss, argnums=tuple(range(5))))(
+        jnp.asarray(x), *(prepared[k] for k in keys))
+    tp = _t(_np(prepared))
+    leaves = [torch.from_numpy(x).requires_grad_()] + [
+        tp[k].requires_grad_() for k in keys]
+    y = tsetp.setp_moe_forward(dict(tp, **dict(zip(keys, leaves[1:]))),
+                               leaves[0], cfg_t, world1, policy=pt,
+                               wire_dtype=torch.float32, cap_factor=4.0,
+                               local_cap_factor=8.0, kernels=False)
+    got = torch.autograd.grad((y * torch.from_numpy(r)).sum(), leaves)
+    for g_t, g_j in zip(got, want):
+        _close(g_t.numpy(), np.asarray(g_j), F32_TOL)

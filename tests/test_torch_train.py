@@ -242,11 +242,16 @@ def test_train_steps_match_jax():
 
 
 def test_train_step_refuses_ep_and_keeps_thresholds_frozen():
-    """Training over EP is not ported; a prepared layer's ``thresholds``
-    is no trainable leaf (it is not one of the JAX tree's gradients)."""
+    """The name dates from when ``make_train_step`` refused an EP context.
+    Training over EP is ported (``tests/test_torch_train_world.py``);
+    the refusal left is a sparsity policy without an EP context (off EP
+    the loss under a policy takes no gradient). A prepared layer's
+    ``thresholds`` is no trainable leaf (it is not one of the JAX tree's
+    gradients)."""
     cfg, _, tree = _jax_tree(MOE)
-    with pytest.raises(NotImplementedError):
-        M.make_train_step(cfg, adamw(), dist=object())
+    from repro_torch.core.policy import NoDrop
+    with pytest.raises(ValueError):
+        M.make_train_step(cfg, adamw(), policy=NoDrop())
     model = params_from_numpy(tree, cfg, device="cpu")
     for b in model.blocks:
         b.moe.load_weights(dict(b.moe.weights(),

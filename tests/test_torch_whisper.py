@@ -334,11 +334,40 @@ def test_blockwise_branches_match_jax():
     _close(logits, JW.forward(params, jb, jcfg))
 
 
-def test_whisper_refuses_an_ep_context():
+def test_whisper_refuses_an_ep_context(tmp_path):
+    """The name dates from when Whisper refused an EP context; it takes
+    one since training over EP was ported: in
+    a world of one gloo rank, under a (1, 1) context with ``remat``, the
+    forward logits and every gradient equal those without a context
+    bitwise (remat recomputes the same float32 ops), and prefill and a
+    decode step run under it and give the same logits. The 4-rank worlds
+    against JAX are ``test_torch_train_world.py``."""
+    import torch.distributed as tdist
+    from repro_torch.distributed import DistContext, make_mesh
     cfg, _, _, model = _setup()
-    _, tb = _batches(cfg, 1, 4, seed=0)
-    with pytest.raises(NotImplementedError):
-        TW.forward(model, tb, cfg, dist=object())
+    _, tb = _batches(cfg, 2, 8, seed=0, kind="train")
+    tdist.init_process_group("gloo", store=tdist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        ctx = DistContext(make_mesh((1, 1), ("data", "model")), remat=True)
+        params = M.set_trainable(model)
+        got = {}
+        for name, d in (("plain", None), ("ctx", ctx)):
+            with torch.enable_grad():
+                logits = TW.forward(model, tb, cfg, dist=d)
+                loss = M.cross_entropy(logits, tb["targets"])
+                grads = torch.autograd.grad(loss, list(params.values()))
+            with torch.no_grad():
+                pl, cache = TW.prefill(model, tb, cfg, cache_len=10, dist=d)
+                dl, _ = TW.decode_step(model, tb["tokens"][:, :1], cache,
+                                       cfg, dist=d)
+            got[name] = [logits, pl, dl, *grads]
+        for a, b in zip(got["ctx"], got["plain"]):
+            assert torch.equal(a, b)
+    finally:
+        for p in model.parameters():
+            p.requires_grad_(False)
+        tdist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
