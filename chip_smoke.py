@@ -126,6 +126,23 @@
    (c) Whisper-large-v3 at full width, 4 + 4 of 32 + 32 layers: one
    train step under the context against one without (rel 1e-5), prefill
    and a decode step under it. No kernel of ours.
+16. The paper's drop metrics on the card: one Qwen3-30B-A3B MoE layer at
+   full width (d 2048, 128 experts top-8, d_expert 768), seeded random
+   weights, 2048 calibration tokens. (a) The Fig. 12 threshold -> drop-rate
+   map, the per-layer thresholds over 4 routers, and the drop rate and
+   FLOPs saved of a 2T routing, on router scores computed on the card,
+   each equal bit for bit to the same function on a CPU copy. (b) Fig. 10:
+   the layer prepared once (``partition_and_reconstruct``, P 2), then 2T
+   calibrated to FLOPs-saved targets 0 (keep-all), 0.10, 0.25, 0.40 and
+   0.50 on the timed tokens at T = 8, 1024 and 8192, one capacity per T
+   (factor 2.0, no overflow): the realised drop rate and FLOPs saved, the
+   fused kernel's time against its bound and its plain version, its row
+   tiles, and the served MoE layer's time (routing, plan and kernel)
+   beside 1 - FLOPs saved; how far time follows the drop is measured, not
+   asserted. (c) The three walkthroughs (``repro_torch.examples``) through
+   their ``main()`` on the card: quickstart, the serve example with 8
+   requests (both launch the fused kernel) and the Fig. 4 fine-tune for 20
+   steps.
 
 Phases 3-5 also hold layer 0's MoE, on real hidden states at the shape each
 path serves (sync prefill batch, prefill-insert, chunk), against the
@@ -1570,7 +1587,7 @@ def fig11_proxy(dev, cfg, layer, n_devices: int = 4) -> dict:
     single-card proxy of the EP step time, not a measured EP speedup."""
     import numpy as np
     import torch
-    from repro_torch.core import gating
+    from repro_torch.core import drop, gating
     from repro_torch.core import moe
     from repro_torch.core.policy import LoadAwareTwoT, TwoTDrop
     from repro_torch.data.pipeline import calibration_activations
@@ -1612,7 +1629,7 @@ def fig11_proxy(dev, cfg, layer, n_devices: int = 4) -> dict:
         ms = float(loads.max())
         out[label] = dict(
             makespan_rel=ms / ms0, speedup=ms0 / ms, loads=loads.tolist(),
-            drop_rate=1.0 - float(pairs.keep.float().mean()),
+            drop_rate=float(drop.drop_rate(pairs)),
             rel_err=float((y - y0).norm() / y0.norm()))
         log(f"  Fig. 11 proxy (single card, {n_devices} modelled EP devices, "
             f"keep-all loads {[int(v) for v in loads0.tolist()]}), {label} "
@@ -2398,15 +2415,11 @@ RESUME_TOL = 1e-5       # index_add's backward on CUDA is not bitwise
 
 
 def fig4_config():
-    """The ~128M-parameter MoE of the paper's Fig. 4 fine-tune (a copy of
-    ``examples/finetune_partitioned.py``'s ``CFG_100M``, which imports
-    JAX): 8 layers, d 512, 16 experts top-2, d_expert 512, vocab 16384."""
-    from repro_torch.configs.base import DualSparseConfig, ModelConfig
-    return ModelConfig(
-        arch_id="moe-100m", family="moe", source="examples",
-        n_layers=8, d_model=512, n_heads=8, n_kv_heads=2, d_ff=512,
-        vocab_size=16384, n_experts=16, top_k=2, d_expert=512,
-        dualsparse=DualSparseConfig(enabled=True))
+    """The ~128M-parameter MoE of the paper's Fig. 4 fine-tune (the
+    walkthrough's ``CFG_100M``): 8 layers, d 512, 16 experts top-2,
+    d_expert 512, vocab 16384."""
+    from repro_torch.examples.finetune_partitioned import CFG_100M
+    return CFG_100M
 
 
 def train_flops(cfg, tokens: int, seq: int) -> float:
@@ -2589,12 +2602,13 @@ def train_fig4(dev) -> dict:
     import torch
     from repro_torch.checkpoint.from_numpy import (params_from_numpy,
                                                    params_to_numpy)
-    from repro_torch.core import partition
     from repro_torch.data import pipeline
+    from repro_torch.examples.finetune_partitioned import (
+        partition_model, partitioned_config)
     from repro_torch.launch.train import restore_state, save_state
     from repro_torch.models import model as M
     cfg = fig4_config()
-    cfg_p = dataclasses.replace(cfg, n_experts=32, top_k=4, d_expert=256)
+    cfg_p = partitioned_config(cfg, 2)
     tree = params_to_numpy(M.init_params(cfg, seed=0, device=dev))
     loader = pipeline.make_loader(cfg, FIG4_B, FIG4_S, seed=0)
     held_out = [loader.get_batch(10_000 + i) for i in range(4)]
@@ -2618,10 +2632,7 @@ def train_fig4(dev) -> dict:
     for tag, c in (("orig", cfg), ("p2", cfg_p)):
         model = params_from_numpy(tree, cfg, device=dev)
         if tag == "p2":
-            with torch.no_grad():
-                for b in model.blocks:
-                    b.moe.load_weights(partition.complete_transform(
-                        b.moe.weights(), 2))
+            partition_model(model, 2)
         ce1 = ce(model, c, [loader.get_batch(0)])[0]
         t0 = time.perf_counter()
         losses, _, ms, state = train_run(
@@ -3384,6 +3395,317 @@ def train_ep_phase(dev) -> dict:
     return dict(wall_s=wall, ranks=ranks)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the paper's drop metrics on the card, Fig. 10 at full width, and
+# the three walkthroughs
+# ---------------------------------------------------------------------------
+
+# FLOPs-saved targets of the Fig. 10 sweep; 0 is keep-all (t = -1)
+FIG10_TARGETS = (0.0, 0.10, 0.25, 0.40, 0.50)
+FIG10_T = (8, 1024, 8192)   # decode, the sync prefill, a 32 x 256 prefill
+FIG10_CALIB = 2048          # calibration tokens of (a) and of the prepare
+FIG10_THRESHOLDS = 64       # thresholds of (a)'s Fig. 12 map
+FIG10_LAYERS = 4            # routers of (a)'s per-layer calibration
+FIG10_CAPACITY = 2.0        # capacity factor, one capacity per T
+
+
+def _bits(t):
+    """A float32 tensor's bits, on the host (for bitwise comparisons)."""
+    import torch
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+def metrics_check(dev, cfg, layer, calib) -> dict:
+    """(a) The drop metrics of ``core.drop`` on router scores computed on
+    the card, each against the same function on a CPU copy of the same
+    inputs, bitwise: the Fig. 12 threshold -> drop-rate map at
+    FIG10_THRESHOLDS thresholds in [0, max score], the per-layer
+    thresholds over FIG10_LAYERS routers (layer 0's and seeded others), and
+    the drop rate and FLOPs saved of layer 0's pairs under 2T calibrated to
+    a 25% target; the drop rate also against 1 - kept / total from
+    ``sub_pair_outcome_counts``, in float32."""
+    import numpy as np
+    import torch
+    from repro_torch.core import drop, gating
+    from repro_torch.core.policy import TwoTDrop
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1616)
+    wgs = [layer["wg"]] + [torch.randn(layer["wg"].shape, generator=gen,
+                                       device=dev) * 0.1
+                           for _ in range(FIG10_LAYERS - 1)]
+    with torch.no_grad():
+        scores = [gating.route(calib, wg, cfg.top_k,
+                               cfg.router_norm_topk).norm_score
+                  for wg in wgs]
+    cpu = [s.cpu() for s in scores]
+    ts = torch.linspace(0.0, float(cpu[0].max()), FIG10_THRESHOLDS)
+    rate_map = drop.threshold_to_drop_rate(scores[0], ts.to(dev))
+    per_layer = drop.calibrate_per_layer_thresholds(scores, 0.25)
+    pol = TwoTDrop(drop_target=0.25)._calibrated([wgs[0]], cfg, calib)
+    r = gating.route(calib, wgs[0], cfg.top_k, cfg.router_norm_topk)
+    pairs = drop.expand_pairs_2t(r.idx, r.combine, r.norm_score, 2,
+                                 pol.t_major, pol.t_minor)
+    rate = drop.drop_rate(pairs)
+    saved = drop.flops_saved_fraction(pairs.modes)
+    pairs_cpu = drop.SubExpertPairs(*(t.cpu() for t in pairs))
+    kf, km, dr = (int(c) for c in drop.sub_pair_outcome_counts(pairs.keep,
+                                                               2))
+    kept_share = np.float32(kf + km) * (np.float32(1.0)
+                                        / np.float32(kf + km + dr))
+    checks = {
+        "threshold_to_drop_rate": torch.equal(
+            _bits(rate_map), _bits(drop.threshold_to_drop_rate(cpu[0], ts))),
+        "calibrate_per_layer_thresholds": torch.equal(
+            _bits(per_layer), _bits(drop.calibrate_per_layer_thresholds(
+                cpu, 0.25))),
+        "drop_rate": torch.equal(_bits(rate),
+                                 _bits(drop.drop_rate(pairs_cpu))),
+        "flops_saved_fraction": torch.equal(
+            _bits(saved), _bits(drop.flops_saved_fraction(pairs_cpu.modes))),
+        "drop_rate_is_1_minus_kept_over_total":
+            float(rate) == float(np.float32(1.0) - kept_share),
+    }
+    out = dict(checks=checks, drop_rate=float(rate),
+               flops_saved=float(saved), kept_full=kf, kept_major=km,
+               dropped=dr, t_major=float(pol.t_major),
+               t_minor=float(pol.t_minor),
+               rate_map=[(float(t), float(v)) for t, v in
+                         zip(ts, rate_map.cpu())][::8],
+               per_layer=per_layer.cpu().tolist())
+    log(f"  (a) {FIG10_CALIB} calibration tokens, {FIG10_LAYERS} routers at "
+        f"Qwen3-30B-A3B width: Fig. 12 map at {FIG10_THRESHOLDS} thresholds "
+        f"in [0, {float(ts[-1]):.4f}] (every 8th: "
+        + ", ".join(f"{t:.3f}->{v:.4f}" for t, v in out["rate_map"])
+        + f"); per-layer (t_major, t_minor) at 0.25: "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in out["per_layer"])
+        + f"; 2T at 0.25: drop rate {out['drop_rate']:.6f}, FLOPs saved "
+        f"{out['flops_saved']:.6f}, kept_full {kf} kept_major {km} "
+        f"dropped {dr}; card vs CPU bitwise -> "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in
+                    checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"phase 16 (a): {checks}")
+    return out
+
+
+def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
+    """One point of (b): the realised drop, the fused kernel's time against
+    its bound and plain version, its row tiles, and the served MoE layer's
+    time (routing, plan and kernel) with its launches counted."""
+    import torch
+    from repro_torch.core import drop, moe
+    from repro_torch.kernels import dualsparse_ffn, ops
+    T = x.shape[0]
+    with torch.no_grad():
+        pairs = pol.route(rec, x, cfg)
+        kw, overflow = moe.fused_pipeline_args(rec, pairs, 2, cap, True)
+        kf, km, dr = (int(c) for c in drop.sub_pair_outcome_counts(
+            pairs.keep, 2))
+        y1 = ops.fused_moe_pipeline(x, **kw)
+        y2 = ops.fused_moe_pipeline(x, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y_ref = ops.fused_moe_pipeline_ref(x, **kw)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        rel = float((y1 - y_ref).norm() / y_ref.norm())
+        stable = bool(torch.equal(y1, y2))
+        ms = cuda_ms(lambda: ops.fused_moe_pipeline(x, **kw), 20)
+
+        def layer_call():
+            return moe.moe_forward_dispatch(
+                rec, x, cfg, pairs=pol.route(rec, x, cfg), capacity=cap,
+                mode_grouped=True)
+        reset_counts()
+        layer_call()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        layer_ms = cuda_ms(layer_call, 20)
+    cf, cm = kw["counts_full"], kw["counts_major"]
+    n_major = dualsparse_ffn.resolve_n_major(
+        kw["w1"].shape[-1], kw["p_factor"], kw["n_minor_start"], 128)
+    tiles = tile_stats(
+        lambda reg: dualsparse_ffn.launch_fused_moe_pipeline(
+            x, kw["w1"], kw["w3"], kw["w2"], kw["group_offsets"], cf, cm,
+            kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
+            p_factor=kw["p_factor"], n_major=n_major, regime=reg),
+        cf, cm, cap)
+    # row blocks of the many-row tile with no FULL row: the ones whose
+    # minor-half strips are skipped
+    blocks = (torch.clamp(cf + cm, max=cap) + 63) // 64
+    full_blocks = (cf + 63) // 64
+    bound_ms, bound_by, flops, nbytes = fused_bound(kw, T, x.shape[1])
+    return dict(
+        T=T, capacity=cap, t_major=float(pol.t_major),
+        t_minor=float(pol.t_minor),
+        drop_rate=float(drop.drop_rate(pairs)),
+        flops_saved=float(drop.flops_saved_fraction(pairs.modes)),
+        kept_full=kf, kept_major=km, dropped=dr, overflow=int(overflow),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / ms, flops=flops, bytes=nbytes,
+        rel_err=rel, max_abs_err=float((y1 - y_ref).abs().max()),
+        bit_stable=stable, tiles=tiles,
+        row_blocks=int(blocks.sum()),
+        major_only_blocks=int((blocks - full_blocks).clamp(min=0).sum()),
+        layer_ms=layer_ms, layer_launches=counts["fused_moe_pipeline"][
+            "launches"],
+        layer_plain_calls=sum(c["plain_calls"] for c in counts.values()))
+
+
+def fig10_sweep(dev, cfg, rec) -> dict:
+    """(b) Fig. 10 at full width: 2T-Drop calibrated to each FLOPs-saved
+    target on the timed tokens themselves, at each T, at one capacity per T
+    (the kernel skips dead tiles, so only the drop changes)."""
+    import torch
+    from repro_torch.core import moe
+    from repro_torch.core.policy import TwoTDrop
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1010)
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.top_k
+    out = {}
+    for T in FIG10_T:
+        x = torch.randn((T, d), generator=gen, device=dev)
+        cap = moe.capacity_for(T, K * 2, E * 2, FIG10_CAPACITY)
+        points = []
+        for target in FIG10_TARGETS:
+            pol = (TwoTDrop(partition_p=2, t_major=-1.0, t_minor=-1.0)
+                   if target == 0 else
+                   TwoTDrop(partition_p=2, drop_target=target)._calibrated(
+                       [rec["wg"]], cfg, x))
+            p = dict(target=target, **fig10_point(dev, cfg, rec, x, pol,
+                                                  cap))
+            base = points[0] if points else p
+            p["kernel_rel"] = p["ms"] / base["ms"]
+            p["layer_rel"] = p["layer_ms"] / base["layer_ms"]
+            points.append(p)
+            tl = p["tiles"]
+            log(f"  (b) T={T} C={cap} target {target:.2f}: drop rate "
+                f"{p['drop_rate']:.4f}, FLOPs saved {p['flops_saved']:.4f}; "
+                f"kept_full {p['kept_full']} kept_major {p['kept_major']} "
+                f"dropped {p['dropped']} overflow {p['overflow']}; kernel "
+                f"{p['ms']:.4f} ms ({p['kernel_rel']:.3f} of keep-all), "
+                f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}, "
+                f"{100 * p['bound_share']:.1f}% reached), plain "
+                f"{p['plain_ms']:.3f} ms, rel_err {p['rel_err']:.3e}, "
+                f"bit_stable {p['bit_stable']}; tiles: few "
+                f"{tl['few_groups']} groups ({tl['few_rows']} rows), many "
+                f"{tl['many_groups']} ({tl['many_rows']} rows), row slots "
+                f"{tl['row_slots']} for {tl['live_rows']} live rows, "
+                f"{p['row_blocks']} row blocks of 64, "
+                f"{p['major_only_blocks']} with minor halves skipped; served "
+                f"layer {p['layer_ms']:.4f} ms ({p['layer_rel']:.3f} of "
+                f"keep-all; 1 - FLOPs saved {1 - p['flops_saved']:.3f}), "
+                f"{p['layer_launches']} launch")
+            if p["overflow"]:
+                raise AssertionError(f"phase 16 (b) T={T} target {target}: "
+                                     f"{p['overflow']} pairs overflowed "
+                                     f"capacity {cap}")
+            if not (p["rel_err"] <= REL_TOL and p["bit_stable"]):
+                raise AssertionError(f"phase 16 (b) T={T} target {target}: "
+                                     f"the kernel disagrees with its plain "
+                                     f"version (rel_err {p['rel_err']:.3e}, "
+                                     f"bit_stable {p['bit_stable']})")
+            if p["layer_launches"] != 1 or p["layer_plain_calls"]:
+                raise AssertionError(f"phase 16 (b): the served layer "
+                                     f"launched {p['layer_launches']} times, "
+                                     f"plain calls {p['layer_plain_calls']}")
+            if not p["tiles"]["matches_plan"]:
+                raise AssertionError("phase 16 (b): the kernel's row tiles "
+                                     "differ from tile_plan")
+        rates = [p["drop_rate"] for p in points]
+        if not all(a < b for a, b in zip(rates, rates[1:])):
+            raise AssertionError(f"phase 16 (b) T={T}: the realised drop "
+                                 f"rate does not rise with the target: "
+                                 f"{rates}")
+        out[T] = points
+        del x
+    return out
+
+
+def examples_run(dev) -> dict:
+    """(c) The three walkthroughs through their ``main()`` on the card:
+    quickstart at its default, the serve example with 8 requests, the
+    Fig. 4 fine-tune for 20 steps; launches counted around each."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.examples import (finetune_partitioned, quickstart,
+                                      serve_dualsparse)
+    runs = {}
+    for name, mod, argv in (
+            ("quickstart", quickstart, []),
+            ("serve_dualsparse", serve_dualsparse, ["--requests", "8"]),
+            ("finetune_partitioned", finetune_partitioned,
+             ["--steps", "20"])):
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = mod.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        runs[name] = dict(wall_s=wall, counts=counts,
+                          output=buf.getvalue().splitlines())
+        for line in runs[name]["output"]:
+            log(f"    {name}: {line}")
+        log(f"  (c) {name} {' '.join(argv) or '(defaults)'}: {wall:.1f} s, "
+            f"fused_moe_pipeline launches "
+            f"{counts['fused_moe_pipeline']['launches']}, plain calls "
+            f"{sum(c['plain_calls'] for c in counts.values())}")
+        if name == "finetune_partitioned":
+            losses = result["orig"] + result["partitioned"]
+            if not (len(losses) == 40 and all(l == l for l in losses)):
+                raise AssertionError("phase 16 (c): the fine-tune's losses "
+                                     "are not finite")
+        elif counts["fused_moe_pipeline"]["launches"] == 0:
+            raise AssertionError(f"phase 16 (c): {name} never launched "
+                                 "the fused kernel")
+        free_memory()
+    return runs
+
+
+def paper_metrics_phase(dev) -> dict:
+    """Phase 16: one Qwen3-30B-A3B MoE layer at full width (d 2048, 128
+    experts top-8, d_expert 768), seeded as ``moe_params`` draws, and
+    FIG10_CALIB calibration tokens; (a) the drop metrics card vs CPU,
+    (b) the layer prepared once by ``partition_and_reconstruct`` (P 2) on
+    the calibration tokens, then Fig. 10's sweep, (c) the walkthroughs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import reconstruct
+    from repro_torch.data.pipeline import calibration_activations
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-moe-30b-a3b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    layer = moe_params(gen, dev, cfg.d_model, cfg.n_experts, 1,
+                       cfg.d_expert)
+    calib = calibration_activations(np.random.default_rng(16), FIG10_CALIB,
+                                    cfg.d_model, device=dev)
+    metrics = metrics_check(dev, cfg, layer, calib)
+    with torch.no_grad():
+        rec = reconstruct.partition_and_reconstruct(layer, calib, cfg, p=2)
+    del layer
+    free_memory()
+    sweep = fig10_sweep(dev, cfg, rec)
+    del rec
+    free_memory()
+    summary = {str(T): [(p["target"], round(p["drop_rate"], 4),
+                         round(p["flops_saved"], 4), round(p["ms"], 4),
+                         round(p["layer_ms"], 4)) for p in pts]
+               for T, pts in sweep.items()}
+    examples = examples_run(dev)
+    wall = time.perf_counter() - t0
+    log(f"  phase 16 took {wall:.1f} s")
+    return dict(metrics=metrics, fig10=sweep, fig10_summary=summary,
+                examples=examples, wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3488,6 +3810,12 @@ def main() -> int:
         f"({WHISPER_EP_LAYERS} + {WHISPER_EP_LAYERS} layers) under the "
         f"context vs without")
     train_ep = train_ep_phase(dev)
+    free_memory()
+    log(f"phase 16: the paper's drop metrics on the card: one Qwen3-30B-A3B "
+        f"MoE layer at full width, card vs CPU bitwise; Fig. 10 (2T "
+        f"targets {list(FIG10_TARGETS)} at T {list(FIG10_T)}, capacity "
+        f"factor {FIG10_CAPACITY}); the three walkthroughs")
+    paper = paper_metrics_phase(dev)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3498,7 +3826,7 @@ def main() -> int:
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
                    "minicpm3": mla, "train": train, "whisper": whisper,
-                   "train_ep": train_ep},
+                   "train_ep": train_ep, "paper_metrics": paper},
                   fh, indent=1)
 
     def kernel_entry(name, replaces, case_list, case, launches, at=None,
@@ -3525,17 +3853,23 @@ def main() -> int:
                       + paged["fused_route"]["counts"]["fused_moe_pipeline"][
                           "launches"]
                       + sum(dbrx[p]["launches"]
-                            for p in ("2t", "load_aware", "per_layer")))
+                            for p in ("2t", "load_aware", "per_layer"))
+                      + sum(p["layer_launches"]
+                            for pts in paper["fig10"].values() for p in pts)
+                      + sum(r["counts"]["fused_moe_pipeline"]["launches"]
+                            for r in paper["examples"].values()))
     fused = kernel_entry("fused_moe_pipeline",
                          "src/repro/kernels/dualsparse_ffn.py:498", cases,
                          "prefill", fused_launches,
                          at="prefill T=1024 at Qwen3-30B-A3B widths; "
-                            "launches of phases 3, 4, 5 (fused route) and 9")
+                            "launches of phases 3, 4, 5 (fused route), 9 "
+                            "and 16")
     wide = next(c for c in cases if c["case"] == "dbrx_prefill")
     fused["dbrx_prefill"] = {k: wide[k] for k in (
         "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
         "max_abs_err", "rel_err")}
     ep_ranks = ep["ranks"]
+    log("fig10 " + json.dumps(paper["fig10_summary"]))
     log(smi.splitlines()[0])          # the card's line, again beside the result
     print(json.dumps({"kernels": [
         fused,

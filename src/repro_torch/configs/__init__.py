@@ -37,6 +37,14 @@ for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b,
         register(_cfg)
 
 
+# the ten architectures the system was assigned (the JAX package's list)
+ASSIGNED_ARCHS = [
+    "zamba2-7b", "granite-20b", "starcoder2-3b", "qwen3-moe-30b-a3b",
+    "qwen2-vl-7b", "mamba2-370m", "dbrx-132b", "whisper-large-v3",
+    "qwen2-7b", "minicpm3-4b",
+]
+
+
 def get_config(arch_id: str) -> ModelConfig:
     try:
         return _REGISTRY[arch_id]
@@ -49,4 +57,4 @@ def list_archs() -> list[str]:
 
 
 __all__ = ["ModelConfig", "DualSparseConfig", "InputShape", "INPUT_SHAPES",
-           "get_config", "list_archs", "register"]
+           "ASSIGNED_ARCHS", "get_config", "list_archs", "register"]

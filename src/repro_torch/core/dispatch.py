@@ -158,6 +158,24 @@ def gather_rows(values, plan: DispatchPlan, capacity: int, *,
                                                   device=dev))
 
 
+def scatter_rows(values, plan: DispatchPlan, capacity: int, *,
+                 index_div: int = 1, fill=0):
+    """The buffer oracle of ``gather_rows``: repeat the rows (flat pair
+    ``i`` takes row ``i // index_div``) and scatter them into a
+    (G, capacity + 1, ...) buffer at (group, slot). Only the discard row
+    ``capacity`` (dropped and overflowed pairs) takes duplicate writes, and
+    it is sliced off, so the order of those writes does not matter."""
+    N = plan.group.shape[0]
+    src = torch.arange(N, device=values.device)
+    rows = values[src // index_div if index_div > 1 else src]
+    G = plan.group_offsets.shape[0]
+    buf = torch.full((G, capacity + 1) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    buf.index_put_((plan.group.long(), plan.slot.long()), rows,
+                   accumulate=False)
+    return buf[:, :capacity]
+
+
 def unpermute(out_buf, plan: DispatchPlan):
     """Each flat pair's output row from the (G, C, ...) buffer; dropped or
     overflowed pairs (slot == capacity) read a zero pad row."""

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 MODE_DROP, MODE_MAJOR, MODE_FULL = 0, 1, 2
@@ -93,6 +94,24 @@ def expand_pairs_1t(idx, combine, norm_score, p: int,
     return SubExpertPairs(new_idx, new_combine, keep, modes)
 
 
+def _f32_mean(total, n: int) -> torch.Tensor:
+    """``total / n`` as the JAX package's ``jnp.mean`` computes it on the
+    CPU: the float32 sum times the float32 reciprocal of the count (XLA
+    folds the division by a constant into that product). ``total`` is an
+    exact float32 tensor (a count, or a count of halves), so the result is
+    the same bits on every device."""
+    return total * torch.tensor(np.float32(1.0) / np.float32(n),
+                                device=total.device)
+
+
+def drop_rate(pairs: SubExpertPairs) -> torch.Tensor:
+    """Fraction of token-(sub-)expert computations dropped (the paper's
+    metric): 1 - mean(keep), a float32 scalar."""
+    keep = pairs.keep
+    kept = keep.sum(dtype=torch.int64).to(torch.float32)
+    return 1.0 - _f32_mean(kept, keep.numel())
+
+
 def sub_pair_outcome_counts(keep, p: int):
     """(kept_full, kept_major, dropped) int32 scalars in sub-pair units from
     a (T, K*P) keep mask (P-major layout, sub 0 = MAJOR half). A pair ran
@@ -108,6 +127,25 @@ def sub_pair_outcome_counts(keep, p: int):
     return kept_full, kept_major, dropped.to(torch.int32)
 
 
+def flops_saved_fraction(modes) -> torch.Tensor:
+    """Fraction of expert FLOPs skipped, a float32 scalar: mode 0 saves 1,
+    mode 1 saves 1/2, mode 2 nothing (the mean over original pairs)."""
+    halves = (2 * (modes == MODE_DROP).sum(dtype=torch.int64)
+              + (modes == MODE_MAJOR).sum(dtype=torch.int64))
+    return _f32_mean(halves.to(torch.float32) * 0.5, modes.numel())
+
+
+def threshold_to_drop_rate(norm_scores, thresholds) -> torch.Tensor:
+    """Empirical threshold -> drop-rate map (paper Fig. 12) from
+    calibration scores (N, K): for each of the (M,) thresholds the share of
+    scores ``<= t``, as (M,) float32. One sort and a right-sided search,
+    so no (M, N) mask is formed."""
+    flat = torch.sort(norm_scores.reshape(-1).float()).values
+    t = torch.as_tensor(thresholds, dtype=torch.float32, device=flat.device)
+    n_le = torch.searchsorted(flat, t.reshape(-1), right=True)
+    return _f32_mean(n_le.to(torch.float32), flat.numel()).reshape(t.shape)
+
+
 def calibrate_threshold(norm_scores, target_drop_rate: float):
     """The T¹ achieving a target drop rate on calibration scores (the
     threshold -> drop-rate mapping of §5.3.3). Returns a float32 scalar."""
@@ -116,3 +154,16 @@ def calibrate_threshold(norm_scores, target_drop_rate: float):
     frac = torch.tensor(target_drop_rate, dtype=torch.float32)
     idx = int(torch.clamp(torch.floor(frac * n).to(torch.int32), 0, n - 1))
     return flat[idx]
+
+
+def calibrate_per_layer_thresholds(layer_norm_scores, target_drop_rate: float,
+                                   gap: float = 0.01) -> torch.Tensor:
+    """Per-layer (T²_major, T²_minor) = (max(t - gap, 0), t + gap) around
+    each layer's ``calibrate_threshold`` at the target, so every layer
+    drops at the target rate (the paper's §5.3.3 future work; not the
+    ``per_layer`` policy's ``delta`` band). ``layer_norm_scores``: one
+    (N, K) score tensor per layer. Returns (L, 2) float32."""
+    ts = torch.stack([calibrate_threshold(s, target_drop_rate)
+                      for s in layer_norm_scores])
+    gap = torch.tensor(gap, dtype=torch.float32, device=ts.device)
+    return torch.stack([torch.clamp(ts - gap, min=0.0), ts + gap], dim=1)

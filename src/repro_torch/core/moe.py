@@ -19,7 +19,7 @@ from torch import nn
 from ..models.layers import MLP, normal, tensors_of
 from . import dispatch as dispatch_mod
 from . import gating
-from .drop import SubExpertPairs, MODE_FULL
+from .drop import SubExpertPairs, MODE_FULL, expand_pairs_2t
 
 
 class MoELayer(nn.Module):
@@ -87,6 +87,26 @@ def aux_loss_for(params: Dict, x, cfg):
     return gating.load_balance_aux_loss(r.probs, r.idx, E)
 
 
+def route_dualsparse(params: Dict, x, cfg, *,
+                     thresholds=None) -> SubExpertPairs:
+    """Routing with the partial-transformation expansion and the 2T-Drop
+    keep mask, for params already partitioned with
+    ``cfg.dualsparse.partition_p``. The thresholds are, in this order of
+    precedence: ``thresholds``, a (t_major, t_minor) pair whose entries
+    may be scalars or per-token (T,); the layer's calibrated
+    ``params["thresholds"]``; ``cfg.dualsparse``'s."""
+    ds = cfg.dualsparse
+    r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
+    if thresholds is not None:
+        t_major, t_minor = thresholds
+    elif params.get("thresholds") is not None:
+        t_major, t_minor = params["thresholds"][0], params["thresholds"][1]
+    else:
+        t_major, t_minor = ds.t_major, ds.t_minor
+    return expand_pairs_2t(r.idx, r.combine, r.norm_score, ds.partition_p,
+                           t_major, t_minor)
+
+
 def route_plain(params: Dict, x, cfg, n_experts=None) -> SubExpertPairs:
     """Routing with no partition/drop (P=1, keep everything)."""
     E = n_experts if n_experts is not None else params["wg"].shape[1]
@@ -116,6 +136,16 @@ def capacity_for(n_tokens: int, k_eff: int, n_experts: int,
                  capacity_factor: float = 1.25, multiple: int = 8) -> int:
     cap = int(capacity_factor * n_tokens * k_eff / n_experts)
     return max(multiple, (cap + multiple - 1) // multiple * multiple)
+
+
+def dispatch_indices(pairs: SubExpertPairs, n_experts: int, capacity: int):
+    """Per-pair (expert, slot) coordinates from the sort plan
+    (``core.dispatch.sort_dispatch``); dropped and over-capacity pairs get
+    slot == capacity. Returns ``(group, slot, overflow)``: ``overflow``
+    counts the KEPT pairs discarded because their expert was full."""
+    plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
+                                      n_groups=n_experts, capacity=capacity)
+    return plan.group, plan.slot, plan.overflow
 
 
 def _pairs_partition_p(pairs: SubExpertPairs) -> int:

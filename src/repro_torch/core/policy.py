@@ -389,6 +389,15 @@ def make_policy(name: str, ds=None, *, drop_target: Optional[float] = None,
     return POLICIES[name].from_config(ds, drop_target=drop_target, **kw)
 
 
+def default_policy() -> SparsityPolicy:
+    return NoDrop()
+
+
+def registered_policies() -> Dict[str, Type[SparsityPolicy]]:
+    """A snapshot of the policy registry (name -> class)."""
+    return dict(POLICIES)
+
+
 def merge_policy_override(base: Optional[SparsityPolicy],
                           override: SparsityPolicy) -> SparsityPolicy:
     """A per-request override's threshold values on the base policy's

@@ -48,6 +48,16 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (x * weight.float()).to(dt)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with bias, in float32 inside, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings (RoPE + M-RoPE)
 # ---------------------------------------------------------------------------

@@ -74,6 +74,10 @@ class MetricsState:
         """Values on the host (the only device -> host transfer)."""
         return {k: getattr(self, k).cpu().numpy() for k in STAT_KEYS}
 
+    @property
+    def total_pairs(self) -> torch.Tensor:
+        return self.kept_full + self.kept_major + self.dropped_pairs
+
 
 def metrics_spec(cfg, model) -> Optional[Tuple[int, int]]:
     """(n_layers, n_sub_experts) of a model's MoE stack — the shape of the

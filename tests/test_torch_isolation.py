@@ -67,6 +67,15 @@ def test_training_modules_are_checked():
         assert port / rel in PORT_FILES, rel
 
 
+def test_examples_are_checked():
+    """The three walkthroughs are among the files checked above."""
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("examples/__init__.py", "examples/quickstart.py",
+                "examples/serve_dualsparse.py",
+                "examples/finetune_partitioned.py"):
+        assert port / rel in PORT_FILES, rel
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -149,3 +158,14 @@ def test_train_cli_defaults_to_the_card(no_cuda):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--reduced", "--steps", "1"])
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_dualsparse",
+                                  "finetune_partitioned"])
+def test_examples_default_to_the_card(no_cuda, name):
+    """Each walkthrough raises without CUDA, before building a model,
+    unless ``--device cpu`` is given."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
