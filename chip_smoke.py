@@ -224,21 +224,43 @@ def ptxas_report(text: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
-            tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E"
-                             r"(f|13__nv_bfloat16)?", name)
-            if tile:
-                bf16 = tile.group(5) == "13__nv_bfloat16"
-                label = (f"{tile.group(1)}_kernel<{tile.group(2)}x"
-                         f"{tile.group(3)}, "
-                         f"{'buffer' if tile.group(4) == '1' else 'pipeline'}"
-                         f"{', bf16' if bf16 else ''}>")
-            else:
-                kern = re.search(r"([a-z_]*kernel)", name)
-                label = kern.group(1) if kern else name[:60]
-            rows.append((label, int(m.group(1)), spill,
+            rows.append((kernel_label(name), int(m.group(1)), spill,
                          int(smem.group(1)) if smem else 0))
             name = None
     return rows
+
+
+def kernel_label(name: str) -> str:
+    """A readable label for a mangled kernel name: the SwiGLU tiles as
+    ``up_kernel<64x4, pipeline>`` (float32 FMA tiles: rows x rows per
+    thread) or ``up_mma_kernel<16, buffer, bf16>`` (bf16 tensor-core
+    tiles: rows), other kernels by their name."""
+    import re
+    tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+    if tile:
+        return (f"{tile.group(1)}_kernel<{tile.group(2)}x{tile.group(3)}, "
+                f"{'buffer' if tile.group(4) == '1' else 'pipeline'}>")
+    tile = re.search(r"(up|down)_mma_kernelILi(\d+)ELb([01])E", name)
+    if tile:
+        return (f"{tile.group(1)}_mma_kernel<{tile.group(2)}, "
+                f"{'buffer' if tile.group(3) == '1' else 'pipeline'}, bf16>")
+    kern = re.search(r"([a-z_]*kernel)", name)
+    return kern.group(1) if kern else name[:60]
+
+
+def sass_mma(lib: Path) -> dict:
+    """label -> whether the kernel's SASS holds HMMA (tensor-core) ops, for
+    each tensor-core tile of a built library, from ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = {}
+    for section in text.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "_mma_kernel" in name:
+            found[kernel_label(name)] = "HMMA" in section
+    return found
 
 
 def log(msg: str) -> None:
@@ -313,6 +335,9 @@ SKEW = 4.0
 # is no multiple of 4 floats, so it takes the tiles' scalar edge path
 ODD_WIDTHS = (("odd_width", 200, 8, 2, 100, 2),
               ("odd_width_scalar", 202, 8, 2, 98, 2))
+# the float32 cases of phases 2 and 2b that also run on bf16 operands
+BF16_TWINS = ("chunk", "skewed", "p1_sub_pairs", "overflow", "odd_width",
+              "odd_width_scalar")
 
 
 def moe_params(gen, dev, d: int, E: int, P: int, f: int) -> dict:
@@ -460,7 +485,7 @@ def launch_profile(fn, runs: int = 5) -> dict:
         if ev.device_type != torch.autograd.DeviceType.CUDA \
                 or _dev_us(ev) <= 0:
             continue
-        m = re.search(r"(up|down)_kernel<(\d+)", ev.key)
+        m = re.search(r"(up|down)_(?:mma_)?kernel<(\d+)", ev.key)
         if m:
             key = m.group(1) + ("_few" if int(m.group(2)) == FEW_ROWS
                                 else "_many")
@@ -482,19 +507,20 @@ def launch_profile(fn, runs: int = 5) -> dict:
                 host_enqueue_us=host_us)
 
 
-def tile_stats(launch, counts_full, counts_major, capacity: int) -> dict:
+def tile_stats(launch, counts_full, counts_major, capacity: int,
+               dtype) -> dict:
     """Which row tile served each group, as the kernel reports it
     (``launch(regime)`` fills an (E,) int32 buffer), checked against
-    ``tile_plan``; the row slots the tiles multiply beside the live rows and
-    beside the slots of a row tile chosen from the capacity alone (16 rows
-    at C <= 16, else blocks of 64)."""
+    ``tile_plan`` for operands of ``dtype``; the row slots the tiles
+    multiply beside the live rows and beside the slots of a row tile chosen
+    from the capacity alone (16 rows at C <= 16, else blocks of 64)."""
     import torch
     from repro_torch.kernels.dualsparse_ffn import tile_plan
     regime = torch.zeros(counts_full.shape, dtype=torch.int32,
                          device=counts_full.device)
     launch(regime)
     torch.cuda.synchronize()
-    want, slots = tile_plan(counts_full, counts_major, capacity)
+    want, slots = tile_plan(counts_full, counts_major, capacity, dtype)
     n_rows = torch.clamp(counts_full.long() + counts_major.long(),
                          max=capacity)
     got = regime.long()
@@ -542,9 +568,10 @@ def kernel_phase(dev):
     weight stack, past 32-bit byte offsets), with routing from a router
     and 2T thresholds calibrated to a 25% drop target, so that rows are
     FULL, MAJOR-only and dropped. The ``_bf16`` cases run bf16 operands
-    (the S-ETP wire type, bar BF16_REL_TOL): decode and prefill at Qwen3
-    widths, and S-ETP's local seating on rank 0 of phase 11's world
-    (``setp_local_case``)."""
+    (the S-ETP wire type, the tensor-core tiles, bar BF16_REL_TOL): decode
+    and prefill at Qwen3 widths, S-ETP's local seating on rank 0 of phase
+    11's world (``setp_local_case``), and twins of the ``BF16_TWINS``
+    cases."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
@@ -577,30 +604,35 @@ def kernel_phase(dev):
          0, 0),
         ("dbrx_prefill", 2048, moe.capacity_for(2048, dk * dp, de * dp, 2.0),
          True, 0, 0),
-        # bf16 operands: the wire type of the S-ETP path
+        # bf16 operands: the wire type of the S-ETP path (the tensor-core
+        # tiles), and bf16 twins of the cases above that exercise the
+        # tiles' paths: both row tiles, P 1, overflow, both edge widths
         ("decode_bf16", 8, cap_decode, True, 0, 0),
         ("prefill_bf16", 1024, cap_prefill, True, 0, 0),
         ("setp_prefill_bf16", None, None, False, 0, 0),
         ("setp_decode_bf16", None, None, False, 0, 0)]
+    cases += [(c[0] + "_bf16",) + c[1:] for c in cases
+              if c[0] in BF16_TWINS]
     widths = {name: tuple(rest) for name, *rest in ODD_WIDTHS}
     widths.update(dbrx_decode=DBRX_WIDTHS, dbrx_prefill=DBRX_WIDTHS)
     case_params = {}
     results = []
     for name, T, cap, mode_grouped, n_empty, hot in cases:
+        base = name.removesuffix("_bf16")
+        bf16 = name != base
         ccfg, cparams, pp = cfg, params, P
-        if name in widths:
-            dd, EE, pp, ff, kk = widths[name]
+        if base in widths:
+            dd, EE, pp, ff, kk = widths[base]
             ccfg = dataclasses.replace(cfg, top_k=kk)
-            if widths[name] not in case_params:
+            if widths[base] not in case_params:
                 case_params.clear()
                 free_memory()
-                case_params[widths[name]] = moe_params(gen, dev, dd, EE, pp,
+                case_params[widths[base]] = moe_params(gen, dev, dd, EE, pp,
                                                        ff)
-            cparams = case_params[widths[name]]
-        bf16 = name.endswith("_bf16")
+            cparams = case_params[widths[base]]
         if name.startswith("setp_"):
-            x, _, kw, _, cap = setp_local_case(
-                gen, dev, cfg, params, SETP_T_LOCAL[name[:-len("_bf16")]])
+            x, _, kw, _, cap = setp_local_case(gen, dev, cfg, params,
+                                               SETP_T_LOCAL[base])
             T, overflow = x.shape[0], 0
         else:
             x, pairs = routed_case(gen, dev, ccfg, cparams, T, pp, n_empty,
@@ -636,7 +668,7 @@ def kernel_phase(dev):
                 x, kw["w1"], kw["w3"], kw["w2"], kw["group_offsets"], cf, cm,
                 kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
                 p_factor=kw["p_factor"], n_major=n_major, regime=reg),
-            cf, cm, cap)
+            cf, cm, cap, x.dtype)
         res = dict(case=name, T=T, d=d_case, f=kw["w1"].shape[-1],
                    capacity=cap, p_factor=kw["p_factor"], rows=rows,
                    dtype=str(x.dtype).replace("torch.", ""),
@@ -661,17 +693,16 @@ def kernel_phase(dev):
             f"fused_moe_pipeline[{name}]", ms, bound, tiles,
             launch_profile(lambda: ops.fused_moe_pipeline(x, **kw))),
             position_keys_equal=keys_ok)
-        if name == "overflow" and rows["overflow"] == 0:
-            raise AssertionError("overflow case did not overflow")
+        if base == "overflow" and rows["overflow"] == 0:
+            raise AssertionError(f"{name}: the case did not overflow")
         if name == "empty_experts" and rows["empty"] < n_empty:
             raise AssertionError("empty-expert case has no empty expert")
-        if name == "skewed" and not (tiles["many_groups"]
+        if base == "skewed" and not (tiles["many_groups"]
                                      and tiles["few_live_groups"]):
-            raise AssertionError("skewed case: one row tile served every "
-                                 "group")
+            raise AssertionError(f"{name}: one row tile served every group")
         # (a DBRX decode step holds only 32 pairs: it may have no MAJOR-only
         # row)
-        if mode_grouped and rows["major"] == 0 and name not in (
+        if mode_grouped and rows["major"] == 0 and base not in (
                 "overflow", "dbrx_decode"):
             raise AssertionError(f"{name}: no MAJOR-only rows")
         bar = BF16_REL_TOL if bf16 else REL_TOL
@@ -743,9 +774,9 @@ def grouped_phase(dev):
     thresholds calibrated to a 25% drop target. The dead rows of every
     buffer (at or past cf + cm) are filled with noise first: they must come
     out as exact zeros. The ``_bf16`` cases run bf16 operands: decode and
-    prefill at Qwen3 widths, and S-ETP's local buffers on rank 0 of phase
-    11's world (``setp_local_case``; its buffer path when a policy turns
-    the fused pipeline off)."""
+    prefill at Qwen3 widths, S-ETP's local buffers on rank 0 of phase 11's
+    world (``setp_local_case``; its buffer path when a policy turns the
+    fused pipeline off), and twins of the ``BF16_TWINS`` cases."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
@@ -783,19 +814,22 @@ def grouped_phase(dev):
         ("prefill_bf16", 1024, cap_prefill, True, 0, False, 0),
         ("setp_prefill_bf16", None, None, False, 0, False, 0),
         ("setp_decode_bf16", None, None, False, 0, False, 0)]
+    cases += [(c[0] + "_bf16",) + c[1:] for c in cases
+              if c[0] in BF16_TWINS]
     odd = {name: rest for name, *rest in ODD_WIDTHS}
     results = []
     for name, T, cap, mode_grouped, n_empty, widen, hot in cases:
+        base = name.removesuffix("_bf16")
+        bf16 = name != base
         ccfg, cparams, pp = cfg, params, P
-        if name in odd:
-            dd, EE, pp, ff, kk = odd[name]
+        if base in odd:
+            dd, EE, pp, ff, kk = odd[base]
             ccfg = dataclasses.replace(cfg, top_k=kk)
             cparams = moe_params(gen, dev, dd, EE, pp, ff)
-        bf16 = name.endswith("_bf16")
         if name.startswith("setp_"):
             from repro_torch.core import dispatch
-            rx, plan, fkw, _, cap = setp_local_case(
-                gen, dev, cfg, params, SETP_T_LOCAL[name[:-len("_bf16")]])
+            rx, plan, fkw, _, cap = setp_local_case(gen, dev, cfg, params,
+                                                    SETP_T_LOCAL[base])
             T, overflow = rx.shape[0], 0
             kw = dict(x=dispatch.gather_rows(rx, plan, cap),
                       **{k: fkw[k] for k in ("w1", "w3", "w2", "counts_full",
@@ -846,7 +880,7 @@ def grouped_phase(dev):
             lambda reg: dualsparse_ffn.launch_grouped_swiglu(
                 kw["x"], kw["w1"], kw["w3"], kw["w2"], cf, cm,
                 p_factor=kw["p_factor"], n_major=n_major, regime=reg),
-            cf, cm, C)
+            cf, cm, C, kw["x"].dtype)
         res = dict(case=name, T=T, d=d_case, capacity=C,
                    p_factor=kw["p_factor"], f=kw["w1"].shape[-1], rows=rows,
                    dtype=str(kw["x"].dtype).replace("torch.", ""),
@@ -867,10 +901,9 @@ def grouped_phase(dev):
         if name == "ragged" and (C % 64 == 0 or rows["empty"] < n_empty):
             raise AssertionError("ragged case is not ragged or has no "
                                  "empty expert")
-        if name == "skewed" and not (tiles["many_groups"]
+        if base == "skewed" and not (tiles["many_groups"]
                                      and tiles["few_live_groups"]):
-            raise AssertionError("skewed case: one row tile served every "
-                                 "group")
+            raise AssertionError(f"{name}: one row tile served every group")
         if mode_grouped and name != "ragged" and rows["major"] == 0:
             raise AssertionError(f"{name}: no MAJOR-only rows")
         bar = BF16_REL_TOL if bf16 else REL_TOL
@@ -2115,6 +2148,13 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
             timing[label] = dict(layer_ms=(time.perf_counter() - t0) * 1e3,
                                  collective_ms=spent["ms"],
                                  collectives=spent["calls"])
+        # the cast of this rank's float32 experts to the wire type that
+        # opens every S-ETP layer call (core/setp.py:118), alone
+        local = [layer[k] for k in ("w1", "w3", "w2")]
+        weight_cast = dict(
+            ms=cuda_ms(lambda: [w.to(torch.bfloat16) for w in local], 5),
+            read_mb=sum(w.numel() * 4 for w in local) / 1e6,
+            written_mb=sum(w.numel() * 2 for w in local) / 1e6)
         with plain_kernels():
             y_p = setp.setp_moe_forward(layer, h, cfg, ctx, policy=policy)
         # the paged run's shapes: one slot's (1, CHUNK) chunk (CHUNK /
@@ -2141,7 +2181,7 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
                 finite=bool(torch.isfinite(y_kp).all()))
         torch.cuda.synchronize()
     check = dict(
-        overflow_f32=int(of32), timing_bf16=timing,
+        overflow_f32=int(of32), timing_bf16=timing, weight_cast=weight_cast,
         rel_err_bf16_vs_plain=float((y_k.float() - y_p.float()).norm()
                                     / y_p.float().norm()),
         max_abs_err_bf16_vs_plain=float((y_k.float() - y_p.float())
@@ -2279,7 +2319,12 @@ def ep_phase(dev) -> dict:
         "(host clock, rank 0): "
         + ", ".join(f"{k} {v['layer_ms']:.2f} ms of which "
                     f"{v['collective_ms']:.2f} ms in {v['collectives']} "
-                    "collectives" for k, v in chk["timing_bf16"].items()))
+                    "collectives" for k, v in chk["timing_bf16"].items())
+        + f"; its first step, the cast of the rank's float32 experts to bf16 "
+        f"(CUDA events, median of 5, 4 ranks sharing the card): "
+        f"{chk['weight_cast']['ms']:.3f} ms, "
+        f"{chk['weight_cast']['read_mb']:.1f} MB read, "
+        f"{chk['weight_cast']['written_mb']:.1f} MB written")
     log(f"  sync, rank 0: {st['tokens']} tokens in {st['wall_s']:.3f}s "
         f"({st['tok_per_s']:.1f} tok/s), prefill {st['prefill_ms']:.2f} ms, "
         f"decode step {st['decode_step_ms']:.3f} ms (mean of "
@@ -3531,7 +3576,7 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
             x, kw["w1"], kw["w3"], kw["w2"], kw["group_offsets"], cf, cm,
             kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
             p_factor=kw["p_factor"], n_major=n_major, regime=reg),
-        cf, cm, cap)
+        cf, cm, cap, x.dtype)
     # row blocks of the many-row tile with no FULL row: the ones whose
     # minor-half strips are skipped
     blocks = (torch.clamp(cf + cm, max=cap) + 63) // 64
@@ -3732,6 +3777,13 @@ def main() -> int:
         for kernel, regs, spill, smem in ptxas_report(text):
             log(f"    {name}: {kernel}: {regs} registers, {spill} bytes "
                 f"spilled, {smem} bytes static shared memory")
+    for name in ("fused_moe_pipeline", "grouped_swiglu"):
+        hmma = sass_mma(libs[name])
+        log(f"  {name}: HMMA in the SASS of " + ", ".join(
+            f"{k} {v}" for k, v in sorted(hmma.items())))
+        if len(hmma) != 4 or not all(hmma.values()):
+            raise AssertionError(f"{name}: a tensor-core tile without HMMA "
+                                 f"ops: {hmma}")
     for dtype in dualsparse_ffn.ELEMENT_TYPES:
         ring = dualsparse_ffn.ring_bytes(dtype)
         log(f"  swiglu tiles' cp.async rings, {dtype} operands (dynamic "

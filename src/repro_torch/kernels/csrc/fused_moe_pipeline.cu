@@ -6,26 +6,29 @@
 // at :353, resident body _fused_pipeline_kernel at :282; both compute the
 // same function, so this one kernel serves either value of ``streamed``).
 //
-// What bounds it on an H100 with float32 operands (the single-card serving
-// path; the S-ETP path runs it on bfloat16 wire operands, whose bound is
-// the bf16 tensor cores' and which this CUDA-core tile runs at its float32
-// FMA rate):
+// What bounds it on an H100:
 //   * decode (T=8, Qwen3-30B-A3B widths) and a slot engine's prefill-insert
 //     (T <= 128, ~8 rows per expert): each touched expert streams
-//     3 * 2048 * 768 * 4 B ~= 18.9 MB of weights for a handful of rows, so
-//     the kernel is bound by device-memory bytes (3.35 TB/s);
+//     3 * 2048 * 768 weights (18.9 MB in float32, 9.4 MB in bf16) for a
+//     handful of rows, so the kernel is bound by device-memory bytes
+//     (3.35 TB/s);
 //   * prefill (T~1024): ~45-64 rows per expert reuse each weight tile that
-//     often, so it is bound by f32 FMAs on the CUDA cores (67 TFLOP/s;
-//     tensor cores take f32 only as TF32, which would change the numbers).
+//     often. On float32 operands (the single-card serving path) that is
+//     bound by f32 FMAs on the CUDA cores (67 TFLOP/s; tensor cores take
+//     f32 only as TF32, which would change the numbers). On bf16 operands
+//     (the S-ETP wire type) the products run on the bf16 tensor cores
+//     (989 TFLOP/s), and the prefill is bound by bytes too.
 // What the design does about that (swiglu_tiles.cuh, pipeline row layout):
 // the up and down launches stream each group's weights through a cp.async
 // ring of shared-memory slots, several steps in flight per CTA, with the
 // rows x[tok[p]] gathered into the same slots; the row tile is chosen on
 // the device from each group's live rows (a few-row tile for groups of at
-// most 16 rows, a 64-row register tile above), so few-row groups spend no
-// FMAs on dead rows. Rows past an expert's count are never loaded, and
-// MAJOR-only row tiles stop the contraction at the minor half, so
-// 2T-Drop's skipped work is neither read nor computed.
+// most 16 rows, 64-row blocks above), so few-row groups spend no products
+// on dead rows. Float32 operands take the FMA tiles; bf16 operands take
+// mma.sync tiles whose 128-byte ring steps carry as many bytes as the
+// float ones. Rows past an expert's count are never loaded, and MAJOR-only
+// row tiles stop the contraction at the minor half, so 2T-Drop's skipped
+// work is neither read nor computed.
 //
 // Three steps on the caller's stream, no atomics:
 //   1. up:      h[pos, u] = silu(x[tok[pos]] . w1[:, u]) * (x[tok[pos]] . w3[:, u])
@@ -147,7 +150,6 @@ int run_tiles(const Operands& o, int E, cudaStream_t s) {
   pb.f = o.f;
   pb.P = o.P;
   pb.n_major = o.n_major;
-  pb.n_tiles_sub = (o.f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
   pb.capacity = o.capacity;
   return static_cast<int>(swiglu_tiles::launch_swiglu<false>(pb, E, s));
 }

@@ -11,24 +11,27 @@
 // output tile before it accumulates). Counts past C are clamped on the
 // device.
 //
-// Element types as in swiglu_tiles.cuh: float32, or bfloat16 operands (the
-// S-ETP wire type) with float32 products and output.
+// Element types as in swiglu_tiles.cuh: float32 operands and output, or
+// bfloat16 operands (the S-ETP wire type) with float32 sums and a bfloat16
+// output, rounded once from the float32 sums.
 //
-// What bounds it on an H100 (f32 weights): at the paged engine's decode
-// (C = 8) and chunk (T = C = 64, ~3-4 live rows per group) each live
-// group streams 3 * d * V * 4 B of weights for a few rows, so it is bound by
-// device-memory bytes; at prefill capacity (C ~ 128, ~45-64 rows per group)
-// each weight tile is reused by that many rows, so it is bound by f32 FMAs
-// on the CUDA cores. What the design does about that: the up and down
-// tiles of swiglu_tiles.cuh in its buffer row layout stream the weights
-// through a ring of cp.async shared-memory slots, and pick the row tile on
-// the device from each group's live rows, not from C: a group of at most 16
-// rows runs one 16-row tile, larger groups 64-row register tiles. Row tiles
-// past a group's live rows load nothing, and MAJOR-only row tiles skip the
-// MINOR up strips and stop the down contraction at n_major. Unlike the fused pipeline it
-// reads x from the (E, C, d) buffer and writes the (E, C, d) output
-// directly (no gather, no combine). One writer per output element, a fixed
-// k order: runs are bit-identical.
+// What bounds it on an H100: at the paged engine's decode (C = 8) and chunk
+// (T = C = 64, ~3-4 live rows per group) each live group streams
+// 3 * d * V weights for a few rows, so it is bound by device-memory bytes;
+// at prefill capacity (C ~ 128, ~45-64 rows per group) each weight tile is
+// reused by that many rows, so float32 operands are bound by f32 FMAs on
+// the CUDA cores, while bf16 operands, on the bf16 tensor cores, stay bound
+// by bytes. What the design does about that: the up and down tiles of
+// swiglu_tiles.cuh in its buffer row layout stream the weights through a
+// ring of cp.async shared-memory slots, and pick the row tile on the device
+// from each group's live rows, not from C: a group of at most 16 rows runs
+// one 16-row tile, larger groups 64-row blocks (FMA tiles for float32,
+// mma.sync tiles for bf16). Row tiles past a group's live rows load
+// nothing, and MAJOR-only row tiles skip the MINOR up strips and stop the
+// down contraction at n_major. Unlike the fused pipeline it reads x from
+// the (E, C, d) buffer and writes the (E, C, d) output directly (no
+// gather, no combine). One writer per output element, a fixed k order:
+// runs are bit-identical.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -43,7 +46,7 @@ int run_tiles(const void* x, const void* w1, const void* w3, const void* w2,
               const void* counts_full, const void* counts_major, void* h,
               void* out, void* regime, int E, int C, int d, int f, int P,
               int n_major, cudaStream_t stream) {
-  swiglu_tiles::Problem<T> pb;
+  swiglu_tiles::Problem<T, T> pb;   // the output in the operands' type
   pb.x = static_cast<const T*>(x);
   pb.w1 = static_cast<const T*>(w1);
   pb.w3 = static_cast<const T*>(w3);
@@ -54,13 +57,12 @@ int run_tiles(const void* x, const void* w1, const void* w3, const void* w2,
   pb.tok = nullptr;
   pb.comb = nullptr;
   pb.h = static_cast<T*>(h);
-  pb.y = static_cast<float*>(out);
+  pb.y = static_cast<T*>(out);
   pb.regime = static_cast<int*>(regime);
   pb.d = d;
   pb.f = f;
   pb.P = P;
   pb.n_major = n_major;
-  pb.n_tiles_sub = (f + swiglu_tiles::BN - 1) / swiglu_tiles::BN;
   pb.capacity = C;
   return static_cast<int>(swiglu_tiles::launch_swiglu<true>(pb, E, stream));
 }
@@ -69,12 +71,13 @@ int run_tiles(const void* x, const void* w1, const void* w3, const void* w2,
 
 extern "C" {
 
-// Enqueues the up and down launches on ``stream``. x, the weights and the
-// scratch ``h`` (E*C, P*f) are float32 (``bf16`` == 0) or bfloat16
-// (``bf16`` != 0); ``out`` is the (E, C, d) float32 result; ``regime`` null
-// or an (E,) int32 buffer that receives, per group, 1 (few-row tile) or 2
-// (many-row tile). Returns the cudaGetLastError() code after the first
-// failing launch, or 0.
+// Enqueues the up and down launches on ``stream``. ``bf16`` gives the type
+// of x, the weights, the scratch ``h`` (E*C, P*f) and the (E, C, d) result
+// ``out``: float32 (``bf16`` == 0) or bfloat16 (``bf16`` != 0; the sums
+// stay float32 and are rounded to nearest even once, into ``out``);
+// ``regime`` null or an (E,) int32 buffer that receives, per group, 1
+// (few-row tile) or 2 (many-row tile). Returns the cudaGetLastError() code
+// after the first failing launch, or 0.
 int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
                           const void* w2, const void* counts_full,
                           const void* counts_major, void* h, void* out,
@@ -94,7 +97,7 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
 // (bf16 == 0) or bfloat16 operands.
 int grouped_swiglu_ring_bytes(int up, int few, int bf16) {
   const int BM = few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS;
-  return bf16 ? swiglu_tiles::smem_bytes<__nv_bfloat16>(up != 0, BM)
+  return bf16 ? swiglu_tiles::mma_smem_bytes(up != 0, BM)
               : swiglu_tiles::smem_bytes<float>(up != 0, BM);
 }
 

@@ -14,12 +14,14 @@ through ``ctypes``.
   buffers, with rows at or past ``cf+cm`` returned as exact zeros.
 
 Both take float32 operands, or bfloat16 ones (the S-ETP wire type) whose
-products are taken in float32 with h rounded to bf16 before the down
-product; their output is float32, cast to x's type by ``ops``.
+products are summed in float32 on the tensor cores, with h rounded to
+bf16 before the down product. The fused kernel's output is float32 (cast
+to x's type by ``ops``); the grouped kernel writes its output in x's type.
 
 Both run the row tiles of ``csrc/swiglu_tiles.cuh``, which choose on the
-device, per group, between a few-row and a many-row tile; ``tile_plan``
-says on the host which tile serves each group and how many row slots it
+device, per group, between a few-row and a many-row tile: FMA tiles on
+float32 operands, ``mma.sync`` tiles on bf16 ones. ``tile_plan`` says on
+the host which tile serves each group and how many row slots it
 multiplies.
 """
 from __future__ import annotations
@@ -34,12 +36,18 @@ I32 = torch.int32
 
 # the row tiles of csrc/swiglu_tiles.cuh: groups with at most FEW_ROWS live
 # rows take the few-row tile (regime 1), the others the many-row tile
-# (regime 2) in row blocks of MANY_ROWS; 16 threads share a row (64
-# columns, 4 each), so a warp multiplies 2 x rows/16 rows of either tile
-# (ROWS_PER_WARP[regime]), and warps without a live row skip the FMAs
+# (regime 2) in row blocks of MANY_ROWS. ROW_STEP[dtype][regime]: the rows
+# the tile multiplies in one unit, dead or live. Float32 FMA tiles: 16
+# threads share a row (64 columns, 4 each), so a warp multiplies 2 x
+# rows/16 rows of either tile, and warps without a live row skip the FMAs.
+# bf16 mma.sync tiles: the few-row tile puts the rows on the mma's N side
+# (steps of MMA_N = 8 rows), the many-row tile gives each warp MMA_M = 16
+# rows on the M side, and warps without a live row skip their products.
 FEW_ROWS = 16
 MANY_ROWS = 64
-ROWS_PER_WARP = {1: 2 * FEW_ROWS // 16, 2: 2 * MANY_ROWS // 16}
+MMA_M, MMA_N = 16, 8
+ROW_STEP = {torch.float32: {1: 2 * FEW_ROWS // 16, 2: 2 * MANY_ROWS // 16},
+            torch.bfloat16: {1: MMA_N, 2: MMA_M}}
 
 
 def resolve_n_major(f: int, p_factor: int, n_minor_start, block_f: int
@@ -63,18 +71,21 @@ def resolve_n_major(f: int, p_factor: int, n_minor_start, block_f: int
                for j in range(p_factor))
 
 
-def tile_plan(counts_full, counts_major, capacity: int):
-    """The row tile of each group and the row slots it multiplies.
+def tile_plan(counts_full, counts_major, capacity: int,
+              dtype=torch.float32):
+    """The row tile of each group and the row slots it multiplies, for
+    operands of ``dtype``.
 
     Returns ``(regime, row_slots)``, (E,) int64: regime 1 (the few-row
     tile) for groups of at most ``FEW_ROWS`` live rows ``min(cf + cm, C)``,
-    2 (the many-row tile) for larger ones; ``row_slots`` counts the rows of
-    a MAJOR strip's warps that have a live row — the live rows rounded up to
-    a warp's rows (the slots of the FMAs, dead or live)."""
+    2 (the many-row tile) for larger ones; ``row_slots`` counts the rows a
+    MAJOR strip multiplies — the live rows rounded up to the tile's row
+    step ``ROW_STEP[dtype]`` (the slots of the products, dead or live)."""
     n_rows = torch.clamp(counts_full.long() + counts_major.long(),
                          max=capacity)
     regime = torch.where(n_rows <= FEW_ROWS, 1, 2)
-    step = torch.where(regime == 1, ROWS_PER_WARP[1], ROWS_PER_WARP[2])
+    steps = ROW_STEP[dtype]
+    step = torch.where(regime == 1, steps[1], steps[2])
     return regime, (n_rows + step - 1) // step * step
 
 
@@ -214,13 +225,14 @@ def launch_position_keys(tok_sorted, group_offsets, counts_full,
 def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
                           p_factor: int, n_major: int, regime=None):
     """Enqueue the grouped SwiGLU kernel on the current stream; returns the
-    (E, C, d) float32 output, dead rows exact zeros. x and the weights are
-    float32 or bfloat16 (one type); inputs must already be
-    checked (``ops`` does that); counts past C are clamped on the device.
-    ``regime`` as for ``launch_fused_moe_pipeline``."""
+    (E, C, d) output in x's type (bf16: the float32 sums rounded once),
+    dead rows exact zeros. x and the weights are float32 or bfloat16 (one
+    type); inputs must already be checked (``ops`` does that); counts past
+    C are clamped on the device. ``regime`` as for
+    ``launch_fused_moe_pipeline``."""
     E, C, d = x.shape
     f = w1.shape[-1]
-    out = torch.empty((E, C, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library("grouped_swiglu")

@@ -38,6 +38,10 @@ CASES = {
     "p2_explicit_minor_start": (5, 32, 2, 4, 2, 32, 96, 32, 0.9, 0.5, 16,
                                 64, 80),
     "overflow": (6, 64, 4, 4, 2, 32, 32, 8, 0.9, 0.3, 8, 128, None),
+    # d not a multiple of the tensor-core tile's 16-element k step, f not
+    # a multiple of one 16-byte copy of bf16 values
+    "p1_odd_widths": (12, 40, 2, 5, 1, 40, 45, 32, 0.9, 0.5, 16, 128, 21),
+    "p2_odd_widths": (13, 32, 2, 4, 2, 24, 21, 32, 0.9, 0.5, 16, 128, None),
     # T follows from the skewed group sizes (_skewed_groups)
     "skewed_rows": (11, None, 2, 6, 2, 32, 24, tdsf.FEW_ROWS + 8, 1.0, 0.4,
                     8, 128, None),
@@ -137,7 +141,8 @@ BF16_TOL = 1e-3
 
 
 @pytest.mark.parametrize("name", ["p2_mode_grouped", "p1_sub_pairs",
-                                  "p2_ragged_f", "overflow", "skewed_rows"])
+                                  "p2_ragged_f", "overflow", "skewed_rows",
+                                  "p1_odd_widths", "p2_odd_widths"])
 def test_fused_pipeline_bf16_matches_jax(name):
     """bf16 operands, as the S-ETP body hands them to the kernel: the plain
     version against the Pallas kernel in interpret mode."""

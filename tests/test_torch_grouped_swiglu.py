@@ -49,6 +49,10 @@ CASES = {
     "counts_past_capacity": (14, 3, 16, 32, 64, 2, 8, 32, None, "over"),
     "skewed_rows": (15, 6, tdsf.FEW_ROWS + 8, 32, 24, 2, 8, 8, None,
                     "skewed"),
+    # d not a multiple of the tensor-core tile's 16-element k step, f not
+    # a multiple of one 16-byte copy of bf16 values
+    "p1_odd_widths": (16, 3, 20, 40, 45, 1, 8, 16, 21, "rand"),
+    "p2_odd_widths": (17, 2, 16, 24, 21, 2, 8, 8, None, "rand"),
 }
 
 
@@ -111,7 +115,8 @@ BF16_TOL = 1e-3
 
 
 @pytest.mark.parametrize("name", ["p1_blocks", "p1_odd_f", "p2", "p4",
-                                  "counts_past_capacity", "skewed_rows"])
+                                  "counts_past_capacity", "skewed_rows",
+                                  "p1_odd_widths", "p2_odd_widths"])
 def test_grouped_swiglu_bf16_matches_jax(name):
     """bf16 operands (the S-ETP buffer path's): the plain version against
     the Pallas kernel in interpret mode; dead rows exact zeros."""
