@@ -174,12 +174,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (dense): HBM bytes/s, float32 FLOP/s on the
-# CUDA cores (the MoE kernels' rate), TF32 FLOP/s on the tensor cores and
-# bf16 FLOP/s on the tensor cores (the bound of the bf16 MoE cases: the
-# least time the card could take for their work)
+# CUDA cores (the MoE kernels' float32 few-row tile), TF32 FLOP/s on the
+# tensor cores (three passes per product: ssd_chunk and the MoE kernels'
+# float32 many-row tile) and bf16 FLOP/s on the tensor cores (the bf16 MoE
+# tiles): the least time the card could take for their work
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-TF32_FLOPS = 495e12     # TF32 on the tensor cores (ssd_chunk's products)
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 REL_TOL = 1e-5          # float32: the same products summed in another order
 # bf16 operands: h rounded to bf16 and the output cast to bf16 on both
@@ -232,20 +233,30 @@ def ptxas_report(text: str):
 
 def kernel_label(name: str) -> str:
     """A readable label for a mangled kernel name: the SwiGLU tiles as
-    ``up_kernel<64x4, pipeline>`` (float32 FMA tiles: rows x rows per
-    thread) or ``up_mma_kernel<16, buffer, bf16>`` (bf16 tensor-core
-    tiles: rows), other kernels by their name."""
+    ``up_kernel<16x1, pipeline>`` (the float32 FMA few-row tile: rows x
+    rows per thread), ``up_tf32_kernel<64, buffer, f32>`` (the float32
+    3xTF32 many-row tile: rows) or ``up_mma_kernel<16, buffer, bf16>``
+    (the bf16 tensor-core tiles: rows), other kernels by their name."""
     import re
     tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
     if tile:
         return (f"{tile.group(1)}_kernel<{tile.group(2)}x{tile.group(3)}, "
                 f"{'buffer' if tile.group(4) == '1' else 'pipeline'}>")
+    tile = re.search(r"(up|down)_tf32_kernelILb([01])E", name)
+    if tile:
+        return (f"{tile.group(1)}_tf32_kernel<64, "
+                f"{'buffer' if tile.group(2) == '1' else 'pipeline'}, f32>")
     tile = re.search(r"(up|down)_mma_kernelILi(\d+)ELb([01])E", name)
     if tile:
         return (f"{tile.group(1)}_mma_kernel<{tile.group(2)}, "
                 f"{'buffer' if tile.group(3) == '1' else 'pipeline'}, bf16>")
     kern = re.search(r"([a-z_]*kernel)", name)
     return kern.group(1) if kern else name[:60]
+
+
+# the SwiGLU tiles that run on the tensor cores: the bf16 tiles and the
+# float32 many-row tile
+TENSOR_CORE_TILES = ("_mma_kernel", "_tf32_kernel")
 
 
 def sass_mma(lib: Path) -> dict:
@@ -258,7 +269,7 @@ def sass_mma(lib: Path) -> dict:
     found = {}
     for section in text.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
-        if "_mma_kernel" in name:
+        if any(tile in name for tile in TENSOR_CORE_TILES):
             found[kernel_label(name)] = "HMMA" in section
     return found
 
@@ -287,22 +298,38 @@ def cuda_ms(fn, runs: int) -> float:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _operand_rate(w):
-    """(bytes per element, peak FLOP/s) of the operands' type: float32 on
-    the CUDA cores, bf16 on the tensor cores."""
+def op_seconds(w, flops: int, n_rows: int) -> tuple:
+    """(seconds, seconds as PRs 14-22 counted them): the least time for one
+    group's SwiGLU ``flops`` at the peak rate of the units that run its row
+    tile. bf16 operands: the bf16 tensor cores. float32: the many-row tile
+    (past FEW_ROWS live rows) as three TF32 passes on the tensor cores
+    (3·FLOPs / TF32 rate, as ``ssd_bound``), the few-row tile as FMAs on the
+    CUDA cores. The second counts every float32 FLOP at the CUDA-core rate,
+    the bound before the many-row tile moved to the tensor cores."""
     import torch
+    from repro_torch.kernels.dualsparse_ffn import FEW_ROWS
     if w.dtype == torch.bfloat16:
-        return 2, BF16_FLOPS
-    return 4, F32_FLOPS
+        return flops / BF16_FLOPS, flops / BF16_FLOPS
+    core = flops / F32_FLOPS
+    return (3 * flops / TF32_FLOPS if n_rows > FEW_ROWS else core), core
+
+
+def _bound(nbytes: int, flops: int, t_ops: float, t_core: float):
+    """(bound_ms, bound_by, flops, bytes, f32core_ms): the larger of the
+    bytes over the HBM rate and the operations' time; ``f32core_ms`` the
+    same with the operations' time as PRs 14-22 counted it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            max(t_bytes, t_core) * 1e3)
 
 
 def fused_bound(kw, T: int, d: int):
-    """(bound_ms, bound_by, flops, bytes) of one fused pipeline call: the
-    bytes it must move (x read once, the weights of the neurons its rows
-    need read once, the pair maps, the output written once) over the HBM
-    rate, and the SwiGLU FLOPs of the rows it computes over the peak rate
-    of the operands' type (float32 CUDA cores, bf16 tensor cores); the
-    larger of the two."""
+    """(bound_ms, bound_by, flops, bytes, f32core_ms) of one fused pipeline
+    call: the bytes it must move (x read once, the weights of the neurons
+    its rows need read once, the pair maps, the output written once) over
+    the HBM rate, and each group's SwiGLU FLOPs over the rate of the units
+    its row tile runs on (``op_seconds``); the larger of the two."""
     from repro_torch.kernels.dualsparse_ffn import resolve_n_major
     f = kw["w1"].shape[-1]
     P = kw["p_factor"]
@@ -311,19 +338,19 @@ def fused_bound(kw, T: int, d: int):
     cf = kw["counts_full"].tolist()
     cm = kw["counts_major"].tolist()
     n_pos = kw["tok_sorted"].shape[0]
-    elem, peak = _operand_rate(kw["w1"])
+    elem = kw["w1"].element_size()
     nbytes = 2 * T * d * elem + 4 * (3 * len(cf) + 2 * n_pos)
-    flops = 0
+    flops, t_ops, t_core = 0, 0.0, 0.0
     for rows_f, rows_m in zip(cf, cm):
         if rows_f:
             nbytes += 3 * d * V * elem
         elif rows_m:
             nbytes += 3 * d * n_major * elem
-        flops += 6 * d * (V * rows_f + n_major * rows_m)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+        g_flops = 6 * d * (V * rows_f + n_major * rows_m)
+        t, core = op_seconds(kw["w1"], g_flops,
+                             min(rows_f + rows_m, kw["capacity"]))
+        flops, t_ops, t_core = flops + g_flops, t_ops + t, t_core + core
+    return _bound(nbytes, flops, t_ops, t_core)
 
 
 # the skewed cases: a direction added to every token and to the router
@@ -445,6 +472,44 @@ def setp_local_case(gen, dev, cfg, params, T_local: int,
     return rx, plan, kw, cap, c2
 
 
+def major_only_rows(kw):
+    """The kernel kwargs with a quarter of each group's live rows FULL and
+    the rest MAJOR-only, so that many-row groups hold row blocks with no
+    FULL row: their MINOR h is written by no up tile."""
+    full = kw["counts_full"] // 4
+    return dict(kw, counts_full=full,
+                counts_major=kw["counts_full"] + kw["counts_major"] - full)
+
+
+def nan_scratch_run(launch, shape, w, spans, n_major: int):
+    """``launch(h)`` on an h scratch of ``shape`` filled with NaN; returns
+    its output and the NaN entries left in the MINOR columns (from
+    ``n_major``) of the rows ``spans`` ([(start, stop), ...]: each group's
+    MAJOR-only rows), the entries no up tile wrote, which the down tile's
+    copies must zero-fill."""
+    import torch
+    h = torch.full(shape, float("nan"), dtype=w.dtype, device=w.device)
+    out = launch(h)
+    torch.cuda.synchronize()
+    left = sum(int(torch.isnan(h[a:b, n_major:]).sum()) for a, b in spans)
+    return out, left
+
+
+def check_nan_masking(label: str, out, want, left: int) -> dict:
+    """Fails unless the run over a NaN h scratch left NaN in some MINOR
+    entry of a MAJOR-only row (the case reaches the masking) and gave the
+    bits of the run over a fresh scratch."""
+    import torch
+    same = bool(torch.equal(out, want))
+    log(f"    {label}: over a NaN-filled h scratch, {left} MINOR entries of "
+        f"MAJOR-only rows left unwritten (NaN), output bit-identical to the "
+        f"fresh-scratch run: {same}")
+    if not (left > 0 and same):
+        raise AssertionError(f"{label}: MINOR h masking not shown: {left} "
+                             f"NaN entries left, bit-identical {same}")
+    return dict(nan_h_left=left, nan_h_bit_identical=same)
+
+
 def _as_bf16(kw):
     """The kernel kwargs with x / weights in bf16 (the rest as they are)."""
     return {k: v.bfloat16() if k in ("x", "w1", "w3", "w2") else v
@@ -485,10 +550,10 @@ def launch_profile(fn, runs: int = 5) -> dict:
         if ev.device_type != torch.autograd.DeviceType.CUDA \
                 or _dev_us(ev) <= 0:
             continue
-        m = re.search(r"(up|down)_(?:mma_)?kernel<(\d+)", ev.key)
+        m = re.search(r"(up|down)_(mma_|tf32_)?kernel<(\w+)", ev.key)
         if m:
-            key = m.group(1) + ("_few" if int(m.group(2)) == FEW_ROWS
-                                else "_many")
+            few = m.group(2) != "tf32_" and int(m.group(3)) == FEW_ROWS
+            key = m.group(1) + ("_few" if few else "_many")
         elif "combine_kernel" in ev.key:
             key = "combine"
         elif "position_key_kernel" in ev.key:
@@ -538,15 +603,17 @@ def tile_stats(launch, counts_full, counts_major, capacity: int,
 
 def case_report(label: str, ms: float, bound, tiles: dict, prof: dict
                 ) -> dict:
-    """Logs a case's share of its bound, achieved rate, row tiles and
-    launch profile; returns them."""
-    bound_ms, bound_by, flops, nbytes = bound
+    """Logs a case's share of its bound (and of the bound PRs 14-22
+    counted), achieved rate, row tiles and launch profile; returns them."""
+    bound_ms, bound_by, flops, nbytes, f32core_ms = bound
     share = bound_ms / ms
     rate = (f"{nbytes / ms / 1e6:.1f} GB/s" if bound_by == "bytes"
             else f"{flops / ms / 1e9:.2f} TFLOP/s")
     dev = ", ".join(f"{k} {v:.1f}" for k, v in
                     sorted(prof["device_us"].items()))
-    log(f"    {label}: {100 * share:.1f}% of the bound, {rate}; tiles: few "
+    log(f"    {label}: {100 * share:.1f}% of the bound "
+        f"({100 * f32core_ms / ms:.1f}% of the CUDA-core bound "
+        f"{f32core_ms:.4f} ms), {rate}; tiles: few "
         f"{tiles['few_groups']} groups ({tiles['few_rows']} rows), many "
         f"{tiles['many_groups']} ({tiles['many_rows']} rows), max "
         f"{tiles['max_rows']}; row slots {tiles['row_slots']} for "
@@ -557,7 +624,9 @@ def case_report(label: str, ms: float, bound, tiles: dict, prof: dict
     if not tiles["matches_plan"]:
         raise AssertionError(f"{label}: the kernel's row tiles differ from "
                              "tile_plan")
-    return dict(bound_share=share, rate=rate, tiles=tiles, profile=prof)
+    return dict(bound_share=share, bound_f32core_ms=f32core_ms,
+                bound_f32core_share=f32core_ms / ms, rate=rate, tiles=tiles,
+                profile=prof)
 
 
 def kernel_phase(dev):
@@ -613,8 +682,14 @@ def kernel_phase(dev):
         ("setp_decode_bf16", None, None, False, 0, 0)]
     cases += [(c[0] + "_bf16",) + c[1:] for c in cases
               if c[0] in BF16_TWINS]
+    # DBRX-132B widths, three quarters of each group's rows MAJOR-only
+    # (``major_only_rows``), over a NaN-filled h scratch; last, so that the
+    # cases above draw the data they drew before it
+    cases.append(("dbrx_major_only", 1024,
+                  moe.capacity_for(1024, dk * dp, de * dp, 2.0), True, 0, 0))
     widths = {name: tuple(rest) for name, *rest in ODD_WIDTHS}
-    widths.update(dbrx_decode=DBRX_WIDTHS, dbrx_prefill=DBRX_WIDTHS)
+    widths.update(dbrx_decode=DBRX_WIDTHS, dbrx_prefill=DBRX_WIDTHS,
+                  dbrx_major_only=DBRX_WIDTHS)
     case_params = {}
     results = []
     for name, T, cap, mode_grouped, n_empty, hot in cases:
@@ -639,6 +714,8 @@ def kernel_phase(dev):
                                    hot)
             kw, overflow = moe.fused_pipeline_args(cparams, pairs, pp, cap,
                                                    mode_grouped)
+            if base == "dbrx_major_only":
+                kw = major_only_rows(kw)
             if bf16:
                 x, kw = x.bfloat16(), _as_bf16(kw)
         d_case = x.shape[1]
@@ -660,7 +737,7 @@ def kernel_phase(dev):
         kw_full = dict(kw, counts_full=cf + cm, counts_major=torch.zeros_like(cm))
         full_ms = cuda_ms(lambda: ops.fused_moe_pipeline(x, **kw_full), 20)
         bound = fused_bound(kw, T, d_case)
-        bound_ms, bound_by, flops, nbytes = bound
+        bound_ms, bound_by, flops, nbytes, _ = bound
         n_major = dualsparse_ffn.resolve_n_major(
             kw["w1"].shape[-1], kw["p_factor"], kw["n_minor_start"], 128)
         tiles = tile_stats(
@@ -712,6 +789,19 @@ def kernel_phase(dev):
                                  f"its plain version: rel_err={rel:.3e} "
                                  f"(bar {bar}) bit_stable={stable} "
                                  f"position_keys_equal={keys_ok}")
+        if base == "dbrx_major_only":
+            spans = [(o + a, o + min(a + b, cap)) for o, a, b in zip(
+                kw["group_offsets"].tolist(), cf.tolist(), cm.tolist())]
+            y_nan, left = nan_scratch_run(
+                lambda h: dualsparse_ffn.launch_fused_moe_pipeline(
+                    x, kw["w1"], kw["w3"], kw["w2"], kw["group_offsets"], cf,
+                    cm, kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
+                    p_factor=kw["p_factor"], n_major=n_major, h=h),
+                (kw["tok_sorted"].shape[0],
+                 kw["p_factor"] * kw["w1"].shape[-1]), kw["w1"], spans,
+                n_major)
+            res.update(check_nan_masking(f"fused_moe_pipeline[{name}]",
+                                         y_nan, y1, left))
     return results
 
 
@@ -737,11 +827,11 @@ def read_counts() -> dict:
 
 
 def grouped_bound(kw):
-    """(bound_ms, bound_by, flops, bytes) of one grouped SwiGLU call: the
-    live rows read once, the whole (E, C, d) output written once, the
-    weights of the neurons the live rows need read once and the counts,
-    over the HBM rate; the SwiGLU FLOPs of the live rows over the peak rate
-    of the operands' type; the larger of the two."""
+    """(bound_ms, bound_by, flops, bytes, f32core_ms) of one grouped SwiGLU
+    call: the live rows read once, the whole (E, C, d) output written once,
+    the weights of the neurons the live rows need read once and the counts,
+    over the HBM rate; each group's SwiGLU FLOPs over the rate of the units
+    its row tile runs on (``op_seconds``); the larger of the two."""
     from repro_torch.kernels.dualsparse_ffn import resolve_n_major
     E, C, d = kw["x"].shape
     f = kw["w1"].shape[-1]
@@ -750,20 +840,19 @@ def grouped_bound(kw):
     n_major = resolve_n_major(f, P, kw["n_minor_start"], 128)
     cf = kw["counts_full"].tolist()
     cm = kw["counts_major"].tolist()
-    elem, peak = _operand_rate(kw["w1"])
+    elem = kw["w1"].element_size()
     nbytes = E * C * d * elem + 2 * E * 4
-    flops = 0
+    flops, t_ops, t_core = 0, 0.0, 0.0
     for rows_f, rows_m in zip(cf, cm):
         nbytes += (rows_f + rows_m) * d * elem
         if rows_f:
             nbytes += 3 * d * V * elem
         elif rows_m:
             nbytes += 3 * d * n_major * elem
-        flops += 6 * d * (V * rows_f + n_major * rows_m)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+        g_flops = 6 * d * (V * rows_f + n_major * rows_m)
+        t, core = op_seconds(kw["w1"], g_flops, min(rows_f + rows_m, C))
+        flops, t_ops, t_core = flops + g_flops, t_ops + t, t_core + core
+    return _bound(nbytes, flops, t_ops, t_core)
 
 
 def grouped_phase(dev):
@@ -816,7 +905,15 @@ def grouped_phase(dev):
         ("setp_decode_bf16", None, None, False, 0, False, 0)]
     cases += [(c[0] + "_bf16",) + c[1:] for c in cases
               if c[0] in BF16_TWINS]
+    # DBRX-132B widths, three quarters of each group's rows MAJOR-only
+    # (``major_only_rows``), over a NaN-filled h scratch; last, so that the
+    # cases above draw the data they drew before it
+    _, dE, dP, _, dK = DBRX_WIDTHS
+    cases.append(("dbrx_major_only", 1024,
+                  moe.capacity_for(1024, dK * dP, dE * dP, 2.0), True, 0,
+                  False, 0))
     odd = {name: rest for name, *rest in ODD_WIDTHS}
+    odd["dbrx_major_only"] = DBRX_WIDTHS
     results = []
     for name, T, cap, mode_grouped, n_empty, widen, hot in cases:
         base = name.removesuffix("_bf16")
@@ -840,6 +937,8 @@ def grouped_phase(dev):
                                    hot)
             kw, _, _, _, overflow = moe.grouped_swiglu_args(
                 cparams, x, pairs, pp, cap, mode_grouped)
+            if base == "dbrx_major_only":
+                kw = major_only_rows(kw)
             if bf16:
                 kw = _as_bf16(kw)
         d_case = kw["x"].shape[-1]
@@ -873,7 +972,7 @@ def grouped_phase(dev):
                        counts_major=torch.zeros_like(cm))
         full_ms = cuda_ms(lambda: ops.grouped_swiglu(**kw_full), 20)
         bound = grouped_bound(kw)
-        bound_ms, bound_by, flops, nbytes = bound
+        bound_ms, bound_by, flops, nbytes, _ = bound
         n_major = dualsparse_ffn.resolve_n_major(
             kw["w1"].shape[-1], kw["p_factor"], kw["n_minor_start"], 128)
         tiles = tile_stats(
@@ -913,6 +1012,17 @@ def grouped_phase(dev):
                                  f"plain version: rel_err={rel:.3e} (bar "
                                  f"{bar}) bit_stable={stable} "
                                  f"dead_rows_zero={zeros}")
+        if base == "dbrx_major_only":
+            spans = [(e * C + a, e * C + min(a + b, C)) for e, (a, b) in
+                     enumerate(zip(cf.tolist(), cm.tolist()))]
+            y_nan, left = nan_scratch_run(
+                lambda h: dualsparse_ffn.launch_grouped_swiglu(
+                    kw["x"], kw["w1"], kw["w3"], kw["w2"], cf, cm,
+                    p_factor=kw["p_factor"], n_major=n_major, h=h),
+                (G * C, kw["p_factor"] * kw["w1"].shape[-1]), kw["w1"], spans,
+                n_major)
+            res.update(check_nan_masking(f"grouped_swiglu[{name}]", y_nan, y1,
+                                         left))
     return results
 
 
@@ -974,10 +1084,10 @@ def layer0_check(label: str, model, cfg, policy, tokens, capacity,
 
         if fused:
             ms = cuda_ms(lambda: ops.fused_moe_pipeline(h, **kw), 3)
-            bound_ms, bound_by, _, _ = fused_bound(kw, T, cfg.d_model)
+            bound_ms, bound_by, *_ = fused_bound(kw, T, cfg.d_model)
         else:
             ms = cuda_ms(lambda: ops.grouped_swiglu(**kw), 3)
-            bound_ms, bound_by, _, _ = grouped_bound(kw)
+            bound_ms, bound_by, *_ = grouped_bound(kw)
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
@@ -3581,7 +3691,8 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
     # minor-half strips are skipped
     blocks = (torch.clamp(cf + cm, max=cap) + 63) // 64
     full_blocks = (cf + 63) // 64
-    bound_ms, bound_by, flops, nbytes = fused_bound(kw, T, x.shape[1])
+    bound_ms, bound_by, flops, nbytes, f32core_ms = fused_bound(
+        kw, T, x.shape[1])
     return dict(
         T=T, capacity=cap, t_major=float(pol.t_major),
         t_minor=float(pol.t_minor),
@@ -3589,7 +3700,8 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
         flops_saved=float(drop.flops_saved_fraction(pairs.modes)),
         kept_full=kf, kept_major=km, dropped=dr, overflow=int(overflow),
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_share=bound_ms / ms, flops=flops, bytes=nbytes,
+        bound_share=bound_ms / ms, bound_f32core_ms=f32core_ms,
+        flops=flops, bytes=nbytes,
         rel_err=rel, max_abs_err=float((y1 - y_ref).abs().max()),
         bit_stable=stable, tiles=tiles,
         row_blocks=int(blocks.sum()),
@@ -3632,7 +3744,8 @@ def fig10_sweep(dev, cfg, rec) -> dict:
                 f"dropped {p['dropped']} overflow {p['overflow']}; kernel "
                 f"{p['ms']:.4f} ms ({p['kernel_rel']:.3f} of keep-all), "
                 f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}, "
-                f"{100 * p['bound_share']:.1f}% reached), plain "
+                f"{100 * p['bound_share']:.1f}% reached; CUDA-core bound "
+                f"{p['bound_f32core_ms']:.4f} ms), plain "
                 f"{p['plain_ms']:.3f} ms, rel_err {p['rel_err']:.3e}, "
                 f"bit_stable {p['bit_stable']}; tiles: few "
                 f"{tl['few_groups']} groups ({tl['few_rows']} rows), many "
@@ -3751,18 +3864,14 @@ def paper_metrics_phase(dev) -> dict:
                 examples=examples, wall_s=wall)
 
 
-def main() -> int:
+def build_phase() -> str:
+    """Phase 1: the card's line, the versions, the build of every kernel
+    with its ptxas registers and spills (none allowed in a tensor-core
+    tile), HMMA in every tensor-core tile's SASS, the SwiGLU rings' shared
+    memory. Returns the card's ``nvidia-smi`` line."""
+    import re
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 2
-    # fails outside a checkout
     from repro_torch.kernels import _build, dualsparse_ffn
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    log("phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -3774,14 +3883,29 @@ def main() -> int:
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f}s "
         f"(nvcc time {sum(_build.BUILD_SECONDS.values()):.2f}s)")
     for name, text in _build.BUILD_LOG.items():
-        for kernel, regs, spill, smem in ptxas_report(text):
+        report = ptxas_report(text)
+        for kernel, regs, spill, smem in report:
             log(f"    {name}: {kernel}: {regs} registers, {spill} bytes "
                 f"spilled, {smem} bytes static shared memory")
+        # the float32 tiles: the FMA few-row tile and the 3xTF32 many-row
+        # tile, up and down
+        floats = [(k, r) for k, r, _, _ in report
+                  if re.match(r"(up|down)_(tf32_)?kernel<", k)]
+        if floats:
+            log(f"  {name}: float32 tiles' registers: " + ", ".join(
+                f"{k} {r}" for k, r in floats))
+        spilled = [k for k, _, spill, _ in report
+                   if spill and any(t in k for t in TENSOR_CORE_TILES)]
+        if spilled:
+            raise AssertionError(f"{name}: tensor-core tiles spill: "
+                                 f"{spilled}")
     for name in ("fused_moe_pipeline", "grouped_swiglu"):
         hmma = sass_mma(libs[name])
         log(f"  {name}: HMMA in the SASS of " + ", ".join(
             f"{k} {v}" for k, v in sorted(hmma.items())))
-        if len(hmma) != 4 or not all(hmma.values()):
+        # four bf16 tiles (up / down, few / many) and the two float32
+        # many-row tiles
+        if len(hmma) != 6 or not all(hmma.values()):
             raise AssertionError(f"{name}: a tensor-core tile without HMMA "
                                  f"ops: {hmma}")
     for dtype in dualsparse_ffn.ELEMENT_TYPES:
@@ -3790,12 +3914,33 @@ def main() -> int:
             "shared memory per CTA): "
             + ", ".join(f"{k} {v}" for k, v in ring.items()))
 
+    return smi
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    # fails outside a checkout
+    import repro_torch.kernels  # noqa: F401
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    log("phase 1: device")
+    smi = build_phase()
+
     log("phase 2: kernels against their plain versions")
     log(f"  bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM, "
-        f"FLOPs / {F32_FLOPS / 1e12:.0f} TFLOP/s float32 CUDA-core peak, "
-        f"or / {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 tensor-core peak for "
-        f"the _bf16 cases); bar rel_err <= {REL_TOL:g} ({BF16_REL_TOL:g} "
-        f"for bf16) and bit-identical across launches")
+        f"each group's FLOPs at the rate of its row tile's units: float32 "
+        f"many-row 3 x FLOPs / {TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 "
+        f"tensor-core peak, float32 few-row FLOPs / "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s CUDA-core peak, bf16 FLOPs / "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s tensor-core peak); the CUDA-core "
+        f"bound counts every float32 FLOP at {F32_FLOPS / 1e12:.0f} "
+        f"TFLOP/s (PRs 14-22); bar rel_err <= {REL_TOL:g} "
+        f"({BF16_REL_TOL:g} for bf16) and bit-identical across launches")
     cases = kernel_phase(dev)
     log("phase 2b: grouped_swiglu against its plain version")
     grouped = grouped_phase(dev)
@@ -3896,6 +4041,7 @@ def main() -> int:
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": None,
+                "bound_f32core_ms": main_case["bound_f32core_ms"],
                 "at": at or f"{case} T={main_case['T']} "
                             f"C={main_case['capacity']}, Qwen3-30B-A3B "
                             f"widths"}
@@ -3919,7 +4065,7 @@ def main() -> int:
     wide = next(c for c in cases if c["case"] == "dbrx_prefill")
     fused["dbrx_prefill"] = {k: wide[k] for k in (
         "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
-        "max_abs_err", "rel_err")}
+        "bound_f32core_ms", "max_abs_err", "rel_err")}
     ep_ranks = ep["ranks"]
     log("fig10 " + json.dumps(paper["fig10_summary"]))
     log(smi.splitlines()[0])          # the card's line, again beside the result

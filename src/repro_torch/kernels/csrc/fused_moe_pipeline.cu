@@ -14,19 +14,20 @@
 //     (3.35 TB/s);
 //   * prefill (T~1024): ~45-64 rows per expert reuse each weight tile that
 //     often. On float32 operands (the single-card serving path) that is
-//     bound by f32 FMAs on the CUDA cores (67 TFLOP/s; tensor cores take
-//     f32 only as TF32, which would change the numbers). On bf16 operands
-//     (the S-ETP wire type) the products run on the bf16 tensor cores
-//     (989 TFLOP/s), and the prefill is bound by bytes too.
+//     bound by operations: the many-row tile runs its products as three
+//     TF32 passes on the tensor cores (3xTF32, FLOPs / 165 TFLOP/s; one
+//     TF32 pass would change the numbers). On bf16 operands (the S-ETP wire
+//     type) the products run on the bf16 tensor cores (989 TFLOP/s), and
+//     the prefill is bound by bytes too.
 // What the design does about that (swiglu_tiles.cuh, pipeline row layout):
 // the up and down launches stream each group's weights through a cp.async
 // ring of shared-memory slots, several steps in flight per CTA, with the
 // rows x[tok[p]] gathered into the same slots; the row tile is chosen on
 // the device from each group's live rows (a few-row tile for groups of at
 // most 16 rows, 64-row blocks above), so few-row groups spend no products
-// on dead rows. Float32 operands take the FMA tiles; bf16 operands take
-// mma.sync tiles whose 128-byte ring steps carry as many bytes as the
-// float ones. Rows past an expert's count are never loaded, and MAJOR-only
+// on dead rows. Float32 operands take an FMA few-row tile and a 3xTF32
+// mma.sync many-row tile; bf16 operands take mma.sync tiles; every ring
+// step carries 128 bytes of each weight row. Rows past an expert's count are never loaded, and MAJOR-only
 // row tiles stop the contraction at the minor half, so 2T-Drop's skipped
 // work is neither read nor computed.
 //

@@ -19,14 +19,15 @@
 // (T = C = 64, ~3-4 live rows per group) each live group streams
 // 3 * d * V weights for a few rows, so it is bound by device-memory bytes;
 // at prefill capacity (C ~ 128, ~45-64 rows per group) each weight tile is
-// reused by that many rows, so float32 operands are bound by f32 FMAs on
-// the CUDA cores, while bf16 operands, on the bf16 tensor cores, stay bound
-// by bytes. What the design does about that: the up and down tiles of
+// reused by that many rows, so float32 operands are bound by operations
+// (3xTF32 on the tensor cores), while bf16 operands, on the bf16 tensor
+// cores, stay bound by bytes. What the design does about that: the up and
+// down tiles of
 // swiglu_tiles.cuh in its buffer row layout stream the weights through a
 // ring of cp.async shared-memory slots, and pick the row tile on the device
 // from each group's live rows, not from C: a group of at most 16 rows runs
-// one 16-row tile, larger groups 64-row blocks (FMA tiles for float32,
-// mma.sync tiles for bf16). Row tiles past a group's live rows load
+// one 16-row tile, larger groups 64-row blocks (for float32 an FMA few-row
+// tile and a 3xTF32 many-row tile, mma.sync tiles for bf16). Row tiles past a group's live rows load
 // nothing, and MAJOR-only row tiles skip the MINOR up strips and stop the
 // down contraction at n_major. Unlike the fused pipeline it reads x from
 // the (E, C, d) buffer and writes the (E, C, d) output directly (no
@@ -97,8 +98,9 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
 // (bf16 == 0) or bfloat16 operands.
 int grouped_swiglu_ring_bytes(int up, int few, int bf16) {
   const int BM = few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS;
-  return bf16 ? swiglu_tiles::mma_smem_bytes(up != 0, BM)
-              : swiglu_tiles::smem_bytes<float>(up != 0, BM);
+  if (bf16) return swiglu_tiles::mma_smem_bytes(up != 0, BM);
+  return few ? swiglu_tiles::smem_bytes<float>(up != 0, BM)
+             : swiglu_tiles::tf32_smem_bytes(up != 0);
 }
 
 const char* grouped_swiglu_error_string(int code) {

@@ -60,6 +60,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kWarpRows = 16;     // rows of a warp's strip (one fragment)
@@ -176,27 +178,6 @@ __device__ __forceinline__ void load_vec(float* v, const float* src, int k0,
     const bool ok = k0 + k < kmax;
     cp_async4(v + k, ok ? src + k0 + k : src, ok);
   }
-}
-
-// v = big + small: big is v with the 13 low mantissa bits cleared (a TF32
-// value), small = v - big exactly (|small| < 2^-10 |v|), passed whole: the
-// tensor core reads the top 19 bits of a TF32 operand, so small enters
-// with a relative error below 2^-10 and big*small + small*big + big*big
-// carries v*w to ~2^-20.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(v) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// d += a * b on one 16x8x8 TF32 fragment, float32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Splits the [k][col] x tile of a ring slot into (big, small) pairs at

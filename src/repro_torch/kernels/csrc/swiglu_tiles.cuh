@@ -8,8 +8,10 @@
 //
 // Two families of tiles, by the element type T of x, the weights and the h
 // scratch:
-//   * float (up_kernel, down_kernel): products and sums in float32 on the
-//     CUDA cores;
+//   * float: sums in float32 throughout. The few-row tile (up_kernel,
+//     down_kernel) runs float32 FMAs on the CUDA cores; the many-row tile
+//     (up_tf32_kernel, down_tf32_kernel) runs 3xTF32 products on the tensor
+//     cores (mma.sync m16n8k8), ~1e-6 from a float32 product;
 //   * __nv_bfloat16, the S-ETP wire type (up_mma_kernel, down_mma_kernel):
 //     bf16 products summed in float32 on the tensor cores (mma.sync
 //     m16n8k16), what the TPU kernels' jnp.dot(..., preferred_element_type
@@ -44,9 +46,11 @@
 // (decode ~1-4, the paged chunk ~3-4, a 128-token prefill-insert ~8), so
 // each group streams 3 * d * V weights for a handful of rows: device-memory
 // bytes (3.35 TB/s) bound those shapes. A full prefill (~45-64 rows per
-// group) reuses each weight tile enough to be bound by the float tiles'
-// float32 FMAs (67 TFLOP/s; the tensor cores would mean TF32); at the bf16
-// tensor cores' 989 TFLOP/s the prefill too is bound by bytes.
+// group at Qwen3-30B-A3B widths, 500-1500 at DBRX-132B's) reuses each
+// weight tile enough to be bound by operations at the float32 tiles' rate:
+// three TF32 passes at 495 TFLOP/s, FLOPs / 165 TFLOP/s (the CUDA cores'
+// float32 FMAs would give 67); at the bf16 tensor cores' 989 TFLOP/s the
+// prefill is bound by bytes.
 //
 // What the design does about it, in both families:
 //   * A weight-streaming ring. One CTA owns a (group, neuron strip) in the
@@ -71,9 +75,40 @@
 //     tiles with no FULL row, and row tiles with no FULL row stop the down
 //     contraction at n_major.
 //
-// The float tiles: 64-wide strips, BK = 32, a 4 x 4 (many-row) or 1 x 4
-// (few-row) register tile per thread; only threads that own a live row do
-// FMAs.
+// The float few-row tile: 64-wide strips, BK = 32, a 1 x 4 register tile
+// per thread; only threads that own a live row do FMAs. Its shapes are
+// bound by bytes, which the CUDA cores keep up with.
+//
+// The float many-row tile (3xTF32):
+//   * Each float32 operand v is split as its fragment is read from shared
+//     memory into big (v with the 13 low mantissa bits cleared, a TF32
+//     value) and small = v - big; the tensor cores sum small.big + big.small
+//     + big.big (tf32_mma.cuh), each pass over a warp's fragments before
+//     the next, in a fixed k order. One TF32 pass would keep ~11 bits and
+//     break the 1e-5 bar at d = 6144. The tensor cores' float32 adds round
+//     toward zero, which biases a long sum, so they sum one ring step into
+//     a zeroed fragment and float32 adds (round to nearest) carry the
+//     steps' sums (tf32_step). Every warp
+//     splits what it reads (the weight fragments are read by the four warps
+//     down the rows): no second barrier per step, no split copy of the tile.
+//   * Rows on the mma's M side, a warp per 16 rows of the 64-row block (4
+//     warps down, 2 across the strip); warps with no live row skip their
+//     products. Up: 128-neuron strips of w1 and of w3, 64 + 64 neurons a
+//     warp; down: 128-column strips, 64 a warp.
+//   * The ring: BK = 32 floats (128 B of each weight row) a step, 4 slots;
+//     up 43 KB a slot, 1 CTA per SM (172 KB), down 26 KB, 2 CTAs per SM.
+//     ldmatrix moves b16 elements and cannot transpose 32-bit ones, so the
+//     fragments are read with 32-bit shared loads, and the pitches keep them
+//     free of bank conflicts: the row tile's lda<float>() = 36 words (4 mod
+//     32: lane (g, t) of the A fragment reads bank 4g + t), the weight
+//     tile's TF32_LDB = 136 (8 mod 32: the B fragment reads bank 8t + g).
+//   * The grid puts the row blocks fastest, so the CTAs that share a weight
+//     strip run together and the strip comes from device memory once, not
+//     once per row block (a DBRX-132B prefill group holds 8-24 of them).
+//   * Rate on an H100 (700 W) at DBRX-132B widths: 42-47 TFLOP/s of float32
+//     products, 125-142 TFLOP/s of TF32 mma: 40-45% of what mma.sync TF32
+//     reaches from registers (316, tools/mma_sync_rate.py), ~28% of the
+//     3xTF32 bound (165). wgmma and TMA are the next step.
 //
 // The bf16 tiles:
 //   * Their ring moves as many bytes per step as the float one: BK = 64
@@ -93,12 +128,12 @@
 //     h^T = W^T x^T), so a padded row costs at most 7 slots of an 8-row
 //     step; the many-row tile puts the rows on M, a warp per 16 rows, and
 //     warps with no live row skip their products.
-//   * Masking lives in the copies, never in a product: every operand element
-//     a sum may not use (dead rows, k past the width, the MINOR neurons a
-//     MAJOR-only row may not read, which no up tile wrote) is zero-filled in
-//     shared memory through cp.async's source size, so stale or
-//     uninitialised bf16 (NaN or Inf: NaN * 0 is NaN) never reaches a
-//     product.
+//   * Masking lives in the copies, never in a product (in the float
+//     many-row tile too): every operand element a sum may not use (dead
+//     rows, k past the width, the MINOR neurons a MAJOR-only row may not
+//     read, which no up tile wrote) is zero-filled in shared memory through
+//     cp.async's source size, so stale or uninitialised values (NaN or Inf:
+//     NaN * 0 is NaN) never reach a product.
 //   * wgmma is not used: at the bf16 rate every shape the engines hand
 //     these tiles is bound by bytes, and mma.sync keeps up with the weight
 //     stream.
@@ -110,6 +145,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace swiglu_tiles {
 namespace {   // internal linkage: each library has its own copy
@@ -131,16 +168,12 @@ __host__ __device__ constexpr int vec_elems() { return 16 / (int)sizeof(T); }
 template <typename T>
 __host__ __device__ constexpr int lda() { return BK + vec_elems<T>(); }
 
-// ring depth per (launch, tile): the few-row up tile keeps 4 float CTAs
-// (56 KB each) on an SM, the others 2-5
-__host__ __device__ constexpr int stages(bool up, int BM) {
-  return up ? (BM == FEW_ROWS ? 3 : 4) : 4;
-}
+// ring depth of the FMA tiles (the float few-row tile) per launch: 3 slots
+// up, so that 4 up CTAs (56 KB each) fit an SM, 4 down
+__host__ __device__ constexpr int stages(bool up) { return up ? 3 : 4; }
 
 // CTAs per SM the register budget must allow (65536 / (NT * regs))
-__host__ __device__ constexpr int min_ctas(bool up, int BM) {
-  return BM == FEW_ROWS ? (up ? 2 : 4) : 2;
-}
+__host__ __device__ constexpr int min_ctas(bool up) { return up ? 2 : 4; }
 
 template <typename T>
 __host__ __device__ constexpr int slot_elems(bool up, int BM) {
@@ -149,7 +182,7 @@ __host__ __device__ constexpr int slot_elems(bool up, int BM) {
 
 template <typename T>
 __host__ __device__ constexpr int smem_bytes(bool up, int BM) {
-  return stages(up, BM) * slot_elems<T>(up, BM) * (int)sizeof(T);
+  return stages(up) * slot_elems<T>(up, BM) * (int)sizeof(T);
 }
 
 // Y: the type of the output rows y, float32 except for the buffer layout
@@ -172,7 +205,7 @@ struct Problem {
   int f;                // neurons per sub-expert
   int P;                // sub-experts per group
   int n_major;          // virtual neurons [0, n_major) are the MAJOR half
-  int n_tiles_sub;      // up strips per sub-expert (set by launch_swiglu)
+  int n_tiles_sub;      // up strips per sub-expert (set by each launch)
   int capacity;         // rows per group
   int vec;              // 16-byte copies (d, f multiples of one; aligned)
 };
@@ -190,6 +223,11 @@ __device__ __forceinline__ T narrow(float v);
 
 template <>
 __device__ __forceinline__ float narrow<float>(float v) { return v; }
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // stores four consecutive floats (an aligned 16-byte store)
 __device__ __forceinline__ void st4(float* p, const float* v) {
@@ -302,10 +340,13 @@ __device__ __forceinline__ void load_weights(T* Bs, const T* w,
   }
 }
 
+// The FMA tiles: float32 FMAs on the CUDA cores, TM rows per thread;
+// launch_fma_tile runs them as the float few-row tile (BM = FEW_ROWS, TM =
+// 1).
 template <int BM, int TM, bool kBuffer, typename T>
-__global__ void __launch_bounds__(NT, min_ctas(true, BM))
+__global__ void __launch_bounds__(NT, min_ctas(true))
 up_kernel(Problem<T> pb) {
-  constexpr int S = stages(true, BM);
+  constexpr int S = stages(true);
   constexpr int SLOT = slot_elems<T>(true, BM);
   constexpr int LD = lda<T>();
   const int e = blockIdx.z;
@@ -454,9 +495,9 @@ __device__ __forceinline__ void store_row(const Problem<T>& pb, int base,
 }
 
 template <int BM, int TM, bool kBuffer, typename T>
-__global__ void __launch_bounds__(NT, min_ctas(false, BM))
+__global__ void __launch_bounds__(NT, min_ctas(false))
 down_kernel(Problem<T> pb) {
-  constexpr int S = stages(false, BM);
+  constexpr int S = stages(false);
   constexpr int SLOT = slot_elems<T>(false, BM);
   constexpr int LD = lda<T>();
   const int e = blockIdx.z;
@@ -779,15 +820,15 @@ __device__ __forceinline__ void mma_load_weights(bf16* Bs, const bf16* w,
   }
 }
 
-// Walks nk contraction steps through an S-slot ring: load_slot(slot, k0)
-// issues one step's copies, compute(slot) multiplies the step in a slot
-// while the copies of the next S-1 steps are in flight.
-template <int S, typename Load, typename Compute>
+// Walks nk contraction steps of KSTEP through an S-slot ring:
+// load_slot(slot, k0) issues one step's copies, compute(slot) multiplies the
+// step in a slot while the copies of the next S-1 steps are in flight.
+template <int S, int KSTEP = MMA_BK, typename Load, typename Compute>
 __device__ __forceinline__ void mma_ring(int nk, Load load_slot,
                                          Compute compute) {
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) load_slot(s, s * MMA_BK);
+    if (s < nk) load_slot(s, s * KSTEP);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -796,7 +837,7 @@ __device__ __forceinline__ void mma_ring(int nk, Load load_slot,
     // the slot refilled here was read in step kt-1, which every thread has
     // finished: it passed the barrier above
     const int nxt = kt + S - 1;
-    if (nxt < nk) load_slot(nxt % S, nxt * MMA_BK);
+    if (nxt < nk) load_slot(nxt % S, nxt * KSTEP);
     cp_async_commit();
     compute(kt % S);
   }
@@ -951,27 +992,26 @@ up_mma_kernel(MmaProblem<kBuffer> pb) {
   }
 }
 
-// Exact zeros into rows [z0, z1) of a bf16 buffer-layout output, in the
+// Exact zeros into rows [z0, z1) of a buffer-layout output, in the BNW
 // columns of the strip at c0.
-__device__ __forceinline__ void zero_rows_bf16(const MmaProblem<true>& pb,
-                                               int base, int z0, int z1,
-                                               int c0, int tid) {
-  for (int i = tid; i < (z1 - z0) * MMA_BN_DOWN; i += NT) {
-    const int r = z0 + i / MMA_BN_DOWN, c = c0 + i % MMA_BN_DOWN;
-    if (c < pb.d)
-      pb.y[(size_t)(base + r) * pb.d + c] = __float2bfloat16_rn(0.f);
+template <int BNW, typename T, typename Y>
+__device__ __forceinline__ void zero_rows(const Problem<T, Y>& pb, int base,
+                                          int z0, int z1, int c0, int tid) {
+  for (int i = tid; i < (z1 - z0) * BNW; i += NT) {
+    const int r = z0 + i / BNW, c = c0 + i % BNW;
+    if (c < pb.d) pb.y[(size_t)(base + r) * pb.d + c] = narrow<Y>(0.f);
   }
 }
 
 // Writes columns c and c + 1 of output row r (pipeline: float32, scaled by
-// the position's combine weight; buffer: bf16, exact zeros past the live
+// the position's combine weight; buffer: in Y, exact zeros past the live
 // rows).
-template <bool kBuffer>
-__device__ __forceinline__ void store_pair(const MmaProblem<kBuffer>& pb,
-                                           int base, int r, int c, bool live,
-                                           float a0, float a1, bool vec) {
+template <bool kBuffer, typename T, typename Y>
+__device__ __forceinline__ void store_pair(const Problem<T, Y>& pb, int base,
+                                           int r, int c, bool live, float a0,
+                                           float a1, bool vec) {
   const size_t at = (size_t)(base + r) * pb.d + c;
-  if constexpr (kBuffer) {
+  if constexpr (kBuffer && std::is_same<Y, bf16>::value) {
     const float v0 = live ? a0 : 0.f, v1 = live ? a1 : 0.f;
     if (vec) {           // d a multiple of 8: an aligned pair
       *reinterpret_cast<__nv_bfloat162*>(pb.y + at) =
@@ -979,6 +1019,14 @@ __device__ __forceinline__ void store_pair(const MmaProblem<kBuffer>& pb,
     } else {
       pb.y[at] = __float2bfloat16_rn(v0);
       if (c + 1 < pb.d) pb.y[at + 1] = __float2bfloat16_rn(v1);
+    }
+  } else if constexpr (kBuffer) {
+    const float v0 = live ? a0 : 0.f, v1 = live ? a1 : 0.f;
+    if (vec) {           // d a multiple of 4: an aligned pair
+      *reinterpret_cast<float2*>(pb.y + at) = make_float2(v0, v1);
+    } else {
+      pb.y[at] = v0;
+      if (c + 1 < pb.d) pb.y[at + 1] = v1;
     }
   } else {
     const float w = pb.comb[base + r];
@@ -1013,7 +1061,7 @@ down_mma_kernel(MmaProblem<kBuffer> pb) {
     // BM..C-1
       const int z0 = r0 >= n_rows ? r0 : r0 + BM;
       const int z1 = kFew ? pb.capacity : min(r0 + BM, pb.capacity);
-      zero_rows_bf16(pb, base, z0, z1, c0, tid);
+      zero_rows<MMA_BN_DOWN>(pb, base, z0, z1, c0, tid);
     }
   }
   if (r0 >= n_rows) return;
@@ -1138,12 +1186,13 @@ down_mma_kernel(MmaProblem<kBuffer> pb) {
 }
 
 template <int BM, bool kBuffer>
-cudaError_t launch_mma_tile(const MmaProblem<kBuffer>& pb, int E,
+cudaError_t launch_mma_tile(MmaProblem<kBuffer> pb, int E,
                             cudaStream_t stream, bool up) {
   // the few-row tile owns its whole group: one row block
   const int row_blocks =
       BM == FEW_ROWS ? 1 : (pb.capacity + BM - 1) / BM;
   const int bytes = mma_smem_bytes(up, BM);
+  pb.n_tiles_sub = (pb.f + MMA_BN_UP - 1) / MMA_BN_UP;
   // the dynamic shared-memory limit is raised once per kernel
   if (up) {
     static const cudaError_t set = cudaFuncSetAttribute(
@@ -1163,28 +1212,390 @@ cudaError_t launch_mma_tile(const MmaProblem<kBuffer>& pb, int E,
   return cudaGetLastError();
 }
 
-template <int BM, int TM, bool kBuffer, typename T>
-cudaError_t launch_tile(const Problem<T>& pb, int E, cudaStream_t stream,
-                        bool up) {
-  // the few-row tile owns its whole group: one row block
-  const int row_blocks =
-      BM == FEW_ROWS ? 1 : (pb.capacity + BM - 1) / BM;
-  const int bytes = smem_bytes<T>(up, BM);
+// ---------------------------------------------------------------------------
+// The float many-row tiles: 3xTF32 products on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TF32_BN = 128;      // neurons per up strip (of w1 and of w3)
+                                  // and output columns per down strip
+constexpr int TF32_PAD = 8;       // weight-tile pitch: TF32_BN + 8 words
+constexpr int TF32_LDB = TF32_BN + TF32_PAD;
+constexpr int TF32_STAGES = 4;    // ring slots
+
+// CTAs per SM the shared memory holds (and the register budget must allow):
+// up 1 (~172 KB), down 2 (~104 KB each)
+__host__ __device__ constexpr int tf32_min_ctas(bool up) {
+  return up ? 1 : 2;
+}
+
+__host__ __device__ constexpr int tf32_slot_elems(bool up) {
+  return MANY_ROWS * lda<float>() + (up ? 2 : 1) * BK * TF32_LDB;
+}
+
+__host__ __device__ constexpr int tf32_smem_bytes(bool up) {
+  return TF32_STAGES * tf32_slot_elems(up) * (int)sizeof(float);
+}
+
+// lane (g, t) = (lane / 4, lane % 4) reads the A fragment at [row g][k t]
+// (bank 4g + t) and the B fragment at [k t][column g] (bank 8t + g)
+static_assert(lda<float>() % 32 == 4 && TF32_LDB % 32 == 8,
+              "the fragment reads must be free of bank conflicts");
+static_assert(TF32_BN == MMA_BN_DOWN, "zero_rows covers one down strip");
+static_assert(tf32_smem_bytes(true) + 1024 <= 232448,
+              "the up ring must fit one CTA's shared memory");
+static_assert(tf32_min_ctas(false) * (tf32_smem_bytes(false) + 2048) <=
+                  233472,
+              "the down CTAs per SM must fit one SM's shared memory");
+
+// Copies the MANY_ROWS x BK row tile of one ring slot: row i from element
+// rowoff[i] of src, columns k0.. below rowlim[i] (0: a dead row); every
+// other element of the tile is zero-filled.
+__device__ __forceinline__ void tf32_load_rows(float* As, const float* src,
+                                               const long long* rowoff,
+                                               const int* rowlim, int k0,
+                                               bool vec, int tid) {
+  constexpr int LD = lda<float>();
+  if (vec) {
+    constexpr int CH = BK / 4;      // 16-byte copies per row
+    for (int i = tid; i < MANY_ROWS * CH; i += NT) {
+      const int row = i / CH, kq = 4 * (i % CH);
+      const int n = min(max(rowlim[row] - k0 - kq, 0), 4);
+      cp_async16_n(As + row * LD + kq, n ? src + rowoff[row] + k0 + kq : src,
+                   4 * n);
+    }
+  } else {
+    for (int i = tid; i < MANY_ROWS * BK; i += NT) {
+      const int row = i / BK, kk = i % BK;
+      const bool ok = k0 + kk < rowlim[row];
+      cp_async4(As + row * LD + kk, ok ? src + rowoff[row] + k0 + kk : src,
+                ok);
+    }
+  }
+}
+
+// Copies a BK x TF32_BN weight tile (pitch TF32_LDB): row kk is the run at
+// w + row_off(k0 + kk) + c0, present for k0 + kk < kmax, columns below cmax;
+// the rest zero-filled.
+template <typename RowOffset>
+__device__ __forceinline__ void tf32_load_weights(float* Bs, const float* w,
+                                                  RowOffset row_off, int k0,
+                                                  int kmax, int c0, int cmax,
+                                                  bool vec, int tid) {
+  if (vec) {
+    constexpr int CH = TF32_BN / 4;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int kk = i / CH, cq = 4 * (i % CH);
+      const int k = k0 + kk, c = c0 + cq;
+      const bool ok = k < kmax && c < cmax;
+      cp_async16(Bs + kk * TF32_LDB + cq, ok ? w + row_off(k) + c : w, ok);
+    }
+  } else {
+    for (int i = tid; i < BK * TF32_BN; i += NT) {
+      const int kk = i / TF32_BN, cc = i % TF32_BN;
+      const int k = k0 + kk, c = c0 + cc;
+      const bool ok = k < kmax && c < cmax;
+      cp_async4(Bs + kk * TF32_LDB + cc, ok ? w + row_off(k) + c : w, ok);
+    }
+  }
+}
+
+// The A fragment (16 rows x 8 k) at (row0, k0) of a row tile, split: lane
+// (g, t) holds rows g and g + 8 at k t and t + 4.
+__device__ __forceinline__ void tf32_a(const float* As, int row0, int k0,
+                                       int lane, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  constexpr int LD = lda<float>();
+  const float* p = As + (row0 + (lane >> 2)) * LD + k0 + (lane & 3);
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[8 * LD], big[1], small[1]);
+  split_tf32(p[4], big[2], small[2]);
+  split_tf32(p[8 * LD + 4], big[3], small[3]);
+}
+
+// The NS B fragments (8 k x 8 columns each) at k0, columns n0 + 8 s, of a
+// weight tile (k-major, columns contiguous), split: lane (g, t) holds
+// column g at k t and t + 4.
+template <int NS>
+__device__ __forceinline__ void tf32_b(const float* Bs, int n0, int k0,
+                                       int lane, uint32_t (&big)[NS][2],
+                                       uint32_t (&small)[NS][2]) {
+  const float* p = Bs + (k0 + (lane & 3)) * TF32_LDB + n0 + (lane >> 2);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    split_tf32(p[8 * s], big[s][0], small[s][0]);
+    split_tf32(p[8 * s + 4 * TF32_LDB], big[s][1], small[s][1]);
+  }
+}
+
+// acc[s] += A . B[s] for s < NS in 3xTF32: small.big, then big.small, then
+// big.big, each pass over the NS fragments before the next, so the mmas
+// that follow each other are independent
+template <int NS>
+__device__ __forceinline__ void mma3_tf32(float (&acc)[NS][4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4],
+                                          const uint32_t (&bb)[NS][2],
+                                          const uint32_t (&bs)[NS][2]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) mma_tf32(acc[s], as, bb[s]);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) mma_tf32(acc[s], ab, bs[s]);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) mma_tf32(acc[s], ab, bb[s]);
+}
+
+// One ring step of a warp: acc[s] += A (16 rows from row0, BK deep) . B (BK
+// deep, columns n0 + 8 s .. + 8) for s < NS, in 3xTF32. The tensor cores
+// add into their float32 accumulators rounding toward zero, which over a
+// long contraction biases the sum (3.5e-5 at d = 2048, past the 1e-5 bar);
+// so the step's products are summed on the tensor cores into a zeroed
+// fragment, and that is added to acc with float32 adds that round to
+// nearest.
+template <int NS>
+__device__ __forceinline__ void tf32_step(float (&acc)[NS][4],
+                                          const float* As, int row0,
+                                          const float* Bs, int n0,
+                                          int lane) {
+  float part[NS][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 8) {
+    uint32_t ab[4], as[4], bb[NS][2], bs[NS][2];
+    tf32_a(As, row0, ks, lane, ab, as);
+    tf32_b(Bs, n0, ks, lane, bb, bs);
+    mma3_tf32(part, ab, as, bb, bs);
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[s][i] += part[s][i];
+  }
+}
+
+template <bool kBuffer>
+__global__ void __launch_bounds__(NT, tf32_min_ctas(true))
+up_tf32_kernel(Problem<float> pb) {
+  constexpr int SLOT = tf32_slot_elems(true);
+  constexpr int LD = lda<float>();
+  const int e = blockIdx.z;
+  int c_f, n_rows;
+  group_rows(pb, e, &c_f, &n_rows);
+  if (!serves<MANY_ROWS>(n_rows)) return;
+  if (pb.regime && blockIdx.x == 0 && blockIdx.y == 0) pb.regime[e] = 2;
+  // row blocks vary fastest: the CTAs of one weight strip run together
+  const int r0 = blockIdx.x * MANY_ROWS;
+  const int j = blockIdx.y / pb.n_tiles_sub;
+  const int n0 = (blockIdx.y % pb.n_tiles_sub) * TF32_BN;
+  // a strip whose first neuron is MINOR serves only the FULL rows
+  const int live = (j * pb.f + n0 < pb.n_major) ? n_rows : c_f;
+  if (r0 >= live) return;
+  const int base = group_base<kBuffer>(pb, e);
+  const int V = pb.P * pb.f;
+  const int f = pb.f;
+  const bool vec = pb.vec != 0;
+
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ long long rowoff[MANY_ROWS];
+  __shared__ int rowlim[MANY_ROWS];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < MANY_ROWS; i += NT) {
+    const int r = r0 + i;
+    rowoff[i] = r < live
+        ? (long long)(kBuffer ? base + r : pb.tok[base + r]) * pb.d : 0;
+    rowlim[i] = r < live ? pb.d : 0;
+  }
+  __syncthreads();
+
+  const size_t sub = (size_t)e * pb.P + j;
+  const float* w1s = pb.w1 + sub * pb.d * f;
+  const float* w3s = pb.w3 + sub * pb.d * f;
+  auto w_row = [f](int k) { return (size_t)k * f; };
+  auto load_slot = [&](int slot, int k0) {
+    float* As = smem + slot * SLOT;
+    float* B1s = As + MANY_ROWS * LD;
+    tf32_load_rows(As, pb.x, rowoff, rowlim, k0, vec, tid);
+    tf32_load_weights(B1s, w1s, w_row, k0, pb.d, n0, f, vec, tid);
+    tf32_load_weights(B1s + BK * TF32_LDB, w3s, w_row, k0, pb.d, n0, f, vec,
+                      tid);
+  };
+  const int nk = (pb.d + BK - 1) / BK;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane >> 2, tig = lane & 3;   // the mma's row / column pair
+
+  // warp w: rows [16 (w % 4), +16) on M, neurons [64 (w / 4), +64) of w1
+  // and of w3 on N (8 fragments of 8)
+  const int rw = MMA_M * (warp & 3), nw = 64 * (warp >> 2);
+  const bool active = r0 + rw < live && n0 + nw < f;
+  float acc1[8][4] = {}, acc3[8][4] = {};
+  mma_ring<TF32_STAGES, BK>(nk, load_slot, [&](int slot) {
+    if (!active) return;
+    const float* As = smem + slot * SLOT;
+    const float* B1s = As + MANY_ROWS * LD;
+    tf32_step(acc1, As, rw, B1s, nw, lane);
+    tf32_step(acc3, As, rw, B1s + BK * TF32_LDB, nw, lane);
+  });
+  // acc[s][i]: row rw + g + 8 (i / 2), neuron nw + 8 s + 2 tig + i % 2
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + rw + g + 8 * half;
+      const int nl = n0 + nw + 8 * s + 2 * tig;
+      if (r >= n_rows || nl >= f) continue;
+      float v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int u = j * f + nl + q;
+        const int rows_ok = u < pb.n_major ? n_rows : c_f;
+        v[q] = r < rows_ok
+            ? silu(acc1[s][2 * half + q]) * acc3[s][2 * half + q] : 0.f;
+      }
+      float* hp = pb.h + (size_t)(base + r) * V + j * f + nl;
+      if (vec) {         // f a multiple of 4: an aligned pair inside the row
+        *reinterpret_cast<float2*>(hp) = make_float2(v[0], v[1]);
+      } else {
+        hp[0] = v[0];
+        if (nl + 1 < f) hp[1] = v[1];
+      }
+    }
+  }
+}
+
+template <bool kBuffer>
+__global__ void __launch_bounds__(NT, tf32_min_ctas(false))
+down_tf32_kernel(Problem<float> pb) {
+  constexpr int SLOT = tf32_slot_elems(false);
+  constexpr int LD = lda<float>();
+  const int e = blockIdx.z;
+  int c_f, n_rows;
+  group_rows(pb, e, &c_f, &n_rows);
+  if (!serves<MANY_ROWS>(n_rows)) return;
+  // row blocks vary fastest: the CTAs of one weight strip run together
+  const int r0 = blockIdx.x * MANY_ROWS;
+  const int c0 = blockIdx.y * TF32_BN;
+  const int base = group_base<kBuffer>(pb, e);
+  const int tid = threadIdx.x;
+  const bool vec = pb.vec != 0;
+  if (r0 >= n_rows) {     // a dead row block: buffer rows are exact zeros
+    if (kBuffer)
+      zero_rows<TF32_BN>(pb, base, r0, min(r0 + MANY_ROWS, pb.capacity), c0,
+                         tid);
+    return;
+  }
+  const int V = pb.P * pb.f;
+  const int d = pb.d, f = pb.f;
+  // a row tile with no FULL row never needs the MINOR half
+  const int kend = r0 < c_f ? V : pb.n_major;
+
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ long long rowoff[MANY_ROWS];
+  __shared__ int rowlim[MANY_ROWS];
+  // per row, the neurons it may read: all for FULL rows, the MAJOR half for
+  // MAJOR-only rows; the entries past it were never written by an up tile,
+  // and the copy zero-fills them
+  for (int i = tid; i < MANY_ROWS; i += NT) {
+    const int r = r0 + i;
+    rowoff[i] = r < n_rows ? (long long)(base + r) * V : 0;
+    rowlim[i] = min(kend, r < c_f ? V : (r < n_rows ? pb.n_major : 0));
+  }
+  __syncthreads();
+
+  const size_t sub0 = (size_t)e * pb.P;
+  // virtual neuron u lives in sub-expert e*P + u/f, row u%f
+  auto w_row = [d, f, sub0](int u) {
+    const int jj = u / f;
+    return ((sub0 + jj) * f + (u - jj * f)) * (size_t)d;
+  };
+  auto load_slot = [&](int slot, int k0) {
+    float* Hs = smem + slot * SLOT;
+    tf32_load_rows(Hs, pb.h, rowoff, rowlim, k0, vec, tid);
+    tf32_load_weights(Hs + MANY_ROWS * LD, pb.w2, w_row, k0, kend, c0, d,
+                      vec, tid);
+  };
+  const int nk = (kend + BK - 1) / BK;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane >> 2, tig = lane & 3;
+
+  // warp w: rows [16 (w % 4), +16) on M, columns [64 (w / 4), +64) of the
+  // strip on N (8 fragments of 8)
+  const int rw = MMA_M * (warp & 3), cw = 64 * (warp >> 2);
+  const bool active = r0 + rw < n_rows && c0 + cw < d;
+  // two halves of 4 fragments a step: the 2 CTAs per SM allow 128
+  // registers a thread
+  float acc[2][4][4] = {};
+  mma_ring<TF32_STAGES, BK>(nk, load_slot, [&](int slot) {
+    if (!active) return;
+    const float* Hs = smem + slot * SLOT;
+    const float* Ws = Hs + MANY_ROWS * LD;
+    tf32_step(acc[0], Hs, rw, Ws, cw, lane);
+    tf32_step(acc[1], Hs, rw, Ws, cw + 32, lane);
+  });
+  // acc[s / 4][s % 4][i]: row rw + g + 8 (i / 2), column cw + 8 s + 2 tig
+  // + i % 2; warps that skipped hold zeros: the buffer layout's dead rows
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + rw + g + 8 * half;
+      const int c = c0 + cw + 8 * s + 2 * tig;
+      if (c >= d || r >= (kBuffer ? pb.capacity : n_rows)) continue;
+      const float* a = acc[s >> 2][s & 3];
+      store_pair<kBuffer>(pb, base, r, c, r < n_rows, a[2 * half],
+                          a[2 * half + 1], vec);
+    }
+  }
+}
+
+template <bool kBuffer>
+cudaError_t launch_tf32_tile(Problem<float> pb, int E, cudaStream_t stream,
+                             bool up) {
+  const int row_blocks = (pb.capacity + MANY_ROWS - 1) / MANY_ROWS;
+  const int bytes = tf32_smem_bytes(up);
+  pb.n_tiles_sub = (pb.f + TF32_BN - 1) / TF32_BN;
   // the dynamic shared-memory limit is raised once per kernel
   if (up) {
     static const cudaError_t set = cudaFuncSetAttribute(
-        up_kernel<BM, TM, kBuffer, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        up_tf32_kernel<kBuffer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (set != cudaSuccess) return set;
-    const dim3 grid(pb.P * pb.n_tiles_sub, row_blocks, E);
-    up_kernel<BM, TM, kBuffer, T><<<grid, NT, bytes, stream>>>(pb);
+    const dim3 grid(row_blocks, pb.P * pb.n_tiles_sub, E);
+    up_tf32_kernel<kBuffer><<<grid, NT, bytes, stream>>>(pb);
   } else {
     static const cudaError_t set = cudaFuncSetAttribute(
-        down_kernel<BM, TM, kBuffer, T>,
+        down_tf32_kernel<kBuffer>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
-    const dim3 grid((pb.d + BN - 1) / BN, row_blocks, E);
-    down_kernel<BM, TM, kBuffer, T><<<grid, NT, bytes, stream>>>(pb);
+    const dim3 grid(row_blocks, (pb.d + TF32_BN - 1) / TF32_BN, E);
+    down_tf32_kernel<kBuffer><<<grid, NT, bytes, stream>>>(pb);
+  }
+  return cudaGetLastError();
+}
+
+// The float few-row tile: the FMA kernels at BM = FEW_ROWS; it owns its
+// whole group, one row block.
+template <bool kBuffer>
+cudaError_t launch_fma_tile(Problem<float> pb, int E, cudaStream_t stream,
+                            bool up) {
+  constexpr int TM = FEW_ROWS / ROW_THREADS;
+  const int bytes = smem_bytes<float>(up, FEW_ROWS);
+  pb.n_tiles_sub = (pb.f + BN - 1) / BN;
+  // the dynamic shared-memory limit is raised once per kernel
+  if (up) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        up_kernel<FEW_ROWS, TM, kBuffer, float>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (set != cudaSuccess) return set;
+    const dim3 grid(pb.P * pb.n_tiles_sub, 1, E);
+    up_kernel<FEW_ROWS, TM, kBuffer, float><<<grid, NT, bytes, stream>>>(pb);
+  } else {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        down_kernel<FEW_ROWS, TM, kBuffer, float>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (set != cudaSuccess) return set;
+    const dim3 grid((pb.d + BN - 1) / BN, 1, E);
+    down_kernel<FEW_ROWS, TM, kBuffer, float><<<grid, NT, bytes, stream>>>(
+        pb);
   }
   return cudaGetLastError();
 }
@@ -1203,14 +1614,13 @@ inline bool vector_ok(const Problem<T, Y>& pb) {
 }
 
 // Up then down; each launches the few-row tile, and the many-row tile when
-// the capacity can hold a group past FEW_ROWS rows: the tensor-core tiles
-// for bf16, the FMA tiles for float. T and Y are deduced from pb.
+// the capacity can hold a group past FEW_ROWS rows: the mma.sync bf16 tiles
+// for bf16; for float the FMA few-row tile and the 3xTF32 many-row tile. T
+// and Y are deduced from pb.
 template <bool kBuffer, typename T, typename Y>
 cudaError_t launch_swiglu(Problem<T, Y> pb, int E, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int strip = kMma ? MMA_BN_UP : BN;
   pb.vec = vector_ok(pb) ? 1 : 0;
-  pb.n_tiles_sub = (pb.f + strip - 1) / strip;
   const bool many = pb.capacity > FEW_ROWS;
   for (int up = 1; up >= 0; --up) {
     cudaError_t err;
@@ -1219,11 +1629,9 @@ cudaError_t launch_swiglu(Problem<T, Y> pb, int E, cudaStream_t stream) {
       if (err == cudaSuccess && many)
         err = launch_mma_tile<MANY_ROWS, kBuffer>(pb, E, stream, up);
     } else {
-      constexpr int FEW_TM = FEW_ROWS / ROW_THREADS;
-      constexpr int MANY_TM = MANY_ROWS / ROW_THREADS;
-      err = launch_tile<FEW_ROWS, FEW_TM, kBuffer>(pb, E, stream, up);
+      err = launch_fma_tile<kBuffer>(pb, E, stream, up);
       if (err == cudaSuccess && many)
-        err = launch_tile<MANY_ROWS, MANY_TM, kBuffer>(pb, E, stream, up);
+        err = launch_tf32_tile<kBuffer>(pb, E, stream, up);
     }
     if (err != cudaSuccess) return err;
   }

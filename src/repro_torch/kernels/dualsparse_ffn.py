@@ -19,10 +19,10 @@ bf16 before the down product. The fused kernel's output is float32 (cast
 to x's type by ``ops``); the grouped kernel writes its output in x's type.
 
 Both run the row tiles of ``csrc/swiglu_tiles.cuh``, which choose on the
-device, per group, between a few-row and a many-row tile: FMA tiles on
-float32 operands, ``mma.sync`` tiles on bf16 ones. ``tile_plan`` says on
-the host which tile serves each group and how many row slots it
-multiplies.
+device, per group, between a few-row and a many-row tile: on float32
+operands an FMA few-row tile and a 3xTF32 ``mma.sync`` many-row tile, on
+bf16 ones ``mma.sync`` tiles. ``tile_plan`` says on the host which tile
+serves each group and how many row slots it multiplies.
 """
 from __future__ import annotations
 
@@ -37,16 +37,16 @@ I32 = torch.int32
 # the row tiles of csrc/swiglu_tiles.cuh: groups with at most FEW_ROWS live
 # rows take the few-row tile (regime 1), the others the many-row tile
 # (regime 2) in row blocks of MANY_ROWS. ROW_STEP[dtype][regime]: the rows
-# the tile multiplies in one unit, dead or live. Float32 FMA tiles: 16
-# threads share a row (64 columns, 4 each), so a warp multiplies 2 x
-# rows/16 rows of either tile, and warps without a live row skip the FMAs.
-# bf16 mma.sync tiles: the few-row tile puts the rows on the mma's N side
-# (steps of MMA_N = 8 rows), the many-row tile gives each warp MMA_M = 16
-# rows on the M side, and warps without a live row skip their products.
+# the tile multiplies in one unit, dead or live. The float32 few-row FMA
+# tile: 16 threads share a row (64 columns, 4 each), so a warp multiplies 2
+# rows, and warps without a live row skip the FMAs. The many-row tiles of
+# both types give each warp MMA_M = 16 rows on the mma's M side (3xTF32 for
+# float32), and warps without a live row skip their products. The bf16
+# few-row tile puts the rows on the mma's N side (steps of MMA_N = 8 rows).
 FEW_ROWS = 16
 MANY_ROWS = 64
 MMA_M, MMA_N = 16, 8
-ROW_STEP = {torch.float32: {1: 2 * FEW_ROWS // 16, 2: 2 * MANY_ROWS // 16},
+ROW_STEP = {torch.float32: {1: 2 * FEW_ROWS // 16, 2: MMA_M},
             torch.bfloat16: {1: MMA_N, 2: MMA_M}}
 
 
@@ -173,21 +173,35 @@ def ring_bytes(dtype=torch.float32) -> dict:
             for launch in ("up", "down") for tile in ("few", "many")}
 
 
+def _scratch(h, shape, like):
+    """The caller's h scratch, checked, or a new one."""
+    if h is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(h.shape) != shape or h.dtype != like.dtype
+            or h.device != like.device or not h.is_contiguous()):
+        raise ValueError(f"h scratch must be a contiguous {shape} "
+                         f"{like.dtype} tensor on {like.device}")
+    return h
+
+
 def launch_fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                               counts_major, tok_sorted, combine_sorted, *,
                               capacity: int, p_factor: int, n_major: int,
-                              regime=None):
+                              regime=None, h=None):
     """Enqueue the CUDA kernel on the current stream; returns the (T, d)
     float32 output. x and the weights are float32 or bfloat16 (one type);
     inputs must already be checked (``ops`` does that).
     ``regime``: an (E,) int32 CUDA tensor that receives the row tile that
-    served each group (see ``tile_plan``), or ``None``."""
+    served each group (see ``tile_plan``), or ``None``. ``h``: the
+    (N', p_factor * f) scratch in the weights' type, or ``None`` (a new
+    one); the entries no up tile writes (the MINOR neurons of MAJOR-only row
+    blocks) keep what it held."""
     lib = _library("fused_moe_pipeline")
     T, d = x.shape
     f = w1.shape[-1]
     E = group_offsets.shape[0]
     n_pos = tok_sorted.shape[0]
-    h = torch.empty((n_pos, p_factor * f), dtype=w1.dtype, device=x.device)
+    h = _scratch(h, (n_pos, p_factor * f), w1)
     y = torch.empty((n_pos, d), dtype=torch.float32, device=x.device)
     key = torch.empty((n_pos,), dtype=I32, device=x.device)
     out = torch.empty((T, d), dtype=torch.float32, device=x.device)
@@ -223,20 +237,20 @@ def launch_position_keys(tok_sorted, group_offsets, counts_full,
 
 
 def launch_grouped_swiglu(x, w1, w3, w2, counts_full, counts_major, *,
-                          p_factor: int, n_major: int, regime=None):
+                          p_factor: int, n_major: int, regime=None, h=None):
     """Enqueue the grouped SwiGLU kernel on the current stream; returns the
     (E, C, d) output in x's type (bf16: the float32 sums rounded once),
     dead rows exact zeros. x and the weights are float32 or bfloat16 (one
     type); inputs must already be checked (``ops`` does that); counts past
     C are clamped on the device. ``regime`` as for
-    ``launch_fused_moe_pipeline``."""
+    ``launch_fused_moe_pipeline``; ``h`` likewise, (E * C, p_factor * f)."""
     E, C, d = x.shape
     f = w1.shape[-1]
     out = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library("grouped_swiglu")
-    h = torch.empty((E * C, p_factor * f), dtype=w1.dtype, device=x.device)
+    h = _scratch(h, (E * C, p_factor * f), w1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.grouped_swiglu_launch(
         x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),

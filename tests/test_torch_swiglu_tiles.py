@@ -1,15 +1,17 @@
 """Host-side helpers of the CUDA SwiGLU tiles (``repro_torch.kernels.
 dualsparse_ffn``): the row-tile plan against the header's constants and
-the threshold's edges, and the position keys the fused kernel's combine
-gathers each token's rows by, against the plain combine order.
+the threshold's edges, the float32 many-row tile's pitches and ring, its
+3xTF32 products emulated in numpy, and the position keys the fused
+kernel's combine gathers each token's rows by, against the plain combine
+order.
 
 The tests marked ``cuda`` run the kernels themselves on the card, against
 their plain versions, at reduced widths on both sides of the few-row
-threshold, on float32 operands (the FMA tiles, bar 1e-5) and bfloat16 ones
-(the tensor-core tiles, bar 1e-3: h rounded to bf16 on both sides, one bf16
-ulp where an h element's float32 sums straddle a rounding boundary); they
-skip without a card. Run them on one with
-``PYTHONPATH=src python -m pytest -m cuda --noconftest
+threshold, on float32 operands (an FMA few-row tile and a 3xTF32 many-row
+tile, bar 1e-5) and bfloat16 ones (the tensor-core tiles, bar 1e-3: h
+rounded to bf16 on both sides, one bf16 ulp where an h element's float32
+sums straddle a rounding boundary); they skip without a card. Run them on
+one with ``PYTHONPATH=src python -m pytest -m cuda --noconftest
 tests/test_torch_swiglu_tiles.py`` (this file imports no JAX)."""
 import re
 from pathlib import Path
@@ -34,18 +36,24 @@ def _i32(values):
 
 
 def test_tile_plan_mirrors_the_header():
-    """FEW_ROWS, MANY_ROWS and the rows a warp of the float32 FMA tiles
-    multiplies (32 threads over BN / TN columns, rows / ROW_THREADS rows
-    each) are the tiles' own."""
+    """FEW_ROWS, MANY_ROWS and the rows a warp of the float32 tiles
+    multiplies: the few-row FMA tile's 32 threads over BN / TN columns,
+    FEW_ROWS / ROW_THREADS rows each; the many-row 3xTF32 tile's MMA_M rows
+    on the mma's M side, 4 warps down a MANY_ROWS block. Each is the tiles'
+    own, and a many-row float32 group launches the 3xTF32 tile, never the
+    FMA one."""
     assert D.FEW_ROWS == _constant("FEW_ROWS")
     assert D.MANY_ROWS == _constant("MANY_ROWS")
     columns = _constant("BN") // _constant("TN")
     row_threads = _constant("NT") // columns
     assert D.ROW_STEP[torch.float32] == {
         1: 32 // columns * (D.FEW_ROWS // row_threads),
-        2: 32 // columns * (D.MANY_ROWS // row_threads)}
-    assert "launch_tile<FEW_ROWS, FEW_TM, kBuffer>" in HEADER
-    assert "launch_tile<MANY_ROWS, MANY_TM, kBuffer>" in HEADER
+        2: _constant("MMA_M")}
+    assert D.MANY_ROWS == 4 * _constant("MMA_M")
+    assert "up_kernel<FEW_ROWS, TM, kBuffer, float>" in HEADER
+    assert "launch_fma_tile<kBuffer>(pb, E, stream, up);" in HEADER
+    assert "launch_tf32_tile<kBuffer>(pb, E, stream, up);" in HEADER
+    assert "up_kernel<MANY_ROWS" not in HEADER
 
 
 def test_bf16_tile_plan_mirrors_the_header():
@@ -64,6 +72,121 @@ def test_bf16_tile_plan_mirrors_the_header():
     assert _constant("MMA_BN_DOWN") == _constant("MMA_BN_UP")
     assert "launch_mma_tile<FEW_ROWS, kBuffer>" in HEADER
     assert "launch_mma_tile<MANY_ROWS, kBuffer>" in HEADER
+
+
+def _tf32_ring():
+    """The float32 many-row tile's ring, from the header's constants: row
+    tile and weight tile pitches (words), and the bytes of one CTA's ring
+    for the up and the down launch."""
+    bk, bn = _constant("BK"), _constant("TF32_BN")
+    lda = bk + 16 // 4                   # lda<float>(): BK + one 16-byte copy
+    ldb = bn + _constant("TF32_PAD")
+    slot = {up: D.MANY_ROWS * lda + (2 if up else 1) * bk * ldb
+            for up in (True, False)}
+    return lda, ldb, {up: 4 * _constant("TF32_STAGES") * n
+                      for up, n in slot.items()}
+
+
+def test_tf32_tile_fragment_reads_are_free_of_bank_conflicts():
+    """The float32 many-row tile reads its mma fragments with 32-bit shared
+    loads (ldmatrix moves b16 elements): lane (g, t) = (lane / 4, lane % 4)
+    reads the A fragment at [row g][k t] of the row tile and the B
+    fragment at [k t][column g] of the weight tile. With the header's
+    pitches the 32 lanes of each read hit 32 distinct banks; a ring step
+    carries 128 bytes of each weight row; the up ring fits one CTA's
+    shared memory, two down rings one SM's."""
+    lda, ldb, ring = _tf32_ring()
+    lanes = range(32)
+    for row_k in (0, 8):                 # a0 / a1 rows g and g + 8
+        assert len({((lane // 4 + row_k) * lda + lane % 4) % 32
+                    for lane in lanes}) == 32
+    for k_off in (0, 4):                 # b0 / b1 at k t and t + 4
+        assert len({((lane % 4 + k_off) * ldb + lane // 4) % 32
+                    for lane in lanes}) == 32
+    assert _constant("BK") * 4 == 128
+    assert _constant("TF32_BN") % 16 == 0 and (ldb * 4) % 16 == 0
+    static = D.MANY_ROWS * (8 + 4)       # the rowoff and rowlim tables
+    assert ring[True] + 1024 + static <= 232448
+    assert 2 * (ring[False] + 1024 + static) <= 233472
+
+
+def _tf32_big(v):
+    """split_tf32's big part: float32 v with its 13 low mantissa bits
+    cleared (also what the tensor core reads of a float32 operand)."""
+    bits = np.asarray(v, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)
+    return bits.view(np.float32)
+
+
+def _round_to_zero(v):
+    """float64 v rounded to float32 toward zero, as the tensor cores round
+    the float32 sums they accumulate."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _mma_dot(a, b, passes: int, per_step: bool = True):
+    """a (K,) . b (K, N) as the many-row tile computes it: per 8-deep
+    contraction step the pass products (exact: TF32 mantissas are 11 bits)
+    summed and added to a float32 fragment rounding toward zero, pass by
+    pass. ``passes`` 3: 3xTF32 (small.big, big.small, big.big, small = v -
+    big read as TF32); 1: one TF32 pass on the operands as the tensor core
+    reads them. ``per_step``: the fragment restarts from zero every ring
+    step (BK = 32) and float32 adds that round to nearest carry the steps'
+    sums (the kernel's ``tf32_step``); else one fragment takes the whole
+    contraction."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ab, bb = _tf32_big(a), _tf32_big(b)
+    if passes == 3:
+        a_s, b_s = _tf32_big(a - ab), _tf32_big(b - bb)
+        pairs = [(a_s, bb), (ab, b_s), (ab, bb)]
+    else:
+        pairs = [(ab, bb)]
+    K, N = b.shape
+    steps = [np.matmul(pa.astype(np.float64).reshape(K // 8, 1, 8),
+                       pb.astype(np.float64).reshape(K // 8, 8, N))[:, 0]
+             for pa, pb in pairs]
+    acc = part = np.zeros(N, np.float32)
+    for k in range(K // 8):
+        for step in steps:
+            part = _round_to_zero(part.astype(np.float64) + step[k])
+        if per_step and k % 4 == 3:
+            acc, part = (acc + part).astype(np.float32), np.zeros_like(part)
+    return (acc + part).astype(np.float32)
+
+
+def test_3xtf32_swiglu_row_holds_the_float32_bar_and_one_pass_does_not():
+    """One SwiGLU row at DBRX-132B's contraction lengths (d = 6144 for up,
+    V = 10752 neurons for down), seeded N(0, 1) data: h and the output row
+    computed as the float32 many-row tile computes them (``_mma_dot``)
+    against float64. Three TF32 passes summed per ring step land within
+    1e-5 (norm-relative, the kernels' float32 bar); one TF32 pass does
+    not, and neither do three passes left in one round-toward-zero
+    fragment for the whole contraction."""
+    rng = np.random.default_rng(23)
+    d, V, n_out, chunk = 6144, 10752, 64, 1344
+    x = rng.standard_normal(d, dtype=np.float32)
+    h = {name: np.empty(V) for name in ("f64", "3", "1")}
+    for n0 in range(0, V, chunk):
+        w1 = rng.standard_normal((d, chunk), dtype=np.float32)
+        w3 = rng.standard_normal((d, chunk), dtype=np.float32)
+        g, u = x.astype(np.float64) @ w1, x.astype(np.float64) @ w3
+        h["f64"][n0:n0 + chunk] = g / (1 + np.exp(-g)) * u
+        for passes in (3, 1):
+            g, u = (_mma_dot(x, w, passes).astype(np.float64)
+                    for w in (w1, w3))
+            h[str(passes)][n0:n0 + chunk] = np.float32(g / (1 + np.exp(-g))
+                                                       * u)
+    w2 = rng.standard_normal((V, n_out), dtype=np.float32)
+    want = h["f64"] @ w2
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    h3, y3 = h["3"], _mma_dot(h["3"], w2, 3)
+    h1, y1 = h["1"], _mma_dot(h["1"], w2, 1)
+    assert rel(h3, h["f64"]) <= 1e-5 and rel(y3, want) <= 1e-5
+    assert rel(h1, h["f64"]) > 1e-5 and rel(y1, want) > 1e-5
+    assert rel(_mma_dot(h3, w2, 3, per_step=False), want) > 1e-5
 
 
 def _round_up(n: int, step: int) -> int:
@@ -228,6 +351,77 @@ def test_fused_kernel_matches_plain_across_the_threshold(cuda, d, f, nms,
         *args, capacity=C, p_factor=P,
         n_major=D.resolve_n_major(f, P, nms, 128), regime=regime)
     assert regime.tolist() == D.tile_plan(cf, cm, C, dtype)[0].tolist()
+
+
+# float32 groups past one MANY_ROWS block: capacity three row blocks;
+# groups of MAJOR-only rows only (two blocks), FULL rows then two blocks of
+# MAJOR-only rows, all FULL, just past FEW_ROWS, empty, few-row
+BLOCKS_C = 2 * D.MANY_ROWS + 8
+BLOCKS_CF = [0, 20, BLOCKS_C, R + 1, 0, 3]
+BLOCKS_CM = [D.MANY_ROWS + 5, 2 * D.MANY_ROWS - 12, 0, 0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["grouped", "fused"])
+@pytest.mark.parametrize("d,f,nms", WIDTHS)
+def test_float32_row_blocks_match_plain_over_a_nan_scratch(cuda, kernel, d,
+                                                           f, nms):
+    """float32 groups of several MANY_ROWS blocks, some blocks with no FULL
+    row, on 16-byte and scalar widths, over an h scratch filled with NaN:
+    the 3xTF32 many-row tile equals the plain version to 1e-5, bit for bit
+    across launches; the MINOR h of the MAJOR-only blocks, which no up
+    tile writes, is still NaN after the launch and reached no product; the
+    row tiles are ``tile_plan``'s."""
+    gen = torch.Generator().manual_seed(3)
+    P, C, E = 2, BLOCKS_C, len(BLOCKS_CF)
+    cf, cm = _i32(BLOCKS_CF).to(cuda), _i32(BLOCKS_CM).to(cuda)
+    n_major = D.resolve_n_major(f, P, nms, 128)
+    w1, w3, w2 = _weights(gen, E, P, d, f, cuda, torch.float32)
+    kw = dict(p_factor=P, n_major=n_major)
+    if kernel == "grouped":
+        x = torch.randn((E, C, d), generator=gen).to(cuda)
+        dead = torch.arange(C, device=cuda)[None, :] >= (cf + cm)[:, None]
+        x[dead] = float("nan")
+        want = ops.grouped_swiglu_ref(x.nan_to_num(), w1, w3, w2, cf, cm,
+                                      p_factor=P, n_minor_start=nms)
+
+        def run(h, regime=None):
+            return D.launch_grouped_swiglu(x, w1, w3, w2, cf, cm, h=h,
+                                           regime=regime, **kw)
+        starts, n_pos = [e * C for e in range(E)], E * C
+    else:
+        T = 96
+        sizes = torch.clamp(cf.cpu() + cm.cpu(), max=C) + 2
+        offs = (torch.cumsum(sizes, 0) - sizes).to(torch.int32)
+        n_pos = int(sizes.sum()) + 8                # 8 padding entries
+        tok = torch.randint(0, T, (n_pos,), generator=gen,
+                            dtype=torch.int32)
+        comb = torch.rand((n_pos,), generator=gen)
+        x = torch.randn((T, d), generator=gen)
+        x, offs, tok, comb = (a.to(cuda) for a in (x, offs, tok, comb))
+        want = ops.fused_moe_pipeline_ref(x, w1, w3, w2, offs, cf, cm, tok,
+                                          comb, capacity=C, p_factor=P,
+                                          n_minor_start=nms)
+
+        def run(h, regime=None):
+            return D.launch_fused_moe_pipeline(
+                x, w1, w3, w2, offs, cf, cm, tok, comb, capacity=C, h=h,
+                regime=regime, **kw)
+        starts = offs.tolist()
+    shape = (n_pos, P * f)
+    h = torch.full(shape, float("nan"), device=cuda)
+    regime = torch.zeros(E, dtype=torch.int32, device=cuda)
+    y1 = run(h, regime)
+    y2 = run(torch.full(shape, float("nan"), device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert float((y1 - want).norm() / want.norm()) <= BAR[torch.float32]
+    left = sum(int(torch.isnan(h[s + a:s + min(a + b, C), n_major:]).sum())
+               for s, a, b in zip(starts, BLOCKS_CF, BLOCKS_CM))
+    assert left > 0
+    assert regime.tolist() == D.tile_plan(cf, cm, C)[0].tolist()
+    if kernel == "grouped":
+        assert (y1[dead] == 0).all()
 
 
 @pytest.mark.cuda
