@@ -1,0 +1,10 @@
+"""ttft_p95_ms (read as ``ttft_p95_ms.chat`` and ``ttft_p95_ms.saturated``):
+95th percentile, over every request due in the window, of due time ->
+first token; a request still waiting at the close counts at its wait so
+far (host clock)."""
+from perfbench.harness import stats
+
+
+def read(run):
+    v = stats.percentile(stats.ttft_samples(run.served, run.main_s), 95)
+    return None if v is None else 1e3 * v
