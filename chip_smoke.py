@@ -2356,7 +2356,8 @@ def ep_rank(rank: int, out: str, dev_type: str) -> None:
     pst = slot_stats(peng, pres, pwall, pcounts)
     pst.update(chunk_steps=peng.chunk_steps,
                chunk_step_ms=statistics.median(
-                   peng.tracer.durations("prefill_chunk")) * 1e3,
+                   [ev["args"]["device_s"] for ev in peng.tracer.events()
+                    if ev["name"] == "prefill_chunk"]) * 1e3,
                prefix_hits=peng.prefix_hits,
                prefix_misses=peng.prefix_misses,
                prefix_hit_rate=peng.prefix_hit_rate,

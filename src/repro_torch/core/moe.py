@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import MLP, normal, tensors_of
+from ..obs.tracing import layer
 from . import dispatch as dispatch_mod
 from . import gating
 from .drop import SubExpertPairs, MODE_FULL, expand_pairs_2t
@@ -217,10 +218,12 @@ def _fused_pipeline_dispatch(params: Dict, x, cfg, pairs: SubExpertPairs,
     mode-ordered grouped SwiGLU with minor-half skipping, and combining
     weighted rows per token — with no (E, capacity, d) buffer."""
     from ..kernels import ops as kops
-    kwargs, overflow = fused_pipeline_args(params, pairs, p, capacity,
-                                           mode_grouped, block_c)
-    y = kops.fused_moe_pipeline(x, block_f=block_f, streamed=streamed,
-                                **kwargs)
+    with layer("moe.plan"):
+        kwargs, overflow = fused_pipeline_args(params, pairs, p, capacity,
+                                               mode_grouped, block_c)
+    with layer("moe.kernel"):
+        y = kops.fused_moe_pipeline(x, block_f=block_f, streamed=streamed,
+                                    **kwargs)
     return y, overflow
 
 
@@ -303,17 +306,19 @@ def moe_forward_dispatch(params: Dict, x, cfg,
         out = y.to(x.dtype) + _shared_out(params, x)
         return (out, overflow) if return_overflow else out
 
-    kwargs, plan, w, K, overflow = grouped_swiglu_args(
-        params, x, pairs, p, capacity,
-        mode_grouped=use_kernel and mode_grouped and p > 1)
-    if use_kernel:
-        from ..kernels import ops as kops
-        out_buf = kops.grouped_swiglu(**kwargs)
-    else:
-        out_buf = expert_ffn(params["w1"], params["w3"], params["w2"],
-                             kwargs["x"])
-    gathered = dispatch_mod.unpermute(out_buf, plan)            # (T*K, d)
-    y = gathered * w[:, None].to(gathered.dtype)
-    y = y.reshape(T, K, d).sum(dim=1)
+    with layer("moe.plan"):
+        kwargs, plan, w, K, overflow = grouped_swiglu_args(
+            params, x, pairs, p, capacity,
+            mode_grouped=use_kernel and mode_grouped and p > 1)
+    with layer("moe.kernel"):
+        if use_kernel:
+            from ..kernels import ops as kops
+            out_buf = kops.grouped_swiglu(**kwargs)
+        else:
+            out_buf = expert_ffn(params["w1"], params["w3"], params["w2"],
+                                 kwargs["x"])
+        gathered = dispatch_mod.unpermute(out_buf, plan)        # (T*K, d)
+        y = gathered * w[:, None].to(gathered.dtype)
+        y = y.reshape(T, K, d).sum(dim=1)
     out = y.to(x.dtype) + _shared_out(params, x)
     return (out, overflow) if return_overflow else out

@@ -42,6 +42,7 @@ from ..core import gating
 from ..core import moe as moe_mod
 from ..device import resolve_device
 from ..obs import MetricsState
+from ..obs.tracing import layer
 from . import attention as attn
 from . import layers as L
 from . import mamba2 as mm
@@ -164,9 +165,10 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
             return_overflow=True, return_stats=collect, kernels=kernels)
         return y, aux_val, of
     xt = x.reshape(-1, d)
-    # per-request (B,) threshold values -> per-token over the (B*S, d) block
-    policy = _policy_of(policy).per_token(B, S)
-    pairs = policy.route(params, xt, cfg)
+    with layer("moe.route"):
+        # per-request (B,) thresholds -> per-token over the (B*S, d) block
+        policy = _policy_of(policy).per_token(B, S)
+        pairs = policy.route(params, xt, cfg)
     y, overflow = moe_mod.moe_forward_dispatch(
         params, xt, cfg, pairs=pairs, capacity_factor=policy.capacity_factor,
         capacity=policy.dispatch_capacity(xt.shape[0]),
@@ -174,13 +176,15 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
         mode_grouped=policy.kernel_mode_grouping,
         fused_pipeline=policy.fused_pipeline if kernels else False)
     if collect:
-        n_sub = params["w1"].shape[0]
-        p_factor = pairs.idx.shape[1] // pairs.modes.shape[1]
-        kf, km, dr = drop_mod.sub_pair_outcome_counts(pairs.keep, p_factor)
-        stats = {"expert_load": gating.expert_histogram(pairs.idx, n_sub,
-                                                        keep=pairs.keep),
-                 "kept_full": kf, "kept_major": km, "dropped_pairs": dr,
-                 "overflow_pairs": overflow}
+        with layer("moe.stats"):
+            n_sub = params["w1"].shape[0]
+            p_factor = pairs.idx.shape[1] // pairs.modes.shape[1]
+            kf, km, dr = drop_mod.sub_pair_outcome_counts(pairs.keep,
+                                                          p_factor)
+            stats = {"expert_load": gating.expert_histogram(
+                         pairs.idx, n_sub, keep=pairs.keep),
+                     "kept_full": kf, "kept_major": km, "dropped_pairs": dr,
+                     "overflow_pairs": overflow}
         return y.reshape(B, S, d), aux_val, stats
     return y.reshape(B, S, d), aux_val, overflow
 
@@ -213,25 +217,27 @@ def block_forward(bp: Block, x, positions, cfg, *, window: int = 0,
     block's cache layer is its {"conv", "ssm"} state); ``with_aux`` returns
     ``(x, load-balance aux loss)`` (0 without a MoE layer) for training.
     ``kernels=False`` takes the differentiable route (no kernel)."""
-    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
     if isinstance(bp, MambaBlock):
+        h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
         if capture_cap:
             y, st = mm.mamba2_forward(bp.mamba, h, cfg, return_state=True,
                                       kernel=kernels)
             return x + y, st, _no_overflow(x)
         x = x + mm.mamba2_forward(bp.mamba, h, cfg, kernel=kernels)
         return (x, _zero_aux(x)) if with_aux else x
+    cache_layer = None
+    with layer("model.attention"):
+        h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+        if capture_cap:
+            y, cache_layer = _attn_forward(
+                bp, h, positions, cfg, window=window, dist=dist,
+                capture_cap=capture_cap, cache_dtype=cache_dtype)
+        else:
+            y = _attn_forward(bp, h, positions, cfg, window=window,
+                              dist=dist)
     if with_aux:
-        y = _attn_forward(bp, h, positions, cfg, window=window, dist=dist)
         return _ffn(bp, x + y, cfg, policy, False, dist, kernels=kernels,
                     aux=True)
-    cache_layer = None
-    if capture_cap:
-        y, cache_layer = _attn_forward(bp, h, positions, cfg, window=window,
-                                       dist=dist, capture_cap=capture_cap,
-                                       cache_dtype=cache_dtype)
-    else:
-        y = _attn_forward(bp, h, positions, cfg, window=window, dist=dist)
     x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist,
                        kernels=kernels)
     return (x, cache_layer, overflow) if capture_cap else x
@@ -246,14 +252,18 @@ def _ffn(bp: Block, x, cfg, policy, collect_stats: bool, dist=None,
     """The block's second half: norm, then MoE or MLP, residual added.
     Returns ``(x, moe_overflow or obs stats dict)``, or with ``aux``
     ``(x, load-balance aux loss)`` (0 without a MoE layer)."""
-    h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
     if bp.moe is None:
-        out = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
+        with layer("model.mlp"):
+            h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
+            out = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
         return out, _zero_aux(x) if aux else _no_overflow(x)
-    y, aux_val, overflow = _moe_forward(bp.moe, h, cfg, policy,
-                                        collect=collect_stats, dist=dist,
-                                        aux=aux, kernels=kernels)
-    return x + y, aux_val if aux else overflow
+    with layer("moe"):
+        h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
+        y, aux_val, overflow = _moe_forward(bp.moe, h, cfg, policy,
+                                            collect=collect_stats, dist=dist,
+                                            aux=aux, kernels=kernels)
+        out = x + y
+    return out, aux_val if aux else overflow
 
 
 def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
@@ -263,18 +273,21 @@ def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
     ``(x, cache_layer, moe_overflow)`` — the obs stats dict in the third
     slot under ``collect_stats``. ``layout``/``page_table``/``write_mask``/
     ``read_len`` select the KV storage (see ``gqa_decode_attention``)."""
-    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
     if isinstance(bp, MambaBlock):
+        h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
         state = mm.MambaState(cache_layer["conv"], cache_layer["ssm"])
         y, st = mm.mamba2_decode(bp.mamba, h, state, cfg)
         return x + y, st._asdict(), _no_overflow(x)
-    if cfg.attn_kind == "mla":
-        y, cache_layer = attn.mla_decode_attention(bp.attn, h, cache_layer,
-                                                   pos, cfg, window)
-    else:
-        y, cache_layer = attn.gqa_decode_attention(
-            bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
-            page_table=page_table, write_mask=write_mask, read_len=read_len)
+    with layer("model.attention"):
+        h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+        if cfg.attn_kind == "mla":
+            y, cache_layer = attn.mla_decode_attention(
+                bp.attn, h, cache_layer, pos, cfg, window)
+        else:
+            y, cache_layer = attn.gqa_decode_attention(
+                bp.attn, h, cache_layer, pos, cfg, window, layout=layout,
+                page_table=page_table, write_mask=write_mask,
+                read_len=read_len)
     x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return x, cache_layer, overflow
 
@@ -321,10 +334,11 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
     if not capture_cap:
         return x
     cache = {"layers": layers}
-    if collect:
-        cache["metrics"] = MetricsState.from_stacked(outs)
-    else:
-        cache["moe_overflow"] = torch.stack(outs).sum(dtype=torch.int32)
+    with layer("model.stats"):
+        if collect:
+            cache["metrics"] = MetricsState.from_stacked(outs)
+        else:
+            cache["moe_overflow"] = torch.stack(outs).sum(dtype=torch.int32)
     return x, cache
 
 
@@ -389,11 +403,12 @@ def _with_step_stats(cache, new, outs):
     """Fold one step's per-layer MoE outputs (obs stats dicts or overflow
     counts) into the running total ``new`` carries on from ``cache`` —
     device-side adds, no host sync."""
-    if "metrics" in cache:
-        new["metrics"] = cache["metrics"].accumulate(outs)
-    elif "moe_overflow" in cache:
-        new["moe_overflow"] = cache["moe_overflow"] + \
-            torch.stack(outs).sum(dtype=torch.int32)
+    with layer("model.stats"):
+        if "metrics" in cache:
+            new["metrics"] = cache["metrics"].accumulate(outs)
+        elif "moe_overflow" in cache:
+            new["moe_overflow"] = cache["moe_overflow"] + \
+                torch.stack(outs).sum(dtype=torch.int32)
     return new
 
 
@@ -474,7 +489,8 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
     """Full forward AND the populated decode cache: returns
     ``(logits (B,S,vocab), cache)`` — logits over the token part only —
     with ``cache["pos"]`` past the prompt, frontend prefix included."""
-    x, positions, n_prefix = embed_inputs(model, batch, cfg)
+    with layer("model.embed"):
+        x, positions, n_prefix = embed_inputs(model, batch, cfg)
     S_total = x.shape[1]
     cap = max(cache_len, S_total) if not window else \
         min(cache_len if cache_len else S_total, window)
@@ -482,10 +498,11 @@ def prefill(model: Transformer, batch, cfg, *, cache_len: int = 0,
                              policy=policy, capture_cap=cap,
                              cache_dtype=cache_dtype, metrics=metrics,
                              dist=dist)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    if n_prefix:
-        x = x[:, n_prefix:]
-    logits = L.unembed(model.embed, x)
+    with layer("model.head"):
+        x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        logits = L.unembed(model.embed, x)
     cache["pos"] = S_total
     return logits, cache
 
@@ -499,14 +516,16 @@ def decode_step(model: Transformer, token, cache, cfg, *, window: int = 0,
     suppresses the KV writes of inactive slots (their ``pos`` still
     advances here: the engine owns per-slot positions)."""
     pos = cache["pos"]
-    x = L.embed(model.embed, token)
+    with layer("model.embed"):
+        x = L.embed(model.embed, token)
     x, new_cache = stack_decode(model, x, cache, pos, cfg, window=window,
                                 policy=policy, layout=layout,
                                 page_table=page_table, write_mask=write_mask,
                                 read_len=read_len, dist=dist)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = L.unembed(model.embed, x)
-    new_cache["pos"] = pos + 1
+    with layer("model.head"):
+        x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+        logits = L.unembed(model.embed, x)
+        new_cache["pos"] = pos + 1
     return logits, new_cache
 
 
@@ -519,10 +538,11 @@ def chunk_block(bp: Block, x, cache_layer, slot: int, start: int,
     stats dict in the third slot under ``collect_stats``. Padding rows pass
     through the MoE layer as in the JAX package (they route and count).
     ``dist``: an EP context sends the MoE layer through S-ETP."""
-    h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-    y, cache_layer = attn.gqa_chunk_attention(
-        bp.attn, h, cache_layer, slot, start, valid_len, cfg, layout=layout,
-        page_table=page_table, read_len=read_len)
+    with layer("model.attention"):
+        h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
+        y, cache_layer = attn.gqa_chunk_attention(
+            bp.attn, h, cache_layer, slot, start, valid_len, cfg,
+            layout=layout, page_table=page_table, read_len=read_len)
     x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return x, cache_layer, overflow
 
@@ -543,7 +563,8 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
     if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError("chunked prefill requires gqa attention")
     collect = "metrics" in cache
-    x = L.embed(model.embed, tokens)
+    with layer("model.embed"):
+        x = L.embed(model.embed, tokens)
     new_layers, outs = [], []
     for bp, cl in zip(model.blocks, cache["layers"]):
         x, cl, of = chunk_block(bp, x, cl, slot, start, valid_len, cfg,
@@ -552,9 +573,10 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
                                 collect_stats=collect, dist=dist)
         new_layers.append(cl)
         outs.append(of)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = L.unembed(model.embed, x)
-    cache["pos"][slot] = start + valid_len
+    with layer("model.head"):
+        x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+        logits = L.unembed(model.embed, x)
+        cache["pos"][slot] = start + valid_len
     new = _with_step_stats(cache, {"layers": new_layers, "pos": cache["pos"]},
                            outs)
     return logits, new

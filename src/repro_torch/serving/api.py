@@ -31,7 +31,7 @@ from typing import (Deque, Dict, List, Optional, Protocol, Sequence, Tuple,
 import numpy as np
 
 from ..core.policy import SparsityPolicy
-from ..obs import MetricsSnapshot, SpanTracer
+from ..obs import MetricsSnapshot, SpanTracer, tracing
 
 
 @dataclasses.dataclass
@@ -182,12 +182,16 @@ class EngineBase:
         res.tokens.append(token)
 
     def step(self) -> bool:
-        """Advance the scheduler one iteration (traced + timed). A step
+        """Advance the scheduler one iteration (traced + timed). The
+        engine's tracer is the current one inside (``obs.tracing.layer``
+        spans of the scheduler, model and MoE code land in it). A step
         that made a warm-up call counts as compile time; all others
         accumulate into the steady-state step time."""
         n0 = len(self._warmed)
         t0 = time.perf_counter()
-        with self.tracer.span("step", engine=type(self).__name__):
+        self.tracer.resolve()
+        with tracing.active(self.tracer), \
+                self.tracer.span("step", engine=type(self).__name__):
             out = self._step()
         dt = time.perf_counter() - t0
         if len(self._warmed) > n0:

@@ -437,19 +437,26 @@ class SlotEngineBase(EngineBase):
         if token == st.gen.eos_token or st.n_emitted >= st.gen.max_new_tokens:
             self._retire(slot)
 
-    def _decode_call(self, **layout_kw):
+    def _decode_call(self, write_mask: bool = False, **layout_kw):
         """One batched decode step over every slot (inactive slots hold
-        their position). Returns (last logits (n_slots, vocab), greedy)."""
+        their position; with ``write_mask`` their KV writes are dropped
+        too). Returns (last logits (n_slots, vocab), greedy)."""
         self._warm("decode")
         cache = self._cache
-        active = torch.from_numpy(self._active).to(self.device)
+        with self.tracer.layer("scheduler.inputs"):
+            active = torch.from_numpy(self._active).to(self.device)
+            tokens = self._tokens(self._last)
+            policy = self._stacked_policy()
+        if write_mask:
+            layout_kw["write_mask"] = active
         with torch.no_grad():
             logits, new = transformer.decode_step(
-                self.model, self._tokens(self._last), cache, self.cfg,
-                policy=self._stacked_policy(), dist=self.dist, **layout_kw)
-        new["pos"] = torch.where(active, new["pos"], cache["pos"])
-        self._cache = new
-        return logits[:, -1], torch.argmax(logits[:, -1], dim=-1)
+                self.model, tokens, cache, self.cfg, policy=policy,
+                dist=self.dist, **layout_kw)
+        with self.tracer.layer("model.head"):
+            new["pos"] = torch.where(active, new["pos"], cache["pos"])
+            self._cache = new
+            return logits[:, -1], torch.argmax(logits[:, -1], dim=-1)
 
     def _decode_active(self, decoding, **layout_kw) -> None:
         """Decode one step and emit a token for every slot in
@@ -461,13 +468,15 @@ class SlotEngineBase(EngineBase):
                 if st.gen.temperature > 0:
                     toks[slot] = sample_token(logits[slot], st.gen, st.uid,
                                               st.n_emitted)
-            # the step's one read-back
-            toks = _host_view(self.dist, toks).cpu().numpy()
+            with self.tracer.layer("scheduler.readback"):
+                # the step's one read-back
+                toks = _host_view(self.dist, toks).cpu().numpy()
         self.decode_steps += 1
-        for slot in decoding:
-            tok = int(toks[slot])
-            self._last[slot, 0] = tok
-            self._emit(slot, tok)
+        with self.tracer.layer("scheduler.emit"):
+            for slot in decoding:
+                tok = int(toks[slot])
+                self._last[slot, 0] = tok
+                self._emit(slot, tok)
 
     def reset_stats(self):
         """Zero the scheduler statistics (after a warm-up run, say)."""
@@ -544,33 +553,44 @@ class ContinuousBatchingEngine(SlotEngineBase):
     def _has_work(self) -> bool:
         return bool(self._queue) or bool(self._active.any())
 
-    def _prefill_insert(self, tokens, valid_len: int, slot: int, policy):
-        """Prefill one right-padded prompt (after the frontend prefix, if
-        any) and insert its KV rows into ``slot``; the request's MoE stats
-        add into the engine's. Returns the first greedy token (a device
-        scalar)."""
+    def _prefill_insert(self, prompt: np.ndarray, slot: int,
+                        gen: GenerationConfig) -> int:
+        """Prefill one prompt, right-padded to ``max_prompt_len`` (after
+        the frontend prefix, if any), and insert its KV rows into
+        ``slot``; the request's MoE stats add into the engine's. Returns
+        the first greedy token (read back: the prefill's one sync)."""
         self._warm("prefill")
-        batch = {"tokens": tokens,
-                 **M.frontend_inputs(self.cfg, 1, self.device)}
+        valid_len = len(prompt)
+        with self.tracer.layer("scheduler.inputs"):
+            toks = np.full((1, self.max_prompt_len), self.pad_token,
+                           np.int32)
+            toks[0, :valid_len] = prompt
+            batch = {"tokens": self._tokens(toks),
+                     **M.frontend_inputs(self.cfg, 1, self.device)}
+            policy = self._request_policy(gen)
         with torch.no_grad():
             logits, small = transformer.prefill(
                 self.model, batch, self.cfg,
                 cache_len=self.context_len, policy=policy,
                 cache_dtype=self.cache_dtype, metrics=self.metrics_enabled,
                 dist=self.dist)
-        cache = self._cache
-        n = self.context_len                 # the slot's rows, sink row off
-        for big, sm in zip(cache["layers"], small["layers"]):
-            for key, rows in sm.items():     # {"k", "v"} or MLA's {"c", "kr"}
-                big[key][slot, :n] = rows[0]
-        cache["pos"][slot] = M.frontend_len(self.cfg) + valid_len
-        if "metrics" in cache and "metrics" in small:
-            cache["metrics"] = cache["metrics"] + small["metrics"]
-        elif "moe_overflow" in cache and "moe_overflow" in small:
-            cache["moe_overflow"] = cache["moe_overflow"] + \
-                small["moe_overflow"]
-        return _host_view(self.dist,
-                          torch.argmax(logits[0, valid_len - 1]).reshape(1))[0]
+        with self.tracer.layer("scheduler.insert"):
+            cache = self._cache
+            n = self.context_len             # the slot's rows, sink row off
+            for big, sm in zip(cache["layers"], small["layers"]):
+                for key, rows in sm.items():  # {"k", "v"} or MLA's {"c", "kr"}
+                    big[key][slot, :n] = rows[0]
+            cache["pos"][slot] = M.frontend_len(self.cfg) + valid_len
+            if "metrics" in cache and "metrics" in small:
+                cache["metrics"] = cache["metrics"] + small["metrics"]
+            elif "moe_overflow" in cache and "moe_overflow" in small:
+                cache["moe_overflow"] = cache["moe_overflow"] + \
+                    small["moe_overflow"]
+        with self.tracer.layer("model.head"):
+            first = _host_view(
+                self.dist, torch.argmax(logits[0, valid_len - 1]).reshape(1))
+        with self.tracer.layer("scheduler.readback"):
+            return int(first[0])
 
     def _admit(self) -> int:
         """Move queued requests into free slots (one prefill-insert each).
@@ -582,22 +602,21 @@ class ContinuousBatchingEngine(SlotEngineBase):
             if self._slots[slot] is not None:
                 continue
             uid, req = self._queue.popleft()
-            toks = np.full((1, self.max_prompt_len), self.pad_token,
-                           np.int32)
-            toks[0, :len(req.prompt)] = req.prompt
             if self._slot_pol is not None:
                 self._slot_pol.assign(slot, req.gen)
             t0 = time.perf_counter()
+            # positions: the prompt rows run, padding included
             with self.tracer.span("prefill_insert", uid=uid, slot=slot,
-                                  prompt_len=len(req.prompt)):
-                first = int(self._prefill_insert(
-                    self._tokens(toks), len(req.prompt), slot,
-                    self._request_policy(req.gen)))
+                                  prompt_len=len(req.prompt),
+                                  positions=self.max_prompt_len,
+                                  device_clock=self.device):
+                first = self._prefill_insert(req.prompt, slot, req.gen)
             self._results[uid].prefill_s = time.perf_counter() - t0
-            self._slots[slot] = _SlotState(uid=uid, gen=req.gen)
-            self._active[slot] = True
-            self._last[slot, 0] = first
-            self._emit(slot, first)
+            with self.tracer.layer("scheduler.emit"):
+                self._slots[slot] = _SlotState(uid=uid, gen=req.gen)
+                self._active[slot] = True
+                self._last[slot, 0] = first
+                self._emit(slot, first)
             admitted += 1
             self.n_admitted += 1
         self.max_concurrency = max(self.max_concurrency,
@@ -608,7 +627,8 @@ class ContinuousBatchingEngine(SlotEngineBase):
         """One scheduler iteration: admit waiting requests into free slots,
         then one batched decode step over all slots. Returns True while
         there is (or may be) work left."""
-        self._admit()
+        with self.tracer.layer("scheduler.admit"):
+            self._admit()
         if not self._active.any():
             return bool(self._queue)
         self._decode_active([s for s in range(self.n_slots)

@@ -269,18 +269,26 @@ class PagedEngine(SlotEngineBase):
 
     # -- prefill / decode ------------------------------------------------
 
-    def _chunk_insert(self, tokens, slot: int, start: int, valid: int,
-                      policy):
-        """One chunk of one slot's prompt; returns the greedy token after
-        its last valid row (a device scalar)."""
+    def _chunk_insert(self, chunk: np.ndarray, slot: int, start: int,
+                      gen: GenerationConfig):
+        """One chunk of one slot's prompt (``chunk``: its tokens, padded
+        here to ``chunk_size``); returns the greedy token after its last
+        valid row (a device scalar)."""
         self._warm("chunk")
+        valid = len(chunk)
+        with self.tracer.layer("scheduler.inputs"):
+            toks = np.full((1, self.chunk_size), self.pad_token, np.int32)
+            toks[0, :valid] = chunk
+            tokens = self._tokens(toks)
+            policy = self._request_policy(gen)
         with torch.no_grad():
             logits, self._cache = transformer.chunk_step(
                 self.model, tokens, slot, start, valid, self._cache,
                 self.cfg, layout=self._layout, page_table=self._pt_dev,
                 read_len=self.max_prompt_len, policy=policy, dist=self.dist)
-        return _host_view(self.dist,
-                          torch.argmax(logits[0, valid - 1]).reshape(1))[0]
+        with self.tracer.layer("model.head"):
+            return _host_view(
+                self.dist, torch.argmax(logits[0, valid - 1]).reshape(1))[0]
 
     def _advance_prefill(self) -> bool:
         """Advance ONE prefilling slot by ONE chunk. On the final chunk the
@@ -295,33 +303,37 @@ class PagedEngine(SlotEngineBase):
         plen = len(st.prompt)
         start = st.next_start
         valid = min(self.chunk_size, plen - start)
-        toks = np.full((1, self.chunk_size), self.pad_token, np.int32)
-        toks[0, :valid] = st.prompt[start:start + valid]
         t0 = time.perf_counter()
+        # positions: the chunk's rows run, padding included; device_s: the
+        # stream's time over the chunk, read once its end has passed
         with self.tracer.span("prefill_chunk", uid=st.uid, slot=slot,
-                              start=start, n_tokens=valid):
-            first = self._chunk_insert(self._tokens(toks), slot, start,
-                                       valid, self._request_policy(st.gen))
+                              start=start, n_tokens=valid,
+                              positions=self.chunk_size,
+                              device_clock=self.device):
+            first = self._chunk_insert(st.prompt[start:start + valid], slot,
+                                       start, st.gen)
         self.chunk_steps += 1
         self.prefill_tokens += valid
         st.next_start = start + valid
         if st.next_start < plen:
             self._results[st.uid].prefill_s += time.perf_counter() - t0
             return True
-        first = int(first)
+        with self.tracer.layer("scheduler.readback"):
+            first = int(first)
         self._results[st.uid].prefill_s += time.perf_counter() - t0
-        if self.prefix_cache:
-            ps = self.page_size
-            for h in range(1, plen // ps + 1):
-                self._alloc.register(
-                    self._prefix_key(st.prompt, h * ps, st.gen),
-                    int(self._page_table[slot, h - 1]))
-        st.prefilling = False
-        self._active[slot] = True
-        self._last[slot, 0] = first
-        self._emit(slot, first)
-        self.max_concurrency = max(self.max_concurrency,
-                                   int(self._active.sum()))
+        with self.tracer.layer("scheduler.emit"):
+            if self.prefix_cache:
+                ps = self.page_size
+                for h in range(1, plen // ps + 1):
+                    self._alloc.register(
+                        self._prefix_key(st.prompt, h * ps, st.gen),
+                        int(self._page_table[slot, h - 1]))
+            st.prefilling = False
+            self._active[slot] = True
+            self._last[slot, 0] = first
+            self._emit(slot, first)
+            self.max_concurrency = max(self.max_concurrency,
+                                       int(self._active.sum()))
         return True
 
     def _step(self) -> bool:
@@ -329,15 +341,15 @@ class PagedEngine(SlotEngineBase):
         advance one prefilling slot by one chunk, then one batched decode
         step over all slots (writes masked to the active ones). Returns
         True while work may remain."""
-        self._admit()
+        with self.tracer.layer("scheduler.admit"):
+            self._admit()
         self._advance_prefill()
         if not self._active.any():
             return self._has_work()
         self._decode_active(
             [s for s, st in enumerate(self._slots)
              if st is not None and not st.prefilling],
-            layout=self._layout, page_table=self._pt_dev,
-            write_mask=torch.from_numpy(self._active).to(self.device),
+            layout=self._layout, page_table=self._pt_dev, write_mask=True,
             read_len=self.context_len)
         return True
 
