@@ -16,10 +16,18 @@
    call into its launches and the wrapper's own ops. The ``_bf16`` cases
    run bf16 operands (the S-ETP wire type): decode and prefill at Qwen3
    widths and S-ETP's local seating on one rank of phase 11's world.
+   2c: the route plan (``moe_route_plan``: routing, 2T keep mask,
+   dispatch plan and obs counters of one MoE layer call) against its plain
+   version, the composed torch ops, on the card at the benchmark cells'
+   shapes (Qwen3 decode T=64 and chunk T=256, DBRX decode T=16 / 8 and
+   padded prefill T=2048, Qwen3 past capacity): everything but combine
+   equal, combine within 1e-6; device time per launch beside the byte
+   bound, and the plain version's time and launches.
 3. Serve: Qwen3-30B-A3B at full width (depth cut from 48 to 4 layers,
    seeded random weights) through ``ServingEngine`` under 2T-Drop: 8
    requests x 128-token prompts x 16 new tokens, greedy. Checks the result
-   and that every MoE layer went through the fused kernel.
+   and that every MoE layer went through the route plan and the fused
+   kernel.
 4. The same model through ``ContinuousBatchingEngine`` (8 slots, 16
    requests of 32-128 prompt tokens, mid-decode admission) on the fused
    kernel.
@@ -193,7 +201,8 @@ DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
 # accumulated in float64 (1.5e-6 to 4.5e-6 measured on the CPU)
 ORACLE_TOL = 5e-5
 N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
-KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk")
+KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk",
+           "moe_route_plan")
 # (d, E, P, f, top_k) of DBRX-132B's MoE layer, partitioned P=2
 DBRX_WIDTHS = (6144, 16, 2, 5376, 4)
 DBRX_LAYERS = 3         # depth cut of phase 9 (the model has 40)
@@ -250,6 +259,9 @@ def kernel_label(name: str) -> str:
     if tile:
         return (f"{tile.group(1)}_mma_kernel<{tile.group(2)}, "
                 f"{'buffer' if tile.group(3) == '1' else 'pipeline'}, bf16>")
+    tile = re.search(r"moe_route_kernelILi(\d+)E", name)
+    if tile:
+        return f"moe_route_kernel<{tile.group(1)} scores a lane>"
     kern = re.search(r"([a-z_]*kernel)", name)
     return kern.group(1) if kern else name[:60]
 
@@ -564,6 +576,10 @@ def launch_profile(fn, runs: int = 5) -> dict:
             key = "ssd_y"
         elif "ssd_states_kernel" in ev.key:
             key = "ssd_states"
+        elif "moe_route_kernel" in ev.key:
+            key = "route"
+        elif "moe_plan_kernel" in ev.key:
+            key = "plan"
         else:
             key = "wrapper_ops"
             wrapper_kernels += ev.count
@@ -1026,6 +1042,131 @@ def grouped_phase(dev):
     return results
 
 
+# the route plan at the benchmark cells' shapes: (label, experts, top-k,
+# tokens T, capacity; None: T, the engines' exact capacity)
+ROUTE_PLAN_CASES = (("qwen3_decode", 128, 8, 64, None),
+                    ("qwen3_chunk", 128, 8, 256, None),
+                    ("dbrx_decode", 16, 4, 16, None),
+                    ("dbrx_long_decode", 16, 4, 8, None),
+                    ("dbrx_prefill", 16, 4, 2048, None),
+                    ("qwen3_overflow", 128, 8, 256, 16))
+ROUTE_PLAN_FIELDS = ("idx", "modes", "group_offsets", "counts_full",
+                     "counts_major", "tok_sorted", "overflow", "kept_full",
+                     "kept_major", "dropped", "expert_load")
+
+
+def route_plan_bound(T: int, E: int, K: int, P: int, pad: int):
+    """(bound_ms, bytes): the logits read once and every output written
+    once (``route_plan._sizes``) at the HBM rate."""
+    from repro_torch.kernels import route_plan
+    nbytes = 4 * (T * E + sum(route_plan._sizes(T, E, K, P, pad)))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def _widest_gap(norm, q: float) -> float:
+    """A threshold near the ``q`` quantile of the scores, halfway across the
+    widest gap between distinct scores around it, so no score lies within
+    rounding of it."""
+    import torch
+    u = torch.unique(norm.reshape(-1))
+    n = u.numel()
+    lo, hi = int(max(q - 0.1, 0) * (n - 1)), int(min(q + 0.1, 1) * (n - 1))
+    i = lo + int(torch.argmax(u[lo + 1:hi + 1] - u[lo:hi]))
+    return float((u[i] + u[i + 1]) / 2)
+
+
+def route_plan_phase(dev):
+    """``moe_route_plan`` against its plain version (the composed torch ops,
+    run on the card) at the cells' shapes: Qwen3 (128 experts top-8) at
+    decode T=64 and chunk T=256, DBRX (16 top-4) at decode T=16 and T=8 and
+    padded prefill T=2048, and Qwen3 past capacity. Logits on a 1/512 grid
+    and thresholds at gaps between scores, so no score lies within
+    rounding of a threshold: idx, modes, the plan, the overflow and the
+    counters must be equal, combine (and combine x keep in sorted order)
+    within 1e-6 (its bits are reported).
+    Decode thresholds are per slot (T,), the others 0-d tensors, as the
+    engines pass them. Times: CUDA events over back-to-back calls, device
+    µs per launch and the host's enqueue from the profiler, beside the byte
+    bound; the plain version's time and its number of launches."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2707)
+    out = []
+    for label, E, K, T, cap in ROUTE_PLAN_CASES:
+        P = 2
+        capacity = T if cap is None else cap
+        pad = min(128, capacity)
+        logits = torch.randint(-1024, 1025, (T, E), generator=gen,
+                               device=dev).float() / 512
+        norm = torch.topk(torch.softmax(logits, -1), K).values
+        norm = norm / norm.sum(-1, keepdim=True)
+        tm, tn = _widest_gap(norm, 0.2), _widest_gap(norm, 0.3)
+        shape = (T,) if label.endswith("decode") else ()
+        th = (torch.full(shape, tm, device=dev),
+              torch.full(shape, tn, device=dev))
+        kw = dict(top_k=K, renorm=True, p_factor=P, capacity=capacity,
+                  pad=pad)
+
+        def kernel():
+            return ops.moe_route_plan(logits, *th, **kw)
+
+        def plain():
+            return ref.moe_route_plan_ref(logits, *th, **kw)
+        with torch.no_grad():
+            n0 = ops.moe_route_plan.launches
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            launches = ops.moe_route_plan.launches - n0
+            want = plain()
+            equal = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                     for f in ROUTE_PLAN_FIELDS}
+            stable = all(torch.equal(a, b) for a, b in zip(got, again))
+            # combine, and combine x keep in sorted order (zeros where
+            # dropped, exactly)
+            rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                      for a, b in ((got.combine, want.combine),
+                                   (got.combine_sorted, want.combine_sorted)))
+            equal["combine_sorted_zeros"] = bool(torch.equal(
+                got.combine_sorted == 0, want.combine_sorted == 0))
+            ms = cuda_ms(kernel, 50)
+            plain_ms = cuda_ms(plain, 20)
+            prof = launch_profile(kernel, runs=20)
+            plain_prof = launch_profile(plain, runs=5)
+        bound_ms, nbytes = route_plan_bound(T, E, K, P, pad)
+        dev_us = prof["device_us"]
+        res = dict(
+            case=label, T=T, E=E, K=K, capacity=capacity, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            bound_f32core_ms=None, bytes=nbytes,
+            device_us=dev_us.get("route", 0.0) + dev_us.get("plan", 0.0),
+            profile=prof, plain_launches=plain_prof["wrapper_kernels"],
+            plain_host_enqueue_us=plain_prof["host_enqueue_us"],
+            launches_per_call=launches / 2, equal=equal, bit_stable=stable,
+            combine_rel=rel,
+            combine_bitwise=bool(torch.equal(got.combine, want.combine)),
+            max_abs_err=float((got.combine - want.combine).abs().max()),
+            overflow=int(got.overflow), dropped=int(got.dropped))
+        out.append(res)
+        log(f"  {label} (E {E}, top-{K}, T {T}, C {capacity}): {ms:.4f} ms "
+            f"events, device µs route {dev_us.get('route', 0.0):.1f} + plan "
+            f"{dev_us.get('plan', 0.0):.1f}, other kernels "
+            f"{dev_us.get('wrapper_ops', 0.0):.1f} ({prof['wrapper_kernels']:.0f}); "
+            f"host enqueue {prof['host_enqueue_us']:.1f} µs; bound "
+            f"{bound_ms * 1e3:.2f} µs ({nbytes} bytes); plain {plain_ms:.3f} "
+            f"ms, {plain_prof['wrapper_kernels']:.0f} launches, host "
+            f"{plain_prof['host_enqueue_us']:.1f} µs; overflow "
+            f"{res['overflow']}, dropped {res['dropped']}; equal "
+            f"{all(equal.values())}, combine rel {rel:.2e} (bitwise "
+            f"{res['combine_bitwise']}), bit-stable {stable}")
+        if not all(equal.values()) or not stable or rel > 1e-6 or \
+                launches != 2:
+            raise AssertionError(f"moe_route_plan[{label}]: equal {equal}, "
+                                 f"bit-stable {stable}, combine rel {rel}, "
+                                 f"launches {launches} (expected 2)")
+    return out
+
+
 def layer0_hidden(model, cfg, tokens):
     """Layer 0's MoE input (B, S, d): the hidden states of ``tokens`` after
     layer 0's attention, as a prefill from position 0 computes them."""
@@ -1163,6 +1304,7 @@ def serve_phase(dev):
     wall = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["fused_moe_pipeline"]["launches"]
+    route_launches = counts["moe_route_plan"]["launches"]
     plain_calls = sum(c["plain_calls"] for c in counts.values())
 
     n_tok = sum(len(r.tokens) for r in results)
@@ -1182,7 +1324,7 @@ def serve_phase(dev):
         overflow_pairs=eng.overflow_pairs, kept_full=kept_f,
         kept_major=kept_m, dropped_pairs=dropped,
         drop_rate=dropped / max(total, 1), launches=launches,
-        plain_calls=plain_calls,
+        route_launches=route_launches, plain_calls=plain_calls,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"  served {B} requests x {S}-token prompts x {NEW} new tokens: "
         f"{n_tok} tokens in {wall:.3f}s ({serve['tok_per_s']:.1f} tok/s), "
@@ -1191,7 +1333,8 @@ def serve_phase(dev):
     log(f"  MoE sub-pairs: kept_full={kept_f} kept_major={kept_m} "
         f"dropped={dropped} (drop rate {serve['drop_rate']:.4f}) "
         f"overflow_pairs={serve['overflow_pairs']}; fused_moe_pipeline "
-        f"launches={launches}, plain-version calls={plain_calls}; peak "
+        f"launches={launches}, moe_route_plan launches={route_launches}, "
+        f"plain-version calls={plain_calls}; peak "
         f"memory {serve['peak_mem_gb']:.2f} GB")
 
     expected = cfg.n_layers * (1 + decode_steps)
@@ -1199,9 +1342,11 @@ def serve_phase(dev):
         raise AssertionError("a request did not return every token")
     if counts["grouped_swiglu"]["launches"] != 0:
         raise AssertionError("the fused route launched grouped_swiglu")
-    if launches != expected or plain_calls != 0:
+    if launches != expected or route_launches != expected or \
+            plain_calls != 0:
         raise AssertionError(f"fused_moe_pipeline launched {launches} times "
-                             f"(expected {expected}); plain version called "
+                             f"and moe_route_plan {route_launches} (each "
+                             f"expected {expected}); plain versions called "
                              f"{plain_calls} times (expected 0)")
 
     # the output is right: finite prefill logits of the right shape, and
@@ -1878,19 +2023,24 @@ def dbrx_phase(dev) -> dict:
         counts = read_counts()
         st = served_stats(eng, results, wall, counts, NEW)
         launches = counts["fused_moe_pipeline"]["launches"]
-        st["launches"] = launches
+        route_launches = counts["moe_route_plan"]["launches"]
+        st.update(launches=launches, route_launches=route_launches)
         log(f"  {name}: {st['tokens']} tokens in {wall:.3f}s "
             f"({st['tok_per_s']:.1f} tok/s), prefill {st['prefill_ms']:.2f} "
             f"ms, decode step {st['decode_step_ms']:.3f} ms (mean of "
             f"{NEW - 1}); drop rate {st['drop_rate']:.4f} (kept_full "
             f"{st['kept_full']}, kept_major {st['kept_major']}, dropped "
             f"{st['dropped']}), overflow_pairs {st['overflow_pairs']}; "
-            f"fused_moe_pipeline launches {launches}; peak memory "
+            f"fused_moe_pipeline launches {launches}, moe_route_plan "
+            f"{route_launches}; peak memory "
             f"{st['peak_mem_gb']:.2f} GB")
         expected = cfg.n_layers * NEW
+        # a 2T threshold pair takes the route plan; load_aware does not
+        route_expected = 0 if name == "load_aware" else expected
         if not all(len(r.tokens) == NEW for r in results):
             raise AssertionError("a request did not return every token")
-        if launches != expected or counts["grouped_swiglu"]["launches"] or \
+        if launches != expected or route_launches != route_expected or \
+                counts["grouped_swiglu"]["launches"] or \
                 any(c["plain_calls"] for c in counts.values()):
             raise AssertionError(f"dbrx {name}: fused launches {launches} "
                                  f"(expected {expected}), counts {counts}")
@@ -3649,7 +3799,7 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
     its bound and plain version, its row tiles, and the served MoE layer's
     time (routing, plan and kernel) with its launches counted."""
     import torch
-    from repro_torch.core import drop, moe
+    from repro_torch.core import drop, gating, moe
     from repro_torch.kernels import dualsparse_ffn, ops
     T = x.shape[0]
     with torch.no_grad():
@@ -3671,9 +3821,11 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
         ms = cuda_ms(lambda: ops.fused_moe_pipeline(x, **kw), 20)
 
         def layer_call():
-            return moe.moe_forward_dispatch(
-                rec, x, cfg, pairs=pol.route(rec, x, cfg), capacity=cap,
-                mode_grouped=True)
+            # the layer as served: the router GEMM, the route plan (at the
+            # policy's capacity factor, FIG10_CAPACITY) and the fused call
+            logits = gating.gate_logits(x, rec["wg"])
+            return moe.moe_forward_route_plan(rec, x, logits, cfg, pol,
+                                              pol.two_t_thresholds(rec))
         reset_counts()
         layer_call()
         torch.cuda.synchronize()
@@ -3709,6 +3861,7 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
         major_only_blocks=int((blocks - full_blocks).clamp(min=0).sum()),
         layer_ms=layer_ms, layer_launches=counts["fused_moe_pipeline"][
             "launches"],
+        layer_route_launches=counts["moe_route_plan"]["launches"],
         layer_plain_calls=sum(c["plain_calls"] for c in counts.values()))
 
 
@@ -3766,10 +3919,13 @@ def fig10_sweep(dev, cfg, rec) -> dict:
                                      f"the kernel disagrees with its plain "
                                      f"version (rel_err {p['rel_err']:.3e}, "
                                      f"bit_stable {p['bit_stable']})")
-            if p["layer_launches"] != 1 or p["layer_plain_calls"]:
+            if p["layer_launches"] != 1 or p["layer_route_launches"] != 1 \
+                    or p["layer_plain_calls"]:
                 raise AssertionError(f"phase 16 (b): the served layer "
-                                     f"launched {p['layer_launches']} times, "
-                                     f"plain calls {p['layer_plain_calls']}")
+                                     f"launched {p['layer_launches']} times "
+                                     f"and the route plan "
+                                     f"{p['layer_route_launches']}, plain "
+                                     f"calls {p['layer_plain_calls']}")
             if not p["tiles"]["matches_plan"]:
                 raise AssertionError("phase 16 (b): the kernel's row tiles "
                                      "differ from tile_plan")
@@ -3945,6 +4101,10 @@ def main() -> int:
     cases = kernel_phase(dev)
     log("phase 2b: grouped_swiglu against its plain version")
     grouped = grouped_phase(dev)
+    log(f"phase 2c: moe_route_plan against its plain version (bound = "
+        f"bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; equal but combine, "
+        f"combine rel <= 1e-6)")
+    route = route_plan_phase(dev)
     log("phase 3: serve Qwen3-30B-A3B (4 of 48 layers) under 2T-Drop")
     serve, (cfg, model, policy, calib) = serve_phase(dev)
     log(f"phase 4: continuous batching ({SLOTS} slots, {N_REQ} requests, "
@@ -4020,6 +4180,7 @@ def main() -> int:
     with open(out_dir / "chip_smoke.json", "w") as fh:
         json.dump({"device": smi, "torch": torch.__version__,
                    "kernel_cases": cases, "grouped_cases": grouped,
+                   "route_plan_cases": route,
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
@@ -4067,11 +4228,28 @@ def main() -> int:
     fused["dbrx_prefill"] = {k: wide[k] for k in (
         "T", "capacity", "ms", "plain_ms", "bound_ms", "bound_by",
         "bound_f32core_ms", "max_abs_err", "rel_err")}
+    # launches of the same served phases, but load_aware (no 2T pair)
+    route_launches = (serve["route_launches"]
+                      + cont["counts"]["moe_route_plan"]["launches"]
+                      + paged["fused_route"]["counts"]["moe_route_plan"][
+                          "launches"]
+                      + sum(dbrx[p]["route_launches"]
+                            for p in ("2t", "per_layer"))
+                      + sum(p["layer_route_launches"]
+                            for pts in paper["fig10"].values() for p in pts)
+                      + sum(r["counts"]["moe_route_plan"]["launches"]
+                            for r in paper["examples"].values()))
+    route_line = kernel_entry("moe_route_plan", None, route, "qwen3_decode",
+                              route_launches,
+                              at="Qwen3 decode T=64 (128 experts top-8, 64 "
+                                 "slots); launches of phases 3, 4, 5 (fused "
+                                 "route), 9 (2t, per_layer) and 16, beside "
+                                 f"fused_moe_pipeline's {fused_launches}")
     ep_ranks = ep["ranks"]
     log("fig10 " + json.dumps(paper["fig10_summary"]))
     log(smi.splitlines()[0])          # the card's line, again beside the result
     print(json.dumps({"kernels": [
-        fused,
+        fused, route_line,
         kernel_entry("fused_moe_pipeline[bf16]",
                      "src/repro/kernels/dualsparse_ffn.py:498", cases,
                      "setp_prefill_bf16",

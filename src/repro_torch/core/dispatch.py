@@ -212,6 +212,15 @@ def prefer_fused_pipeline(n_tokens: int, n_groups: int, *,
     return use_kernel
 
 
+def prefer_route_plan(device) -> bool:
+    """Should a 2T layer call on the fused pipeline take its routing, keep
+    mask and plan from ``kernels.ops.moe_route_plan`` (one launch pair)
+    instead of the composed torch ops (~100 launches)? On a CUDA device;
+    on the CPU the composed ops run as before (the plain version composes
+    the same ops)."""
+    return torch.device(device).type == "cuda"
+
+
 # ---------------------------------------------------------------------------
 # Mode helpers: original-expert ("fused") grouping for the fused kernel
 # ---------------------------------------------------------------------------

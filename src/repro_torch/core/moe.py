@@ -227,6 +227,67 @@ def _fused_pipeline_dispatch(params: Dict, x, cfg, pairs: SubExpertPairs,
     return y, overflow
 
 
+def route_plan_thresholds(policy, params: Dict, x):
+    """The (T²_major, T²_minor) pair that ``kernels.ops.moe_route_plan``
+    takes for this layer call in place of ``policy.route``, or None where
+    the call keeps the composed route: it needs the fused pipeline (as
+    ``moe_forward_dispatch`` resolves it), the original-expert layout
+    (P > 1), a policy whose keep rule is a 2T threshold pair, and
+    ``dispatch.prefer_route_plan``'s device."""
+    fused = policy.fused_pipeline
+    if fused is None:
+        fused = dispatch_mod.prefer_fused_pipeline(
+            x.shape[0], params["w1"].shape[0], use_kernel=policy.use_kernel,
+            device=x.device)
+    if not (fused and policy.kernel_mode_grouping
+            and dispatch_mod.prefer_route_plan(x.device)):
+        return None
+    return policy.two_t_thresholds(params)
+
+
+def moe_forward_route_plan(params: Dict, x, logits, cfg, policy,
+                           thresholds, *, collect: bool = False,
+                           block_c: int = 128, block_f: int = 128):
+    """The fused pipeline's forward with routing, keep mask, plan and obs
+    counters from ``kernels.ops.moe_route_plan``: the same capacity,
+    arguments and outputs as ``moe_forward_dispatch(..., mode_grouped=
+    True, return_overflow=True)`` on ``policy.route``'s pairs, and the
+    stats dict ``_moe_forward`` collects. ``logits``: the router's (T, E)
+    float32 logits of ``x`` (T, d). Returns ``(y, overflow)``, or ``(y,
+    stats)`` under ``collect``."""
+    from ..kernels import ops as kops
+    T = x.shape[0]
+    p = policy.partition_p
+    capacity = policy.dispatch_capacity(T)
+    if capacity is None:
+        capacity = capacity_for(T, cfg.top_k * p, params["w1"].shape[0],
+                                policy.capacity_factor)
+    with layer("moe.plan"):
+        plan = kops.moe_route_plan(
+            logits, *thresholds, top_k=cfg.top_k,
+            renorm=cfg.router_norm_topk, p_factor=p, capacity=capacity,
+            pad=min(block_c, capacity))
+    with layer("moe.kernel"):
+        y = kops.fused_moe_pipeline(
+            x, w1=params["w1"], w3=params["w3"], w2=params["w2"],
+            group_offsets=plan.group_offsets, counts_full=plan.counts_full,
+            counts_major=plan.counts_major, tok_sorted=plan.tok_sorted,
+            combine_sorted=plan.combine_sorted, capacity=capacity,
+            p_factor=p, n_minor_start=None, block_c=block_c,
+            block_f=block_f, streamed=True)
+    out = y.to(x.dtype)
+    if "shared" in params:
+        out = out + _shared_out(params, x)
+    if not collect:
+        return out, plan.overflow
+    with layer("moe.stats"):
+        stats = {"expert_load": plan.expert_load,
+                 "kept_full": plan.kept_full, "kept_major": plan.kept_major,
+                 "dropped_pairs": plan.dropped,
+                 "overflow_pairs": plan.overflow}
+    return out, stats
+
+
 def grouped_swiglu_args(params: Dict, x, pairs: SubExpertPairs, p: int,
                         capacity: int, mode_grouped: bool):
     """The buffer path's arguments of ``kernels.ops.grouped_swiglu``, and

@@ -152,6 +152,13 @@ class SparsityPolicy:
         layer's (2,) calibrated pair when its params carry one."""
         raise NotImplementedError
 
+    def two_t_thresholds(self, params: Dict) -> Optional[Tuple]:
+        """The layer's (T²_major, T²_minor) when the keep rule is a 2T
+        threshold pair on the normalized scores (scalars, per-token (T,)
+        or per-pair (T, K)), else None. ``kernels.ops.moe_route_plan``
+        takes the pair in place of ``route``."""
+        return None
+
     # -- helpers ---------------------------------------------------------
 
     def per_token(self, batch: int, seq: int) -> "SparsityPolicy":
@@ -235,6 +242,9 @@ class TwoTDrop(SparsityPolicy):
         return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, self.t_major,
                                         self.t_minor)
+
+    def two_t_thresholds(self, params):
+        return self.t_major, self.t_minor
 
     def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
                       loads=None, thresholds=None):
@@ -363,6 +373,9 @@ class PerLayerCalibrated2T(SparsityPolicy):
         r = gating.route(x, params["wg"], cfg.top_k, cfg.router_norm_topk)
         return drop_mod.expand_pairs_2t(r.idx, r.combine, r.norm_score,
                                         self.partition_p, tm, tn)
+
+    def two_t_thresholds(self, params):
+        return self._layer_thresholds(params.get("thresholds"))
 
     def sub_pair_keep(self, score, is_major, sub_idx, cfg, *, n_dev=1,
                       loads=None, thresholds=None):

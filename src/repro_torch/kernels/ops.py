@@ -18,14 +18,15 @@ from __future__ import annotations
 
 import torch
 
-from . import dualsparse_ffn, ref, ssd_chunk as ssd_chunk_kernel
+from . import dualsparse_ffn, ref, route_plan, ssd_chunk as ssd_chunk_kernel
 
 __all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref",
-           "grouped_swiglu", "grouped_swiglu_ref", "ssd_chunk",
-           "ssd_chunk_ref"]
+           "grouped_swiglu", "grouped_swiglu_ref", "moe_route_plan",
+           "moe_route_plan_ref", "ssd_chunk", "ssd_chunk_ref"]
 
 fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
 grouped_swiglu_ref = ref.grouped_swiglu_ref
+moe_route_plan_ref = ref.moe_route_plan_ref
 ssd_chunk_ref = ref.ssd_chunk_ref
 
 
@@ -223,6 +224,68 @@ def grouped_swiglu(x, w1, w3, w2, counts_full=None, counts_major=None,
 
 grouped_swiglu.launches = 0
 grouped_swiglu.launches_bf16 = 0
+
+
+def _check_route_plan_inputs(logits, t_major, t_minor, top_k: int,
+                             p_factor: int, capacity: int, pad: int):
+    named = dict(logits=logits, **{
+        name: t for name, t in (("t_major", t_major), ("t_minor", t_minor))
+        if isinstance(t, torch.Tensor)})
+    _check_no_grad("moe_route_plan", named)
+    _check_devices_and_layout("moe_route_plan", dict(logits=logits),
+                              logits.device)
+    _check_dtypes("moe_route_plan", named, ("logits",), ())
+    if logits.ndim != 2:
+        raise ValueError("moe_route_plan: logits must be (T, E)")
+    E = logits.shape[1]
+    if not 1 <= E <= route_plan.MAX_EXPERTS:
+        raise ValueError(f"moe_route_plan: {E} experts; the kernel takes "
+                         f"1 to {route_plan.MAX_EXPERTS}")
+    if not 1 <= top_k <= min(E, route_plan.MAX_TOP_K):
+        raise ValueError(f"moe_route_plan: top_k {top_k} must lie in "
+                         f"[1, min(E, {route_plan.MAX_TOP_K})]")
+    if p_factor < 2:
+        raise ValueError("moe_route_plan: the plan is over original "
+                         "experts with FULL and MAJOR-only rows, which "
+                         "needs p_factor >= 2")
+    if capacity < 1 or pad < 0:
+        raise ValueError("moe_route_plan: capacity must be >= 1 and pad "
+                         ">= 0")
+
+
+def moe_route_plan(logits, t_major, t_minor, *, top_k: int, renorm: bool,
+                   p_factor: int, capacity: int, pad: int):
+    """Routing, 2T-Drop keep mask and the fused pipeline's dispatch plan of
+    one MoE layer call, from its router logits.
+
+    logits: (T, E) float32; ``t_major`` / ``t_minor``: numbers or float32
+    tensors, scalar, per-token (T,) or per-pair (T, K); ``p_factor`` >= 2
+    sub-experts per expert; ``capacity`` rows per expert; ``pad`` trailing
+    (row 0, weight 0) positions after the T*K sorted pairs (``block_c`` of
+    the fused call, at most ``capacity``). Returns a
+    ``route_plan.RoutePlan``: what ``gating.top_k_routing``,
+    ``drop.expand_pairs_2t``, ``core.moe.fused_pipeline_args``'s grouped
+    layout, ``drop.sub_pair_outcome_counts`` and ``gating.expert_histogram``
+    give (``ref.moe_route_plan_ref``). On the card the plan, the overflow
+    and the counters are exact functions of ``idx`` and ``modes``;
+    ``combine`` may differ from ``torch.softmax``'s by a few ulps."""
+    _check_route_plan_inputs(logits, t_major, t_minor, top_k, p_factor,
+                             capacity, pad)
+    if logits.device.type == "cpu":
+        return ref.moe_route_plan_ref(
+            logits, t_major, t_minor, top_k=top_k, renorm=renorm,
+            p_factor=p_factor, capacity=capacity, pad=pad)
+    if logits.device.type != "cuda":
+        raise ValueError(f"moe_route_plan: no kernel for device "
+                         f"{logits.device}")
+    out = route_plan.launch_moe_route_plan(
+        logits, t_major, t_minor, top_k=top_k, renorm=renorm,
+        p_factor=p_factor, capacity=capacity, pad=pad)
+    moe_route_plan.launches += 1
+    return out
+
+
+moe_route_plan.launches = 0
 
 
 def _check_ssd_inputs(x, dt, a, bm, cm):

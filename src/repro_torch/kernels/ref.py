@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .dualsparse_ffn import combine_order, resolve_n_major
+from .route_plan import RoutePlan
 
 
 def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
@@ -176,3 +177,42 @@ def ssd_chunk_ref(x, dt, a, bm, cm):
 
 
 ssd_chunk_ref.calls = 0
+
+
+def moe_route_plan_ref(logits, t_major, t_minor, *, top_k: int,
+                       renorm: bool, p_factor: int, capacity: int,
+                       pad: int) -> RoutePlan:
+    """The routing, keep mask, plan and counters of one MoE layer call as
+    the composed torch ops give them: ``gating.top_k_routing``,
+    ``drop.expand_pairs_2t``, the grouped layout of
+    ``core.moe.fused_pipeline_args`` (``fuse_sub_pairs``, ``sort_dispatch``,
+    ``sorted_pair_arrays`` padded by ``pad``, ``kernel_counts``, the
+    sub-pair overflow), ``drop.sub_pair_outcome_counts`` and
+    ``gating.expert_histogram`` over sub-expert ids."""
+    from ..core import dispatch, drop, gating
+    from ..core.moe import _sub_pair_overflow
+    moe_route_plan_ref.calls += 1
+    E = logits.shape[1]
+    r = gating.top_k_routing(logits, top_k, renorm)
+    pairs = drop.expand_pairs_2t(r.idx, r.combine, r.norm_score, p_factor,
+                                 t_major, t_minor)
+    fused = dispatch.fuse_sub_pairs(pairs, p_factor)
+    plan = dispatch.sort_dispatch(fused.group, fused.keep, n_groups=E,
+                                  capacity=capacity,
+                                  major_only=fused.major_only)
+    w = fused.combine * fused.keep.to(fused.combine.dtype)
+    tok_sorted, w_sorted = dispatch.sorted_pair_arrays(
+        plan, w, index_div=top_k, pad=pad)
+    cf, cm = plan.kernel_counts(capacity)
+    kf, km, dr = drop.sub_pair_outcome_counts(pairs.keep, p_factor)
+    return RoutePlan(
+        idx=r.idx, modes=pairs.modes, combine=r.combine,
+        group_offsets=plan.group_offsets, counts_full=cf, counts_major=cm,
+        tok_sorted=tok_sorted, combine_sorted=w_sorted,
+        overflow=_sub_pair_overflow(plan, pairs, fused, capacity),
+        kept_full=kf, kept_major=km, dropped=dr,
+        expert_load=gating.expert_histogram(pairs.idx, E * p_factor,
+                                            keep=pairs.keep))
+
+
+moe_route_plan_ref.calls = 0

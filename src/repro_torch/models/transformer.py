@@ -152,7 +152,9 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
     same ``y``. On the S-ETP path overflow and stats are summed over the
     mesh. ``kernels=False`` takes the differentiable route the reference
     trains through: the buffer path with the ``expert_ffn`` einsum, on the
-    S-ETP path too (its local seating)."""
+    S-ETP path too (its local seating). A 2T policy on the fused pipeline
+    on a CUDA device takes its routing, keep mask, plan and counters from
+    one kernel (``core.moe.moe_forward_route_plan``)."""
     B, S, d = x.shape
     params = moe.weights()
     aux_val = moe_mod.aux_loss_for(params, x.reshape(-1, d), cfg) \
@@ -168,7 +170,16 @@ def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
     with layer("moe.route"):
         # per-request (B,) thresholds -> per-token over the (B*S, d) block
         policy = _policy_of(policy).per_token(B, S)
-        pairs = policy.route(params, xt, cfg)
+        thresholds = (moe_mod.route_plan_thresholds(policy, params, xt)
+                      if kernels else None)
+        if thresholds is None:
+            pairs = policy.route(params, xt, cfg)
+        else:
+            logits = gating.gate_logits(xt, params["wg"])
+    if thresholds is not None:
+        y, out = moe_mod.moe_forward_route_plan(
+            params, xt, logits, cfg, policy, thresholds, collect=collect)
+        return y.reshape(B, S, d), aux_val, out
     y, overflow = moe_mod.moe_forward_dispatch(
         params, xt, cfg, pairs=pairs, capacity_factor=policy.capacity_factor,
         capacity=policy.dispatch_capacity(xt.shape[0]),
