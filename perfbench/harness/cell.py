@@ -1,7 +1,8 @@
-"""One run of one cell: set-up (the model made from the seed, the 2T
-preparation, every step shape warmed), the measured window, the metrics,
-then — the window closed, the peak memory read and the program freed —
-the comparison with the plain reference.
+"""One run of one cell: set-up (the model made from the seed, the
+preparation under the configuration's policy, every step shape warmed),
+the measured window, the metrics, then — the window closed, the peak
+memory read and the program freed — the comparison with the plain
+reference.
 
 With ``trace`` the last part of the window runs under ``torch.profiler``;
 the readings that come from the host clock, the spans and the counters
@@ -141,15 +142,17 @@ class Program:
 
 def setup(cell: spec.Cell, seed: int, device, t_start: float,
           log: Callable[[str], None] = lambda s: None) -> Program:
-    """The model made from the seed, the 2T preparation and every step
-    shape the mix uses warmed, through a first engine that is then
-    dropped."""
+    """The model made from the seed, the preparation under the file's
+    policy (2T, or none for keep-all) and every step shape the mix uses
+    warmed, through a first engine that is then dropped."""
     conf, mix = cell.config, cell.traffic
     dims, serving = conf["dims"], conf["serving"]
     set_precision()
     cfg = program.port_config(conf)
     model = program.build_model(cfg, dims, seed, device)
-    calib = W.calibration(dims, serving["calibration_tokens"], seed, device)
+    # calibration activations for a policy that profiles and calibrates
+    calib = W.calibration(dims, serving["calibration_tokens"], seed,
+                          device) if "calibration_tokens" in serving else None
     policy = program.prepare(model, cfg, serving, calib)
     del calib
     warm = program.make_engine(cfg, model, policy, mix["engine"], device)

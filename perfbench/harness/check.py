@@ -2,9 +2,10 @@
 seed, of the requests the window finished (the one with the most output
 tokens always in it) is run through the plain reference, teacher-forced
 on each prompt and its served tokens, and at every served position the
-served token's logit is held against the reference's best. The number
-compared is the mean of that gap over the positions (the widest is
-reported too: it is set by single routing decisions that a rounding
+served token's logit is held against the reference's best. A cell's limits file names the numbers it compares
+(``COMPARED``): the mean of that gap over the positions, or the share of
+positions whose served token is not the reference's best (the widest gap
+is reported too: it is set by single routing decisions that a rounding
 flips, and swings from seed to seed). Positions where the reference's
 routing was within rounding of a threshold or of the top-k boundary are
 left out (their count is reported)."""
@@ -27,6 +28,9 @@ LOGIT_BLOCK = 512
 # Positions with such a decision in any layer are left out.
 AMBIG_ABS = 1e-5
 AMBIG_REL = 1e-4
+# the readings a cell's limits file may set a limit on, in the order the
+# verdict gives them
+COMPARED = ("mean_logit_gap", "mismatch_share")
 
 
 def ambiguous(margins: torch.Tensor) -> torch.Tensor:
@@ -88,7 +92,7 @@ def compare(reference_cls, dims: Dict, serving: Dict, seed: int, device,
     compared and left out."""
     if not picks:
         return {"max_logit_gap": float("nan"), "mean_logit_gap": float("nan"),
-                "compared": 0, "excluded": 0}
+                "mismatch_share": float("nan"), "compared": 0, "excluded": 0}
     seqs, n_float, pos, targets = reference_inputs(picks, engine_kind)
     ref = reference_cls(dims, serving, seed, device)
     with torch.no_grad():
@@ -133,17 +137,18 @@ def control(reference_cls, dims: Dict, serving: Dict, seed: int, device,
 
 def verdict(readings: Dict[str, float], failed: int,
             limits: Dict) -> Dict[str, Dict[str, float]]:
-    """Each number compared beside its limit, and whether it holds."""
-    gap = readings["mean_logit_gap"]
-    out = {
-        "mean_logit_gap": {"value": gap,
-                           "limit": limits["mean_logit_gap"]["limit"],
-                           "ok": bool(gap == gap and gap <=
-                                      limits["mean_logit_gap"]["limit"])},
-        "positions_compared": {"value": readings["compared"],
-                               "limit": limits["min_compared"]["limit"],
-                               "ok": readings["compared"] >=
-                               limits["min_compared"]["limit"]},
-        "failed_requests": {"value": failed, "limit": 0, "ok": failed == 0},
-    }
+    """Each number compared beside its limit, and whether it holds: the
+    ``COMPARED`` readings the cell's limits name, the positions compared
+    and the failed requests."""
+    out = {}
+    for key in COMPARED:
+        if key in limits:
+            v, limit = readings[key], limits[key]["limit"]
+            out[key] = {"value": v, "limit": limit,
+                        "ok": bool(v == v and v <= limit)}
+    out["positions_compared"] = {
+        "value": readings["compared"],
+        "limit": limits["min_compared"]["limit"],
+        "ok": readings["compared"] >= limits["min_compared"]["limit"]}
+    out["failed_requests"] = {"value": failed, "limit": 0, "ok": failed == 0}
     return out

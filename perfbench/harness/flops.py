@@ -9,6 +9,8 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 
+from . import weights as W
+
 PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
 
 
@@ -62,18 +64,45 @@ def fused_roofline_pct(calls: Iterable, kernel_s: float) -> Optional[float]:
     return 100.0 * total / kernel_s
 
 
+def attention_flops(dims: Dict, ctx: float):
+    """(projections, core) FLOPs of one position in one attention layer
+    attending ``ctx`` keys. GQA: q, k, v and out projections, QK^T and PV
+    over ``ctx``. MLA as published, not absorbed: the query (with or
+    without its LoRA), the latent and rope key, the latent's decompression
+    into every head's key and value, the out projection; QK^T at nope +
+    rope and PV at v over ``ctx``."""
+    d, h = dims["d_model"], dims["n_heads"]
+    if W.layer_kind(dims, "attn_kind") == "gqa":
+        D, hkv = dims["head_dim"], dims["n_kv_heads"]
+        return (2 * d * (h * D + 2 * hkv * D) + 2 * h * D * d,
+                4 * h * D * ctx)
+    rq, rkv, dn, dr, dv = (W.layer_kind(dims, k) for k in (
+        "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+        "qk_rope_head_dim", "v_head_dim"))
+    qk = dn + dr
+    q = 2 * d * rq + 2 * rq * h * qk if rq else 2 * d * h * qk
+    proj = q + 2 * d * (rkv + dr) + 2 * rkv * h * (dn + dv) + 2 * h * dv * d
+    return proj, 2 * h * qk * ctx + 2 * h * dv * ctx
+
+
 def position_flops(dims: Dict, ctx: float, keep_share: float) -> float:
     """Model FLOPs of one position through every layer, attending ``ctx``
-    keys, with ``keep_share`` of its expert sub-pairs kept (the head is
-    counted apart)."""
-    d, D = dims["d_model"], dims["head_dim"]
-    hq, hkv = dims["n_heads"], dims["n_kv_heads"]
-    proj = 2 * d * (hq * D + 2 * hkv * D) + 2 * hq * D * d
-    core = 4 * hq * D * ctx
+    keys, with ``keep_share`` of its routed expert sub-pairs kept (the
+    head is counted apart): each layer's attention (``attention_flops``)
+    and feed-forward: a dense layer's SwiGLU of ``d_ff``, or the router,
+    the kept share of the routed experts and the shared experts, which
+    are never dropped."""
+    d, n_dense = dims["d_model"], W.layer_kind(dims, "first_k_dense")
+    proj, core = attention_flops(dims, ctx)
     router = 2 * d * dims["n_experts"]
     sub = dims["d_expert"] // 2
     experts = dims["top_k"] * 2 * keep_share * swiglu_flops(1, d, sub)
-    return dims["n_layers"] * (proj + core + router + experts)
+    shared = swiglu_flops(
+        1, d, W.layer_kind(dims, "n_shared_experts") * dims["d_expert"])
+    dense = swiglu_flops(1, d, W.layer_kind(dims, "d_ff"))
+    return (dims["n_layers"] - n_dense) * (
+        proj + core + router + experts + shared) + \
+        n_dense * (proj + core + dense)
 
 
 def head_flops(dims: Dict) -> float:
@@ -83,10 +112,12 @@ def head_flops(dims: Dict) -> float:
 def mfu_pct(run) -> Optional[float]:
     """Model FLOPs the window's served tokens needed, over its seconds,
     over the TF32 peak. Counted: every prompt position prefilled and every
-    decode position through the projections, attention at the position's
-    context, the router and the kept share of its expert sub-pairs (the
-    engine's counters; their padding rows set the share but add no
-    positions), and the head at each position that yielded a token.
+    decode position through every layer at the position's context
+    (``position_flops``: attention by its kind, a dense layer's SwiGLU, or
+    the router, the kept share of the routed expert sub-pairs and the
+    shared experts; the share from the engine's counters, whose padding
+    rows set it but add no positions), and the head at each position that
+    yielded a token.
     Prompt positions come from the paged engine's ``prefill_tokens``
     counter, each at the mean context of the prompts' positions (their
     exact positions depend on prefix hits), or from the continuous

@@ -13,15 +13,23 @@ from typing import Dict, List
 
 import torch
 
+from . import spec
 from . import weights as W
 
-_ATTN = ("wq", "wk", "wv", "wo")
+_ATTN = ("wq", "wk", "wv", "wo", "wq_a", "q_norm", "wq_b", "wkv_a",
+         "kv_norm", "wk_b", "wv_b")
 # the sizes in a configuration file's ``dims`` that the program's config
-# must hold too (others, such as ``clip_qkv``, are the reference's alone)
+# must hold too, where the file gives them (others, such as
+# ``first_k_dense``, which the program has no field for, are the
+# harness's and the reference's alone)
 PORT_DIMS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
              "n_experts", "top_k", "d_expert", "vocab_size", "rope_theta",
-             "norm_eps")
+             "norm_eps", "attn_kind", "q_lora_rank", "kv_lora_rank",
+             "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
+             "n_shared_experts", "d_ff", "router_norm_topk")
 _MOE = ("wg", "w1", "w3", "w2")
+# leaf prefix -> the program's submodule of the block that holds it
+_SUB = {"shared_": "moe.shared", "mlp_": "mlp"}
 
 
 def port_param_name(name: str) -> str:
@@ -37,68 +45,78 @@ def port_param_name(name: str) -> str:
         return f"blocks.{i}.attn.{leaf}"
     if leaf in _MOE:
         return f"blocks.{i}.moe.{leaf}"
+    for prefix, sub in _SUB.items():
+        if leaf.startswith(prefix):
+            return f"blocks.{i}.{sub}.{leaf[len(prefix):]}"
     return f"blocks.{i}.{leaf}"
 
 
 def port_config(conf: Dict):
     """The program's ``ModelConfig``: its registry entry with the file's
-    sizes put in. Refuses an architecture the reference does not
-    cover."""
+    sizes put in. Refuses, before any weight is made, an architecture or
+    policy the configuration's reference does not cover
+    (``spec.uncovered``)."""
     from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
     cfg = dataclasses.replace(get_config(conf["port"]["arch"]),
                               **conf["port"]["fields"])
-    serving = conf["serving"]
-    want = dict(family="moe", attn_kind="gqa", qkv_bias=False,
-                n_shared_experts=0, mlp_kind="swiglu", frontend="",
-                tie_embeddings=False, router_norm_topk=True)
-    for key, value in want.items():
-        if getattr(cfg, key) != value:
-            raise ValueError(f"{cfg.arch_id}: {key} is {getattr(cfg, key)!r}"
-                             f", the reference covers {value!r}")
-    ds = cfg.dualsparse
-    if (ds.partition_p, ds.importance) != (serving["partition_p"],
-                                           serving["importance"]):
+    dims, serving = conf["dims"], conf["serving"]
+    missing = spec.uncovered(spec.reference_module(conf), dims, serving, cfg)
+    if missing:
+        raise ValueError(f"{cfg.arch_id}: " + "; ".join(missing))
+    # the partition the program's policy prepares (P = 1: none)
+    policy = make_policy(serving["policy"], cfg.dualsparse)
+    p = serving.get("partition_p", 1)
+    if policy.partition_p != p or (p > 1 and policy.importance !=
+                                   serving["importance"]):
         raise ValueError(f"{cfg.arch_id}: the program prepares P="
-                         f"{ds.partition_p} by {ds.importance}, the file "
-                         f"says P={serving['partition_p']} by "
-                         f"{serving['importance']}")
+                         f"{policy.partition_p} by {policy.importance}, the "
+                         f"file says P={p} by {serving.get('importance')}")
     for key in PORT_DIMS:
+        if key not in dims:
+            continue
         have = cfg.resolved_head_dim if key == "head_dim" else \
             getattr(cfg, key)
-        value = conf["dims"][key]
-        if have != value:
+        if have != dims[key]:
             raise ValueError(f"{cfg.arch_id}: {key} is {have}, the file "
-                             f"says {value}")
+                             f"says {dims[key]}")
     return cfg
 
 
 def build_model(cfg, dims: Dict, seed: int, device):
     """The program's model, allocated by the program and filled with the
-    benchmark's seeded leaves."""
+    benchmark's seeded leaves. Every leaf's place and shape in the
+    program, and every parameter's leaf, is checked before a weight is
+    made."""
     from repro_torch.models import model as M
     model = M.empty_model(cfg, device=device)
     named = dict(model.named_parameters())
-    filled = set()
-    with torch.no_grad():
-        for name, shape, kind in W.leaves(dims):
-            p = named[port_param_name(name)]
-            if tuple(p.shape) != tuple(shape):
-                raise ValueError(f"{name}: the program holds {tuple(p.shape)}"
-                                 f", the benchmark makes {tuple(shape)}")
-            p.copy_(W.make_leaf(name, shape, kind, seed, device))
-            filled.add(port_param_name(name))
-    left = sorted(set(named) - filled)
+    todo = []
+    for name, shape, kind in W.leaves(dims):
+        pname = port_param_name(name)
+        if pname not in named:
+            raise ValueError(f"{name}: the program holds no {pname}")
+        if tuple(named[pname].shape) != tuple(shape):
+            raise ValueError(f"{name}: the program holds "
+                             f"{tuple(named[pname].shape)}, the benchmark "
+                             f"makes {tuple(shape)}")
+        todo.append((pname, name, shape, kind))
+    left = sorted(set(named) - {t[0] for t in todo})
     if left:
         raise ValueError(f"parameters the benchmark does not make: {left}")
+    with torch.no_grad():
+        for pname, name, shape, kind in todo:
+            named[pname].copy_(W.make_leaf(name, shape, kind, seed, device))
     return model
 
 
 def prepare(model, cfg, serving: Dict, calib):
-    """The port's 2T preparation (partition, neuron reordering, thresholds
-    calibrated to the drop target); returns the calibrated policy."""
+    """The port's preparation under the file's policy (2T: partition,
+    neuron reordering, thresholds calibrated to the drop target; none:
+    nothing); returns the calibrated policy."""
     from repro_torch.core.policy import make_policy
     policy = make_policy(serving["policy"], cfg.dualsparse,
-                         drop_target=serving["drop_target"])
+                         drop_target=serving.get("drop_target"))
     _, policy = policy.prepare(model, cfg, calib)
     return policy
 

@@ -3,8 +3,9 @@ configuration file, its traffic mix (``traffic/<name>.json``), its
 correctness limits (``limits/<workload>.json``), the reader of each of
 its metrics (``metrics/<metric>.py``, or ``metrics/<base>.py`` for a
 metric ``<base>.<suffix>``) and its configuration's plain
-reference (``reference/<name>.py``). Adding a cell, a mix, a
-configuration or a metric is adding files; nothing here names one."""
+reference (``reference/<name>.py``, which declares what it covers).
+Adding a cell, a mix, a configuration or a metric is adding files;
+nothing here names one."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import Callable, Dict, List
+
+from . import weights as W
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -95,6 +98,46 @@ def reader(metric: str) -> Callable:
     return mod.read
 
 
+def reference_module(config: Dict):
+    return importlib.import_module(
+        f"perfbench.reference.{config['reference']}")
+
+
 def reference_class(config: Dict):
-    mod = importlib.import_module(f"perfbench.reference.{config['reference']}")
-    return mod.Reference
+    return reference_module(config).Reference
+
+
+# the layer-kind keys a reference has to name in ``COVERS`` to be given
+# anything but their default (``weights.LAYER_KIND``); the others are
+# sizes
+KIND_KEYS = ("attn_kind", "n_shared_experts", "first_k_dense",
+             "router_norm_topk")
+
+
+def uncovered(mod, dims: Dict, serving: Dict, cfg=None) -> List[str]:
+    """What a configuration asks that its reference module ``mod`` does
+    not compute, one line each, naming the key. ``mod.COVERS`` maps keys
+    to the values it computes: each is checked in the program's config
+    ``cfg`` where that has it and, for a layer-kind key, in ``dims``
+    (default ``weights.LAYER_KIND``); a ``KIND_KEYS`` key it does not
+    name must hold its default; ``mod.POLICIES`` lists the serving
+    policies it follows."""
+    out = []
+    for key, allowed in mod.COVERS.items():
+        seen = []
+        if cfg is not None and hasattr(cfg, key):
+            seen.append(("the program's config", getattr(cfg, key)))
+        if key in W.LAYER_KIND:
+            seen.append(("dims", W.layer_kind(dims, key)))
+        out += [f"{key} is {v!r} in {where}, {mod.__name__} covers "
+                f"{list(allowed)}" for where, v in seen if v not in allowed]
+    for key in KIND_KEYS:
+        if key not in mod.COVERS and \
+                W.layer_kind(dims, key) != W.LAYER_KIND[key]:
+            out.append(f"{key} is {W.layer_kind(dims, key)!r} in dims, "
+                       f"{mod.__name__} covers only "
+                       f"{W.LAYER_KIND[key]!r}")
+    if serving["policy"] not in mod.POLICIES:
+        out.append(f"policy {serving['policy']!r}: {mod.__name__} "
+                   f"follows {list(mod.POLICIES)}")
+    return out

@@ -28,25 +28,87 @@ def leaf_seed(seed: int, name: str) -> int:
     return int.from_bytes(digest, "little") & (2 ** 63 - 1)
 
 
-def layer_leaves(dims: Dict, i: int) -> List[Leaf]:
-    """One decoder layer's leaves, in the program's layouts: attention
-    wq (d, Hkv, G, D), wk / wv (d, Hkv, D), wo (Hkv, G, D, d); router
-    wg (d, E); experts w1 / w3 (E, d, f), w2 (E, f, d)."""
-    d, D = dims["d_model"], dims["head_dim"]
-    hq, hkv = dims["n_heads"], dims["n_kv_heads"]
-    g = hq // hkv
+# the ``dims`` keys that set a layer's kind, and their defaults: absent,
+# a layer is GQA attention (``head_dim``, ``n_kv_heads``) and routed
+# SwiGLU experts whose k scores are renormalised. ``attn_kind`` "mla":
+# latent attention, with a query LoRA of rank ``q_lora_rank`` (0: none);
+# ``n_shared_experts``: that many experts of ``d_expert`` every token
+# runs; the first ``first_k_dense`` layers: a dense SwiGLU of ``d_ff``
+# with no router and no experts.
+LAYER_KIND = {"attn_kind": "gqa", "q_lora_rank": 0, "kv_lora_rank": 0,
+              "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": 0,
+              "n_shared_experts": 0, "first_k_dense": 0, "d_ff": 0,
+              "router_norm_topk": True}
+
+
+def layer_kind(dims: Dict, key: str):
+    """A layer-kind key of ``dims``, or its default (``LAYER_KIND``)."""
+    return dims.get(key, LAYER_KIND[key])
+
+
+def attention_leaves(dims: Dict, p: str) -> List[Leaf]:
+    """GQA: wq (d, Hkv, G, D), wk / wv (d, Hkv, D), wo (Hkv, G, D, d).
+    MLA: wq_a (d, r_q), q_norm (r_q,), wq_b (r_q, H, nope + rope), or wq
+    (d, H, nope + rope) without a query LoRA; wkv_a (d, r_kv + rope),
+    kv_norm (r_kv,), wk_b (r_kv, H, nope), wv_b (r_kv, H, v), wo (H, v,
+    d)."""
+    d, h = dims["d_model"], dims["n_heads"]
+    attn = layer_kind(dims, "attn_kind")
+    if attn == "gqa":
+        D, hkv = dims["head_dim"], dims["n_kv_heads"]
+        g = h // hkv
+        return [(p + "wq", (d, hkv, g, D), "matrix"),
+                (p + "wk", (d, hkv, D), "matrix"),
+                (p + "wv", (d, hkv, D), "matrix"),
+                (p + "wo", (hkv, g, D, d), "matrix")]
+    if attn != "mla":
+        raise ValueError(f"attn_kind {attn!r}: the harness makes gqa and "
+                         "mla attention")
+    rq, rkv, dn, dr, dv = (layer_kind(dims, k) for k in (
+        "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+        "qk_rope_head_dim", "v_head_dim"))
+    q = [(p + "wq_a", (d, rq), "matrix"), (p + "q_norm", (rq,), "norm"),
+         (p + "wq_b", (rq, h, dn + dr), "matrix")] if rq else \
+        [(p + "wq", (d, h, dn + dr), "matrix")]
+    return q + [(p + "wkv_a", (d, rkv + dr), "matrix"),
+                (p + "kv_norm", (rkv,), "norm"),
+                (p + "wk_b", (rkv, h, dn), "matrix"),
+                (p + "wv_b", (rkv, h, dv), "matrix"),
+                (p + "wo", (h, dv, d), "matrix")]
+
+
+def ffn_leaves(dims: Dict, i: int, p: str) -> List[Leaf]:
+    """A dense layer (``i < first_k_dense``): mlp_w1 / mlp_w3 (d, d_ff),
+    mlp_w2 (d_ff, d). Otherwise router wg (d, E), experts w1 / w3 (E, d,
+    f), w2 (E, f, d) and, with shared experts, shared_w1 / shared_w3 (d,
+    n_shared f), shared_w2 (n_shared f, d)."""
+    d = dims["d_model"]
+    if i < layer_kind(dims, "first_k_dense"):
+        f = dims["d_ff"]
+        return [(p + "mlp_w1", (d, f), "matrix"),
+                (p + "mlp_w3", (d, f), "matrix"),
+                (p + "mlp_w2", (f, d), "matrix")]
     e, f = dims["n_experts"], dims["d_expert"]
+    out = [(p + "wg", (d, e), "matrix"),
+           (p + "w1", (e, d, f), "matrix"),
+           (p + "w3", (e, d, f), "matrix"),
+           (p + "w2", (e, f, d), "matrix")]
+    fs = layer_kind(dims, "n_shared_experts") * f
+    if fs:
+        out += [(p + "shared_w1", (d, fs), "matrix"),
+                (p + "shared_w3", (d, fs), "matrix"),
+                (p + "shared_w2", (fs, d), "matrix")]
+    return out
+
+
+def layer_leaves(dims: Dict, i: int) -> List[Leaf]:
+    """One decoder layer's leaves, in the program's layouts, named
+    ``layers.{i}.<leaf>``: ln1, the attention's (``attention_leaves``),
+    ln2, the feed-forward's (``ffn_leaves``)."""
+    d = dims["d_model"]
     p = f"layers.{i}."
-    return [(p + "ln1", (d,), "norm"),
-            (p + "wq", (d, hkv, g, D), "matrix"),
-            (p + "wk", (d, hkv, D), "matrix"),
-            (p + "wv", (d, hkv, D), "matrix"),
-            (p + "wo", (hkv, g, D, d), "matrix"),
-            (p + "ln2", (d,), "norm"),
-            (p + "wg", (d, e), "matrix"),
-            (p + "w1", (e, d, f), "matrix"),
-            (p + "w3", (e, d, f), "matrix"),
-            (p + "w2", (e, f, d), "matrix")]
+    return [(p + "ln1", (d,), "norm"), *attention_leaves(dims, p),
+            (p + "ln2", (d,), "norm"), *ffn_leaves(dims, i, p)]
 
 
 def leaves(dims: Dict) -> List[Leaf]:

@@ -1,5 +1,6 @@
 """Plain PyTorch reference of a GQA decoder with top-k MoE layers served
-under 2T-Drop (DualSparse-MoE, P = 2), written from the layer equations:
+under 2T-Drop (DualSparse-MoE, P = 2) or keep-all (policy ``none``),
+written from the layer equations:
 
 * pre-norm blocks: RMSNorm (float32, weight after the scale), GQA
   attention with rotate-half RoPE (inverse frequencies and angles in
@@ -12,6 +13,8 @@ under 2T-Drop (DualSparse-MoE, P = 2), written from the layer equations:
   scores of every layer, sorted, at floor(q * n) for q = target -/+ 0.05;
 * 2T drop: a pair runs the whole expert when its score > T_minor, the
   MAJOR half when > T_major, nothing otherwise;
+* keep-all (``none``): no preparation, no partition; every top-k pair
+  runs its whole expert;
 * the bf16 KV cache: a query that reads the cache sees K and V rounded to
   bf16, its softmax rounded to bf16 before p @ V, and that product
   rounded to bf16. Which positions read the cache is the engine's:
@@ -30,17 +33,26 @@ resident.
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..harness import spec
 from ..harness import weights as W
 
 NEG_INF = -1e30
 Q_BLOCK = 256
 PRECISIONS = ("float32", "tf32", "lower")
+# what this reference computes (``harness.spec.uncovered``): the program's
+# architecture keys and their values, and the serving policies
+COVERS = {"family": ("moe",), "attn_kind": ("gqa",), "qkv_bias": (False,),
+          "n_shared_experts": (0,), "mlp_kind": ("swiglu",),
+          "frontend": ("",), "tie_embeddings": (False,),
+          "router_norm_topk": (True,)}
+POLICIES = ("2t", "none")
 
 
 def to_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -59,6 +71,9 @@ class Reference:
                  precision: str = "float32"):
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
+        missing = spec.uncovered(sys.modules[__name__], dims, serving)
+        if missing:
+            raise ValueError("; ".join(missing))
         self.dims = dims
         self.serving = serving
         self.seed = seed
@@ -171,25 +186,32 @@ class Reference:
     def moe(self, x, lw, major, tm, tn):
         """(y (N, d), margins (N, 2)) for tokens x (N, d): how near each
         token's routing came to another outcome — the least distance of a
-        kept score to a threshold, and the gap between the k-th and
-        (k+1)-th router probabilities relative to the k-th."""
+        kept score to a threshold (+inf under keep-all: ``major`` None),
+        and the gap between the k-th and (k+1)-th router probabilities
+        relative to the k-th."""
         k = self.dims["top_k"]
         vals, idx, norm = self.route(x, lw["wg"])
         top = idx[:, :k]
-        margins = torch.stack([
-            torch.minimum((norm - tm).abs(), (norm - tn).abs()).amin(-1),
-            (vals[:, k - 1] - vals[:, k]) / vals[:, k - 1]], dim=-1)
-        full = norm > tn
-        half = (norm > tm) & ~full
+        topk_margin = (vals[:, k - 1] - vals[:, k]) / vals[:, k - 1]
+        if major is None:
+            margins = torch.stack([torch.full_like(topk_margin, np.inf),
+                                   topk_margin], dim=-1)
+            modes = [(torch.ones_like(top, dtype=torch.bool), None)]
+        else:
+            margins = torch.stack([
+                torch.minimum((norm - tm).abs(), (norm - tn).abs()).amin(-1),
+                topk_margin], dim=-1)
+            full = norm > tn
+            modes = [(full, None), ((norm > tm) & ~full, major)]
         y = torch.zeros_like(x)
         for e in range(self.dims["n_experts"]):
-            for mode, cols in ((full, None), (half, major[e])):
+            for mode, cols in modes:
                 rows, slots = torch.nonzero((top == e) & mode, as_tuple=True)
                 if rows.numel() == 0:
                     continue
                 w1, w3, w2 = lw["w1"][e], lw["w3"][e], lw["w2"][e]
                 if cols is not None:
-                    w1, w3, w2 = w1[:, cols], w3[:, cols], w2[cols]
+                    w1, w3, w2 = w1[:, cols[e]], w3[:, cols[e]], w2[cols[e]]
                 xr = x[rows]
                 h = F.silu(self.mm(xr, w1)) * self.mm(xr, w3)
                 y.index_add_(0, rows, self.mm(h, w2) * norm[rows, slots, None])
@@ -204,8 +226,9 @@ class Reference:
         concatenated (n, d), and each of those positions' routing margins
         (n, 2), the least over the layers (see ``moe``)."""
         dm, dev = self.dims, self.device
-        calib = self.calibration()
-        tm, tn = self.thresholds(calib)
+        two_t = self.serving["policy"] == "2t"
+        calib = self.calibration() if two_t else None
+        tm, tn = self.thresholds(calib) if two_t else (None, None)
         emb = W.make_leaf("embed", (dm["vocab_size"], dm["d_model"]),
                           "matrix", self.seed, dev)
         toks = [torch.as_tensor(np.asarray(s, np.int64), device=dev)
@@ -216,7 +239,7 @@ class Reference:
         margins = torch.full((sum(lens), 2), float("inf"), device=dev)
         for i in range(dm["n_layers"]):
             lw = W.layer_weights(dm, i, self.seed, dev)
-            major = self.major_neurons(calib, lw)
+            major = self.major_neurons(calib, lw) if two_t else None
             hs = [h + self.attention(self.rms(h, lw["ln1"]), lw, nf)
                   for h, nf in zip(hs, n_float)]
             h = torch.cat(hs)

@@ -9,7 +9,7 @@ import pytest
 
 sys.path[:0] = [str(Path(__file__).resolve().parents[2])]
 
-from perfbench.harness import spec  # noqa: E402
+from perfbench.harness import check, spec  # noqa: E402
 
 BENCH = spec.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -37,10 +37,11 @@ def test_cell_resolves_and_reports_enough(w):
     c = spec.cell(BENCH, w["name"])
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
-    assert c.limits["mean_logit_gap"]["limit"] > max(
-        c.limits["mean_logit_gap"]["lower"])
-    assert c.limits["mean_logit_gap"]["limit"] < min(
-        c.limits["mean_logit_gap"]["upper"])
+    compared = [k for k in check.COMPARED if k in c.limits]
+    assert compared
+    for key in compared:
+        assert c.limits[key]["limit"] > max(c.limits[key]["lower"])
+        assert c.limits[key]["limit"] < min(c.limits[key]["upper"])
     assert c.traffic["engine"]["kind"] in ("paged", "continuous")
 
 
