@@ -1,6 +1,7 @@
 """Config registry of the PyTorch port: the architectures the port
 serves — MoE decoders, the dense GQA decoders, MiniCPM3-4B (MLA), the
-Qwen2-VL decoder with its vision stub, Mamba2, the Zamba2 hybrid and the
+Qwen2-VL decoder with its vision stub, DeepSeek-V2-Lite (MLA, a
+leading dense layer, shared experts, YaRN), Mamba2, the Zamba2 hybrid and the
 Whisper-large-v3 encoder-decoder with its audio stub (its
 own copy of the JAX package's dataclasses, so the port never imports that
 package)."""
@@ -19,6 +20,7 @@ from . import starcoder2_3b
 from . import qwen2_vl_7b
 from . import minicpm3_4b
 from . import whisper_large_v3
+from . import deepseek_v2_lite
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -32,7 +34,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 for _mod in (qwen3_moe_30b_a3b, paper_models, mamba2_370m, zamba2_7b,
              dbrx_132b, qwen2_7b, granite_20b, starcoder2_3b, qwen2_vl_7b,
-             minicpm3_4b, whisper_large_v3):
+             minicpm3_4b, whisper_large_v3, deepseek_v2_lite):
     for _cfg in _mod.CONFIGS:
         register(_cfg)
 

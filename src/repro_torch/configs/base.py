@@ -44,6 +44,13 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: int = 0         # 0 = full attention; >0 used by swa variant
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE sections (half-dim)
+    # YaRN (DeepSeek-V2's rotary scaling); a factor of 1.0 is plain RoPE
+    rope_scaling_factor: float = 1.0
+    rope_original_max_pos: int = 0
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
 
     # --- MLA (minicpm3 / deepseek-style) ---
     q_lora_rank: int = 0
@@ -61,6 +68,9 @@ class ModelConfig:
     d_expert: int = 0               # per-expert intermediate size
     n_shared_experts: int = 0       # deepseek-style shared experts
     router_norm_topk: bool = True   # normalize top-k scores (qwen3/mixtral style)
+    # DeepSeek's first_k_dense_replace: leading layers with a dense SwiGLU
+    # of d_ff in place of the MoE layer
+    leading_dense_layers: int = 0
 
     # --- SSM (mamba2 / zamba2) ---
     ssm_state: int = 0
@@ -125,8 +135,9 @@ class ModelConfig:
                 blocks += 3 * d * self.d_ff
             return emb + blocks
         if self.attn_kind == "mla":
-            attn = d * self.q_lora_rank \
-                + self.q_lora_rank * self.n_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim) \
+            q_in = self.q_lora_rank or d
+            attn = (d * self.q_lora_rank if self.q_lora_rank else 0) \
+                + q_in * self.n_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim) \
                 + d * (self.kv_lora_rank + self.qk_rope_head_dim) \
                 + self.kv_lora_rank * self.n_heads * (self.qk_nope_head_dim + self.v_head_dim) \
                 + self.n_heads * self.v_head_dim * d
@@ -136,14 +147,17 @@ class ModelConfig:
         if self.is_moe:
             ffn = self.n_experts * 3 * d * self.d_expert + d * self.n_experts
             ffn += self.n_shared_experts * 3 * d * self.d_expert
+            # a leading dense layer holds a SwiGLU of d_ff in their place
+            dense = self.leading_dense_layers * (n_mats * d * self.d_ff - ffn)
         else:
             ffn = n_mats * d * self.d_ff
+            dense = 0
         per_layer = attn + ffn
         total_layers = self.n_layers + self.encoder_layers
         if self.encoder_layers:  # decoder cross-attn
             per_layer_dec = attn * 2 + ffn
             return emb + self.encoder_layers * (attn + ffn) + self.n_layers * per_layer_dec
-        return emb + total_layers * per_layer
+        return emb + total_layers * per_layer + dense
 
     def reduced(self) -> "ModelConfig":
         """CPU-smoke variant: same family/features, tiny dims."""
@@ -162,8 +176,9 @@ class ModelConfig:
             kw["top_k"] = 2
             kw["d_expert"] = 128
             kw["n_shared_experts"] = min(self.n_shared_experts, 1)
+            kw["leading_dense_layers"] = min(self.leading_dense_layers, 1)
         if self.attn_kind == "mla":
-            kw["q_lora_rank"] = 64
+            kw["q_lora_rank"] = 64 if self.q_lora_rank else 0
             kw["kv_lora_rank"] = 32
             kw["qk_nope_head_dim"] = 16
             kw["qk_rope_head_dim"] = 16

@@ -74,11 +74,14 @@ def expert_ffn(w1, w3, w2, x):
 
 
 def _shared_out(params: Dict, x):
+    """The shared experts' SwiGLU over every token (never dropped), in the
+    ``moe.shared`` span; 0 for a layer without them."""
     if "shared" not in params:
         return 0.0
-    s = params["shared"]
-    h = F.silu(x @ s["w1"]) * (x @ s["w3"])
-    return h @ s["w2"]
+    with layer("moe.shared"):
+        s = params["shared"]
+        h = F.silu(x @ s["w1"]) * (x @ s["w3"])
+        return h @ s["w2"]
 
 
 def aux_loss_for(params: Dict, x, cfg):

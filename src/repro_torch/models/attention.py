@@ -8,8 +8,13 @@ k/v (B, S, Hkv, D); the cache is per-slot contiguous rows
 (``ContiguousLayout``, {"k", "v"}: (B, cap, Hkv, D)) or a shared page pool
 behind a per-slot page table (``PagedLayout``). MLA (multi-head latent
 attention, MiniCPM3 / DeepSeek-V2) caches the compressed latent
-{"c": (B, cap, kv_lora_rank), "kr": (B, cap, qk_rope_head_dim)} and decodes
-with the up-projection absorbed into the query.
+{"c": (B, cap, kv_lora_rank), "kr": (B, cap, qk_rope_head_dim)}, or in
+pages {"c": (n_pages + 1, page, kv_lora_rank), "kr": (n_pages + 1, page,
+qk_rope_head_dim)}, and decodes (and, paged, prefills a chunk) with the
+up-projections absorbed: scores against the latent, the output taken in
+latent space and then through ``wv_b``. Its parts run in the ``mla.latent``
+(projections, kv_norm, RoPE / YaRN, cache write) and ``mla.attend`` (cache
+read, scores, softmax, output, ``wv_b``, ``wo``) layer spans.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..obs.tracing import layer
 from . import layers
 
 NEG_INF = -1e30
@@ -114,7 +120,6 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
                    device=dev)
     l = torch.zeros((B, nq, qb, H, G), dtype=torch.float32, device=dev)
     o = torch.zeros((B, nq, qb, H, G, D), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
     for j in range(nk):
         k_blk = k[:, j * kb:(j + 1) * kb]
         v_blk = v[:, j * kb:(j + 1) * kb]
@@ -128,7 +133,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
             mask &= (q_pos[:, :, None] - k_pos) < window
         if kv_valid_len is not None:
             mask &= k_pos < kv_valid_len
-        s = torch.where(mask[None, :, :, None, None, :], s, neg)
+        s = torch.where(mask[None, :, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -155,8 +160,7 @@ def plain_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         mask &= (q_pos[:, None] - k_pos[None, :]) < window
     if kv_valid_len is not None:
         mask &= (k_pos < kv_valid_len)[None, :]
-    s = torch.where(mask[None, :, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v)
 
@@ -321,7 +325,8 @@ class PagedLayout:
     by all slots, addressed through a per-slot page table (B, pages_per_slot)
     of physical page ids on the device.
 
-    The pool {"k", "v"}: (n_pages + 1, page_size, Hkv, D) holds one extra
+    The pool {"k", "v"}: (n_pages + 1, page_size, Hkv, D) (an MLA model's:
+    {"c", "kr"}, ``init_latent``) holds one extra
     SINK page at index ``n_pages`` that no page table maps: writes the JAX
     layout drops (slots past their table, ``write_mask``-ed slots, chunk
     rows past ``valid_len``) land there, so nothing is range-checked on the
@@ -337,42 +342,60 @@ class PagedLayout:
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
+    def init_latent(self, n_pages: int, kv_lora_rank: int, rope_dim: int,
+                    dtype=torch.bfloat16, device="cuda"):
+        """An MLA pool: the latent {"c": (n_pages + 1, page, kv_lora)} and
+        the shared rope key {"kr": (n_pages + 1, page, rope)}."""
+        dev = resolve_device(device)
+        return {key: torch.zeros((n_pages + 1, self.page_size, width),
+                                 dtype=dtype, device=dev)
+                for key, width in (("c", kv_lora_rank), ("kr", rope_dim))}
+
     def slot_index(self, pos):
         """(logical page, in-page offset) of absolute position ``pos``."""
         return pos // self.page_size, pos % self.page_size
 
     def _gather(self, a, ids, read_len):
-        """Pages ``ids`` (..., n) of pool ``a`` as (..., n*page_size, H, D)
+        """Pages ``ids`` (..., n) of pool ``a`` as (..., n*page_size, ...)
         rows, only the pages ``read_len`` needs, trimmed to it."""
         if read_len is not None:
             ids = ids[..., :-(-read_len // self.page_size)]
-        g = a[ids.long()]                           # (..., n, ps, H, D)
+        g = a[ids.long()]                           # (..., n, ps, ...)
         g = g.reshape(ids.shape[:-1] + (ids.shape[-1] * self.page_size,)
                       + a.shape[2:])
         if read_len is not None:
-            g = g[..., :read_len, :, :]
+            g = g[(slice(None),) * (ids.ndim - 1) + (slice(0, read_len),)]
         return g
 
     def read(self, cache, page_table=None, read_len=None):
         """(B, pages_per_slot * page_size, Hkv, D) gathered views, trimmed to
         ``read_len`` rows when given (so the softmax reduces over the same
         width as a contiguous cache of that capacity)."""
-        return (self._gather(cache["k"], page_table, read_len),
-                self._gather(cache["v"], page_table, read_len))
+        return self.read_keys(cache, ("k", "v"), page_table, read_len)
 
     def read_slot(self, cache, slot: int, page_table=None, read_len=None):
-        row = page_table[slot]
-        return (self._gather(cache["k"], row, read_len),
-                self._gather(cache["v"], row, read_len))
+        return self.read_keys(cache, ("k", "v"), page_table[slot], read_len)
+
+    def read_keys(self, cache, keys, table, read_len=None):
+        """The pools ``keys`` (``("k", "v")``; MLA's ``("c", "kr")``)
+        gathered through ``table``: the (B, n) page table, or one slot's
+        (n,) row."""
+        return tuple(self._gather(cache[k], table, read_len) for k in keys)
 
     def _sink(self, cache) -> int:
-        return cache["k"].shape[0] - 1
+        return next(iter(cache.values())).shape[0] - 1
 
     def append(self, cache, k_new, v_new, pos, page_table=None,
                write_mask=None):
         """One decode step at per-slot positions ``pos`` (B,): the write
         lands at ``page_table[b, pos // ps]`` row ``pos % ps``; slots past
         their table or outside ``write_mask`` write to the sink page."""
+        return self.append_rows(cache, {"k": k_new[:, 0], "v": v_new[:, 0]},
+                                pos, page_table, write_mask)
+
+    def append_rows(self, cache, rows, pos, page_table, write_mask=None):
+        """``append`` of one (B, ...) row per pool in ``rows`` (key ->
+        rows), e.g. MLA's {"c", "kr"}."""
         n_logical = page_table.shape[1]
         page, off = self.slot_index(pos.long())
         phys = torch.gather(page_table.long(), 1,
@@ -381,8 +404,8 @@ class PagedLayout:
         if write_mask is not None:
             ok = ok & write_mask
         phys = torch.where(ok, phys, torch.full_like(phys, self._sink(cache)))
-        cache["k"][phys, off] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][phys, off] = v_new[:, 0].to(cache["v"].dtype)
+        for key, new in rows.items():
+            cache[key][phys, off] = new.to(cache[key].dtype)
         return cache
 
     def append_chunk(self, cache, k_chunk, v_chunk, slot: int, start: int,
@@ -390,15 +413,22 @@ class PagedLayout:
         """A (C,Hkv,D) prompt chunk of one slot at positions
         ``start..start+C-1``; rows at or past ``valid_len`` (or past the
         slot's table) write to the sink page."""
+        return self.append_chunk_rows(cache, {"k": k_chunk, "v": v_chunk},
+                                      slot, start, valid_len, page_table)
+
+    def append_chunk_rows(self, cache, rows, slot: int, start: int,
+                          valid_len: int, page_table):
+        """``append_chunk`` of a (C, ...) chunk per pool in ``rows``."""
         row = page_table[slot].long()
         n_logical = row.shape[0]
-        i = torch.arange(k_chunk.shape[0], device=row.device)
+        n = next(iter(rows.values())).shape[0]
+        i = torch.arange(n, device=row.device)
         page, off = self.slot_index(start + i)
         phys = row[page.clamp(max=n_logical - 1)]
         ok = (i < valid_len) & (page < n_logical)
         phys = torch.where(ok, phys, torch.full_like(phys, self._sink(cache)))
-        cache["k"][phys, off] = k_chunk.to(cache["k"].dtype)
-        cache["v"][phys, off] = v_chunk.to(cache["v"].dtype)
+        for key, new in rows.items():
+            cache[key][phys, off] = new.to(cache[key].dtype)
         return cache
 
     def validity(self, pos_after, capacity: int, device):
@@ -431,8 +461,7 @@ def _attend_cache(q, k_view, v_view, mask):
     the JAX package."""
     s = torch.einsum("bqhgd,bkhd->bqhgk", q, k_view.to(q.dtype)) \
         / np.sqrt(q.shape[-1])
-    s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype,
-                                          device=s.device))
+    s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_view.dtype)
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v_view)
 
@@ -502,9 +531,10 @@ def gqa_chunk_attention(attn: Attention, x, cache, slot: int, start: int,
 
 class MLAttention(nn.Module):
     """MLA projections, in the JAX package's layouts: wq_a (d, q_lora),
-    q_norm (q_lora,), wq_b (q_lora, H, nope + rope), wkv_a (d, kv_lora +
-    rope), kv_norm (kv_lora,), wk_b (kv_lora, H, nope), wv_b (kv_lora, H,
-    v_head), wo (H, v_head, d)."""
+    q_norm (q_lora,), wq_b (q_lora, H, nope + rope) — or, with no query
+    LoRA (``q_lora_rank`` 0, DeepSeek-V2-Lite), wq (d, H, nope + rope) —
+    wkv_a (d, kv_lora + rope), kv_norm (kv_lora,), wk_b (kv_lora, H,
+    nope), wv_b (kv_lora, H, v_head), wo (H, v_head, d)."""
 
     def __init__(self, cfg, *, device: torch.device,
                  generator: Optional[torch.Generator]):
@@ -514,9 +544,12 @@ class MLAttention(nn.Module):
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         dv = cfg.v_head_dim
         kw = dict(device=device, generator=generator)
-        self.wq_a = layers.normal((d, rq), **kw)
-        self.q_norm = layers.ones((rq,), device=device)
-        self.wq_b = layers.normal((rq, H, dn + dr), **kw)
+        if rq:
+            self.wq_a = layers.normal((d, rq), **kw)
+            self.q_norm = layers.ones((rq,), device=device)
+            self.wq_b = layers.normal((rq, H, dn + dr), **kw)
+        else:
+            self.wq = layers.normal((d, H, dn + dr), **kw)
         self.wkv_a = layers.normal((d, rkv + dr), **kw)
         self.kv_norm = layers.ones((rkv,), device=device)
         self.wk_b = layers.normal((rkv, H, dn), **kw)
@@ -534,18 +567,37 @@ def mla_project_latent(attn: MLAttention, x, cfg):
 
 
 def mla_queries(attn: MLAttention, x, positions, cfg):
-    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), RoPE applied."""
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), RoPE applied (YaRN's
+    where the config has it)."""
     dn = cfg.qk_nope_head_dim
-    q_lat = layers.rms_norm(x @ attn.wq_a, attn.q_norm, cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", q_lat, attn.wq_b)
+    if cfg.q_lora_rank:
+        q_lat = layers.rms_norm(x @ attn.wq_a, attn.q_norm, cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", q_lat, attn.wq_b)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, attn.wq)
     return q[..., :dn], layers.apply_rope(q[..., dn:], positions,
-                                          cfg.rope_theta)
+                                          cfg.rope_theta,
+                                          yarn=layers.yarn_of(cfg))
 
 
 def _rope_latent(k_rope, positions, cfg):
     """RoPE on the one shared (B,S,rope) key head."""
     return layers.apply_rope(k_rope[..., None, :], positions,
-                             cfg.rope_theta)[..., 0, :]
+                             cfg.rope_theta,
+                             yarn=layers.yarn_of(cfg))[..., 0, :]
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale, (nope + rope)^-0.5 times YaRN's mscale^2."""
+    return layers.yarn_attention_scale(
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, layers.yarn_of(cfg))
+
+
+def _yarn_query_scale(cfg) -> float:
+    """The factor the shared attention functions' (nope + rope)^-0.5 scale
+    misses under YaRN: mscale(factor, mscale_all_dim)^2 (1 without it)."""
+    return mla_scale(cfg) * np.sqrt(cfg.qk_nope_head_dim
+                                    + cfg.qk_rope_head_dim)
 
 
 def mla_attention(attn: MLAttention, x, positions, cfg, *, causal=True,
@@ -556,20 +608,24 @@ def mla_attention(attn: MLAttention, x, positions, cfg, *, causal=True,
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     H = cfg.n_heads
-    q_nope, q_rope = mla_queries(attn, x, positions, cfg)
-    c_kv, k_rope = mla_project_latent(attn, x, cfg)
-    k_rope = _rope_latent(k_rope, positions, cfg)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, attn.wk_b)
-    v = torch.einsum("bsr,rhk->bshk", c_kv, attn.wv_b)
-    q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # (B,S,H,1,.)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
-                  dim=-1)
-    dv = v.shape[-1]
-    v_pad = F.pad(v, (0, dn + dr - dv))
-    o = _self_attention(q, k, v_pad, causal=causal, window=window,
-                        dist=dist)
-    o = o[..., 0, :dv]
-    return torch.einsum("bshk,hkd->bsd", o, attn.wo)
+    with layer("mla.latent"):
+        q_nope, q_rope = mla_queries(attn, x, positions, cfg)
+        c_kv, k_rope = mla_project_latent(attn, x, cfg)
+        k_rope = _rope_latent(k_rope, positions, cfg)
+    with layer("mla.attend"):
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, attn.wk_b)
+        v = torch.einsum("bsr,rhk->bshk", c_kv, attn.wv_b)
+        q = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]
+        if layers.yarn_of(cfg) is not None:
+            q = q * _yarn_query_scale(cfg)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+        dv = v.shape[-1]
+        v_pad = F.pad(v, (0, dn + dr - dv))
+        o = _self_attention(q, k, v_pad, causal=causal, window=window,
+                            dist=dist)
+        o = o[..., 0, :dv]
+        return torch.einsum("bshk,hkd->bsd", o, attn.wo)
 
 
 def init_mla_cache(batch: int, length: int, cfg, dtype=torch.bfloat16,
@@ -588,8 +644,9 @@ def mla_prefill_attention(attn: MLAttention, x, positions, cfg, *, window=0,
                           cap=None, cache_dtype=torch.bfloat16, dist=None):
     """MLA prefill that also returns the populated latent cache."""
     out = mla_attention(attn, x, positions, cfg, window=window, dist=dist)
-    c_kv, k_rope = mla_project_latent(attn, x, cfg)
-    k_rope = _rope_latent(k_rope, positions, cfg)
+    with layer("mla.latent"):
+        c_kv, k_rope = mla_project_latent(attn, x, cfg)
+        k_rope = _rope_latent(k_rope, positions, cfg)
     B, S, _ = x.shape
     cap = cap if cap else S
 
@@ -618,34 +675,106 @@ def mla_decode_attention(attn: MLAttention, x, cache, pos, cfg,
     per_slot = isinstance(pos, torch.Tensor)
     posb = pos[:, None] if per_slot else \
         torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = mla_queries(attn, x, posb, cfg)         # (B,1,H,.)
-    c_new, kr_new = mla_project_latent(attn, x, cfg)         # (B,1,.)
-    kr_new = _rope_latent(kr_new, posb, cfg)
     layout = ContiguousLayout(window, sink=per_slot)
     cap = cache["c"].shape[1] - layout.sink
-    if per_slot:
-        idx = layout.slot_index(pos.long(), cap)
-        rows = torch.where(idx < cap, idx, torch.full_like(idx, cap))
-        b = torch.arange(B, device=x.device)
-        cache["c"][b, rows] = c_new[:, 0].to(cache["c"].dtype)
-        cache["kr"][b, rows] = kr_new[:, 0].to(cache["kr"].dtype)
-    else:
-        idx = layout.slot_index(pos, cap)
-        if not 0 <= idx < cap:
-            raise ValueError(f"decode position {pos} is past the cache "
-                             f"capacity {cap}")
-        cache["c"][:, idx] = c_new[:, 0].to(cache["c"].dtype)
-        cache["kr"][:, idx] = kr_new[:, 0].to(cache["kr"].dtype)
-    c_kv, k_rope = cache["c"][:, :cap], cache["kr"][:, :cap]
-    valid = layout.validity(pos + 1, cap, x.device)
+    with layer("mla.latent"):
+        q_nope, q_rope = mla_queries(attn, x, posb, cfg)     # (B,1,H,.)
+        c_new, kr_new = mla_project_latent(attn, x, cfg)     # (B,1,.)
+        kr_new = _rope_latent(kr_new, posb, cfg)
+        if per_slot:
+            idx = layout.slot_index(pos.long(), cap)
+            rows = torch.where(idx < cap, idx, torch.full_like(idx, cap))
+            b = torch.arange(B, device=x.device)
+            cache["c"][b, rows] = c_new[:, 0].to(cache["c"].dtype)
+            cache["kr"][b, rows] = kr_new[:, 0].to(cache["kr"].dtype)
+        else:
+            idx = layout.slot_index(pos, cap)
+            if not 0 <= idx < cap:
+                raise ValueError(f"decode position {pos} is past the cache "
+                                 f"capacity {cap}")
+            cache["c"][:, idx] = c_new[:, 0].to(cache["c"].dtype)
+            cache["kr"][:, idx] = kr_new[:, 0].to(cache["kr"].dtype)
+    with layer("mla.attend"):
+        valid = layout.validity(pos + 1, cap, x.device)
+        return _attend_latent(attn, q_nope, q_rope, cache["c"][:, :cap],
+                              cache["kr"][:, :cap], _valid_mask(valid, 4),
+                              cfg, latent_out_in_cache_dtype=True), cache
+
+
+def _attend_latent(attn: MLAttention, q_nope, q_rope, c, kr, mask, cfg, *,
+                   latent_out_in_cache_dtype: bool = False):
+    """Absorbed attention of queries (B,S,H,.) over latent rows c
+    (B,T,kv_lora) and kr (B,T,rope) under ``mask`` (broadcastable to the
+    (B,S,H,T) scores): q_nope through wk_b into latent space, float32
+    scores at ``mla_scale``, the softmax rounded to the cache dtype (as
+    the GQA paths round it before p @ V), the output taken in latent space
+    in float32 — in the cache dtype with ``latent_out_in_cache_dtype``, as
+    the JAX package's contiguous decode takes it — and then through wv_b
+    and wo. Returns (B,S,d)."""
+    cf = c.float()
     q_eff = torch.einsum("bshk,rhk->bshr", q_nope, attn.wk_b)
-    scale = 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    s = (torch.einsum("bshr,btr->bsht", q_eff, c_kv.float())
-         + torch.einsum("bshk,btk->bsht", q_rope.float(),
-                        k_rope.float())) * scale
-    s = torch.where(_valid_mask(valid, s.ndim), s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
-    p = torch.softmax(s, dim=-1).to(c_kv.dtype)
-    o_lat = torch.einsum("bsht,btr->bshr", p, c_kv)           # (B,1,H,rkv)
+    s = (torch.einsum("bshr,btr->bsht", q_eff, cf)
+         + torch.einsum("bshk,btk->bsht", q_rope.float(), kr.float())) \
+        * mla_scale(cfg)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(c.dtype)
+    lat = c if latent_out_in_cache_dtype else cf
+    o_lat = torch.einsum("bsht,btr->bshr", p.to(lat.dtype), lat)
     o = torch.einsum("bshr,rhk->bshk", o_lat.to(attn.wv_b.dtype), attn.wv_b)
-    return torch.einsum("bshk,hkd->bsd", o, attn.wo), cache
+    return torch.einsum("bshk,hkd->bsd", o, attn.wo)
+
+
+def mla_paged_decode_attention(attn: MLAttention, x, cache, pos, cfg, *,
+                               layout: PagedLayout, page_table,
+                               write_mask=None, read_len=None):
+    """One-token absorbed decode of every slot against the paged latent
+    pool at per-slot positions ``pos`` (B,): the new latent and rope key
+    written through ``page_table`` (``write_mask``-ed slots to the sink),
+    then each query over its slot's rows up to its position (``read_len``
+    trims the read as in ``PagedLayout.read``). Returns (out, cache)."""
+    posb = pos[:, None]
+    with layer("mla.latent"):
+        q_nope, q_rope = mla_queries(attn, x, posb, cfg)     # (B,1,H,.)
+        c_new, kr_new = mla_project_latent(attn, x, cfg)     # (B,1,.)
+        kr_new = _rope_latent(kr_new, posb, cfg)
+        cache = layout.append_rows(cache, {"c": c_new[:, 0],
+                                           "kr": kr_new[:, 0]},
+                                   pos, page_table, write_mask)
+    with layer("mla.attend"):
+        c, kr = layout.read_keys(cache, ("c", "kr"), page_table, read_len)
+        valid = layout.validity(pos + 1, c.shape[1], x.device)
+        return _attend_latent(attn, q_nope, q_rope, c, kr,
+                              _valid_mask(valid, 4), cfg), cache
+
+
+def mla_chunk_attention(attn: MLAttention, x, cache, slot: int, start: int,
+                        valid_len: int, cfg, *, layout: PagedLayout,
+                        page_table, read_len=None):
+    """Chunked-prefill MLA for ONE slot of a paged latent pool: x (1,C,d)
+    holds prompt tokens at positions ``start..start+C-1`` (rows at or past
+    ``valid_len`` are padding, written to the sink). The chunk's latent
+    rows are written to the slot's pages, then each query attends,
+    absorbed, over the slot's rows at positions up to its own: the
+    prefix (earlier chunks, or pages shared from the prefix cache) and
+    the chunk, all as the cache holds them. Returns (out (1,C,d), cache)."""
+    if not isinstance(layout, PagedLayout):
+        raise NotImplementedError("chunked MLA prefill needs the paged "
+                                  "latent cache")
+    C = x.shape[1]
+    positions = start + torch.arange(C, dtype=torch.int32,
+                                     device=x.device)[None, :]
+    with layer("mla.latent"):
+        q_nope, q_rope = mla_queries(attn, x, positions, cfg)
+        c_new, kr_new = mla_project_latent(attn, x, cfg)
+        kr_new = _rope_latent(kr_new, positions, cfg)
+        cache = layout.append_chunk_rows(cache, {"c": c_new[0],
+                                                 "kr": kr_new[0]},
+                                         slot, start, valid_len, page_table)
+    with layer("mla.attend"):
+        c, kr = layout.read_keys(cache, ("c", "kr"), page_table[slot],
+                                 read_len)
+        q_abs = positions[0].long()
+        k_abs = torch.arange(c.shape[0], device=x.device)
+        mask = (k_abs[None, :] <= q_abs[:, None])[None, :, None, :]
+        return _attend_latent(attn, q_nope, q_rope, c[None], kr[None], mask,
+                              cfg), cache

@@ -1,11 +1,12 @@
-"""Shared building blocks: RMSNorm, RoPE and M-RoPE, the SwiGLU and GELU
+"""Shared building blocks: RMSNorm, RoPE, M-RoPE and YaRN, the SwiGLU and GELU
 MLPs, embed/unembed, the seeded normal init (scale 0.02, float32) the
 JAX package uses, and the per-block activation checkpointing of an EP
 context (``remat``)."""
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Sequence
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -67,13 +68,94 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
+class Yarn(NamedTuple):
+    """YaRN rotary scaling as DeepSeek-V2 publishes it: ``factor`` over
+    ``original_max_pos`` positions, the correction range from
+    ``beta_fast`` / ``beta_slow`` rotations, and the two mscale
+    coefficients (of the cos / sin tables and of the softmax scale)."""
+    factor: float
+    original_max_pos: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+
+def yarn_of(cfg) -> Optional[Yarn]:
+    """The config's YaRN settings, or None for plain RoPE (factor 1)."""
+    if cfg.rope_scaling_factor == 1.0:
+        return None
+    return Yarn(cfg.rope_scaling_factor, cfg.rope_original_max_pos,
+                cfg.rope_beta_fast, cfg.rope_beta_slow, cfg.rope_mscale,
+                cfg.rope_mscale_all_dim)
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """0.1 m ln(s) + 1 (1 for s <= 1)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(head_dim: int, theta: float, yarn: Yarn):
+    """(low, high) frequency indices between which the ramp runs: floor /
+    ceil of D ln(L0 / (2 pi beta)) / (2 ln theta) at beta_fast and
+    beta_slow, clamped to [0, D - 1]."""
+    def dim_of(rot):
+        return (head_dim * math.log(yarn.original_max_pos
+                                    / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(dim_of(yarn.beta_fast))
+    high = math.ceil(dim_of(yarn.beta_slow))
+    return max(low, 0), min(high, head_dim - 1)
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn: Yarn):
+    """(D/2,) float32 inverse frequencies: theta^(-2i/D) (extrapolated)
+    below the correction range, those over ``factor`` (interpolated) above
+    it, a linear ramp between."""
+    extra = rope_freqs(head_dim, theta)
+    inter = np.float32(1.0) / (np.float32(yarn.factor) * (
+        theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)))
+    low, high = yarn_correction_range(head_dim, theta, yarn)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(head_dim // 2, dtype=np.float32) - low)
+                   / np.float32(high - low), 0, 1).astype(np.float32)
+    return (inter * ramp + extra * (np.float32(1) - ramp)).astype(np.float32)
+
+
+def yarn_attention_scale(qk_head_dim: int, yarn: Optional[Yarn]) -> float:
+    """The softmax scale: qk_head_dim^-0.5, times mscale(factor,
+    mscale_all_dim)^2 under YaRN."""
+    scale = 1.0 / math.sqrt(qk_head_dim)
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
+
+
+@functools.lru_cache(maxsize=64)
+def rope_inv_freq(head_dim: int, theta: float, yarn: Optional[Yarn],
+                  device: torch.device) -> torch.Tensor:
+    """The (D/2,) inverse frequencies on ``device``, uploaded once: a
+    blocking host-to-device copy waits for the stream, so a copy per
+    call would hold the card idle at every call. Read only."""
+    freqs = rope_freqs(head_dim, theta) if yarn is None else \
+        yarn_freqs(head_dim, theta, yarn)
+    return torch.as_tensor(freqs, device=device)
+
+
 def apply_rope(x, positions, theta: float = 1e4,
-               mrope_sections: Sequence[int] = ()):
+               mrope_sections: Sequence[int] = (),
+               yarn: Optional[Yarn] = None):
     """Rotate-half rotary embedding. x: (B, S, H, D); positions: (B, S), or
     (3, B, S) under M-RoPE, where ``mrope_sections`` (summing to D/2) picks
-    the position stream of each frequency index (Qwen2-VL §2)."""
+    the position stream of each frequency index (Qwen2-VL §2). ``yarn``:
+    YaRN's frequencies (``yarn_freqs``), cos and sin scaled by
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim). The
+    frequencies come from ``rope_inv_freq``, uploaded once per device."""
     d = x.shape[-1]
-    inv = torch.as_tensor(rope_freqs(d, theta), device=x.device)   # (D/2,)
+    inv = rope_inv_freq(d, float(theta), yarn, x.device)          # (D/2,)
     if mrope_sections:
         if positions.ndim != 3:
             raise ValueError("M-RoPE needs (3, B, S) positions")
@@ -87,6 +169,11 @@ def apply_rope(x, positions, theta: float = 1e4,
         ang = positions[..., None].float() * inv               # (B,S,D/2)
     cos = torch.cos(ang)[..., None, :]                          # (B,S,1,D/2)
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) / \
+            yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

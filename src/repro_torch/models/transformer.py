@@ -49,17 +49,18 @@ from . import mamba2 as mm
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block: attention + MoE (``moe``) or MLP (``dense``)."""
+    """Pre-norm decoder block: attention + MoE (``moe``) or MLP (``dense``,
+    and a MoE model's leading ``dense`` layers: a SwiGLU of ``d_ff``)."""
 
     def __init__(self, cfg, *, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], dense: bool = False):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.ln1 = L.ones((cfg.d_model,), device=device)
         self.ln2 = L.ones((cfg.d_model,), device=device)
         self.attn = (attn.MLAttention(cfg, **kw) if cfg.attn_kind == "mla"
                      else attn.Attention(cfg, **kw))
-        if cfg.is_moe:
+        if cfg.is_moe and not dense:
             self.moe = moe_mod.MoELayer(cfg, **kw)
             self.mlp = None
         else:
@@ -75,6 +76,12 @@ class MambaBlock(nn.Module):
         super().__init__()
         self.ln1 = L.ones((cfg.d_model,), device=device)
         self.mamba = mm.Mamba2(cfg, device=device, generator=generator)
+
+
+def _has_moe(bp) -> bool:
+    """Whether a block has a MoE layer (whose per-layer outputs fill the
+    MoE-layer rows of the obs stats and overflow counts)."""
+    return getattr(bp, "moe", None) is not None
 
 
 def _ported(cfg) -> bool:
@@ -95,7 +102,8 @@ def n_shared_occurrences(cfg) -> int:
 
 class Transformer(nn.Module):
     """Embedding, the blocks and the final norm. ``blocks`` holds the
-    decoder blocks (``Block``, or ``MambaBlock`` for ``ssm``); the hybrid
+    decoder blocks (``Block``: the first ``cfg.leading_dense_layers`` of a
+    MoE model dense; or ``MambaBlock`` for ``ssm``); the hybrid
     holds ``mamba_blocks`` and one ``shared_attn`` ``Block`` (attention +
     MLP), as the JAX tree does; a vision frontend adds ``frontend_proj``
     (d, d)."""
@@ -117,10 +125,13 @@ class Transformer(nn.Module):
             self.mamba_blocks = nn.ModuleList(MambaBlock(cfg, **kw)
                                               for _ in range(cfg.n_layers))
             self.shared_attn = Block(cfg, **kw)
-        else:
-            block = MambaBlock if cfg.family == "ssm" else Block
-            self.blocks = nn.ModuleList(block(cfg, **kw)
+        elif cfg.family == "ssm":
+            self.blocks = nn.ModuleList(MambaBlock(cfg, **kw)
                                         for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(
+                Block(cfg, dense=i < cfg.leading_dense_layers, **kw)
+                for i in range(cfg.n_layers))
         self.final_norm = L.ones((cfg.d_model,), device=device)
         # the stub frontend provides embeddings directly; a linear projector
         # adapts them to d_model (the one real parameter of the stub)
@@ -264,7 +275,8 @@ def _ffn(bp: Block, x, cfg, policy, collect_stats: bool, dist=None,
     Returns ``(x, moe_overflow or obs stats dict)``, or with ``aux``
     ``(x, load-balance aux loss)`` (0 without a MoE layer)."""
     if bp.moe is None:
-        with layer("model.mlp"):
+        # a MoE model's leading dense layer, or a dense model's MLP
+        with layer("model.dense" if cfg.is_moe else "model.mlp"):
             h = L.rms_norm(x, bp.ln2, cfg.norm_eps)
             out = x + L.apply_mlp(bp.mlp, h, cfg.mlp_kind)
         return out, _zero_aux(x) if aux else _no_overflow(x)
@@ -291,7 +303,12 @@ def block_decode(bp: Block, x, cache_layer, pos, cfg, *, window: int = 0,
         return x + y, st._asdict(), _no_overflow(x)
     with layer("model.attention"):
         h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-        if cfg.attn_kind == "mla":
+        if cfg.attn_kind == "mla" and isinstance(layout, attn.PagedLayout):
+            y, cache_layer = attn.mla_paged_decode_attention(
+                bp.attn, h, cache_layer, pos, cfg, layout=layout,
+                page_table=page_table, write_mask=write_mask,
+                read_len=read_len)
+        elif cfg.attn_kind == "mla":
             y, cache_layer = attn.mla_decode_attention(
                 bp.attn, h, cache_layer, pos, cfg, window)
         else:
@@ -338,7 +355,8 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
                                       cache_dtype=cache_dtype,
                                       collect_stats=collect, dist=dist)
             layers.append(cl)
-            outs.append(of)
+            if _has_moe(bp):
+                outs.append(of)
         else:
             x = fwd(bp, x, positions, cfg, window=window, policy=policy,
                     dist=dist, kernels=kernels)
@@ -349,7 +367,7 @@ def stack_forward(model: Transformer, x, positions, cfg, *, window: int = 0,
         if collect:
             cache["metrics"] = MetricsState.from_stacked(outs)
         else:
-            cache["moe_overflow"] = torch.stack(outs).sum(dtype=torch.int32)
+            cache["moe_overflow"] = _overflow_sum(outs, x)
     return x, cache
 
 
@@ -411,16 +429,24 @@ def _hybrid_decode(model: Transformer, x, cache, pos, cfg, *,
 
 
 def _with_step_stats(cache, new, outs):
-    """Fold one step's per-layer MoE outputs (obs stats dicts or overflow
-    counts) into the running total ``new`` carries on from ``cache`` —
-    device-side adds, no host sync."""
+    """Fold one step's per-MoE-layer outputs (obs stats dicts or overflow
+    counts, in MoE-layer order: a leading dense layer has none) into the
+    running total ``new`` carries on from ``cache`` — device-side adds, no
+    host sync."""
     with layer("model.stats"):
         if "metrics" in cache:
             new["metrics"] = cache["metrics"].accumulate(outs)
         elif "moe_overflow" in cache:
             new["moe_overflow"] = cache["moe_overflow"] + \
-                torch.stack(outs).sum(dtype=torch.int32)
+                _overflow_sum(outs, cache["moe_overflow"])
     return new
+
+
+def _overflow_sum(outs, like):
+    """The summed overflow counts of a step's MoE layers (0 with none)."""
+    if not outs:
+        return torch.zeros((), dtype=torch.int32, device=like.device)
+    return torch.stack(outs).sum(dtype=torch.int32)
 
 
 def stack_decode(model: Transformer, x, cache, pos, cfg, *,
@@ -438,7 +464,8 @@ def stack_decode(model: Transformer, x, cache, pos, cfg, *,
                                  write_mask=write_mask, read_len=read_len,
                                  collect_stats=collect, dist=dist)
         new_layers.append(cl)
-        outs.append(of)
+        if _has_moe(bp):
+            outs.append(of)
     return x, _with_step_stats(cache, {"layers": new_layers}, outs)
 
 
@@ -551,9 +578,11 @@ def chunk_block(bp: Block, x, cache_layer, slot: int, start: int,
     ``dist``: an EP context sends the MoE layer through S-ETP."""
     with layer("model.attention"):
         h = L.rms_norm(x, bp.ln1, cfg.norm_eps)
-        y, cache_layer = attn.gqa_chunk_attention(
-            bp.attn, h, cache_layer, slot, start, valid_len, cfg,
-            layout=layout, page_table=page_table, read_len=read_len)
+        fn = attn.mla_chunk_attention if cfg.attn_kind == "mla" else \
+            attn.gqa_chunk_attention
+        y, cache_layer = fn(bp.attn, h, cache_layer, slot, start, valid_len,
+                            cfg, layout=layout, page_table=page_table,
+                            read_len=read_len)
     x, overflow = _ffn(bp, x + y, cfg, policy, collect_stats, dist)
     return x, cache_layer, overflow
 
@@ -567,12 +596,15 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
     (rows at or past ``valid_len`` are padding: their K/V writes are
     dropped, their logits are garbage the caller ignores). Returns
     ``(logits (1, C, vocab), cache)`` with ``cache["pos"][slot]`` set to
-    ``start + valid_len`` (a device-side write). gqa attention only.
+    ``start + valid_len`` (a device-side write). gqa attention, or mla
+    over a paged latent cache.
     Under an EP context ``dist`` the chunk's batch of 1 is replicated over
     the (pod, data) axes and its sequence split over ``model`` where that
     divides it (``core.setp``'s token-block rule)."""
-    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError("chunked prefill requires gqa attention")
+    if cfg.attn_kind not in ("gqa", "mla") or cfg.family in ("ssm",
+                                                               "hybrid"):
+        raise NotImplementedError("chunked prefill requires gqa or mla "
+                                  "attention")
     collect = "metrics" in cache
     with layer("model.embed"):
         x = L.embed(model.embed, tokens)
@@ -583,7 +615,8 @@ def chunk_step(model: Transformer, tokens, slot: int, start: int,
                                 read_len=read_len, policy=policy,
                                 collect_stats=collect, dist=dist)
         new_layers.append(cl)
-        outs.append(of)
+        if _has_moe(bp):
+            outs.append(of)
     with layer("model.head"):
         x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
         logits = L.unembed(model.embed, x)
@@ -646,13 +679,21 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, n_slots: int, *,
     ``PagedLayout`` pool of ``n_pages`` pages (plus its sink page) per
     layer, shared by all slots through the engine's page table (one
     logical -> physical mapping for every layer). Page 0 is the
-    retired-slot page, never handed out. ``cache["pos"]`` is per slot."""
-    if cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError("paged KV requires gqa attention")
+    retired-slot page, never handed out. ``cache["pos"]`` is per slot.
+    An MLA model's pools hold the latent and the rope key
+    (``PagedLayout.init_latent``)."""
+    if cfg.attn_kind not in ("gqa", "mla") or cfg.family in ("ssm",
+                                                               "hybrid"):
+        raise NotImplementedError("paged KV requires gqa or mla attention")
     dev = resolve_device(device)
     layout = attn.PagedLayout(page_size)
-    cache = {"layers": [layout.init(n_pages, cfg.n_kv_heads,
-                                    cfg.resolved_head_dim, dtype, dev)
-                        for _ in range(cfg.n_layers)],
+
+    def pool():
+        if cfg.attn_kind == "mla":
+            return layout.init_latent(n_pages, cfg.kv_lora_rank,
+                                      cfg.qk_rope_head_dim, dtype, dev)
+        return layout.init(n_pages, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           dtype, dev)
+    cache = {"layers": [pool() for _ in range(cfg.n_layers)],
              "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
     return _obs_seam(cache, metrics_spec, dev)

@@ -64,6 +64,7 @@ class PageAllocator:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.peak_in_use = 0          # most pages ever off the free stack
 
     def available(self) -> int:
         return len(self._free) + len(self._lru)
@@ -80,11 +81,17 @@ class PageAllocator:
     def n_held(self) -> int:
         return self.n_pages - 1 - self.n_free - self.n_parked
 
+    @property
+    def n_in_use(self) -> int:
+        """Pages held by slots or parked in the prefix cache."""
+        return self.n_pages - 1 - self.n_free
+
     def alloc(self) -> int:
         """Take a fresh page (refcount 1), evicting the LRU-oldest parked
         cached page if the free stack is empty."""
         if self._free:
             page = self._free.pop()
+            self.peak_in_use = max(self.peak_in_use, self.n_in_use)
         else:
             page = min(self._lru, key=self._lru.get)
             del self._lru[page]
@@ -140,8 +147,8 @@ class _SlotState:
 class PagedEngine(SlotEngineBase):
     """Paged-KV continuous-batching engine with chunked prefill and prefix
     caching on ``device`` (default the card; the model must live there).
-    Speaks the unified ``submit()``/``step()``/``drain()`` API. gqa
-    attention models only.
+    Speaks the unified ``submit()``/``step()``/``drain()`` API. Decoder-only
+    text models with GQA attention (a K/V pool) or MLA (a latent pool).
 
     Given an EP context (``dist``), every rank builds the engine over its
     shard of the model and serves the same requests in SPMD: each MoE
@@ -157,12 +164,11 @@ class PagedEngine(SlotEngineBase):
                  exact_moe: bool = True, cache_dtype=torch.bfloat16,
                  prefix_cache: bool = True, metrics: bool = True,
                  device="cuda", dist=None):
-        if (cfg.attn_kind != "gqa" or cfg.family in ("audio", "ssm",
-                                                      "hybrid")
-                or cfg.frontend):
+        if (cfg.attn_kind not in ("gqa", "mla")
+                or cfg.family in ("audio", "ssm", "hybrid") or cfg.frontend):
             raise NotImplementedError(
-                "paged serving supports GQA attention decoder-only text "
-                "models (chunked prefill has no recurrent-state or "
+                "paged serving supports GQA or MLA attention decoder-only "
+                "text models (chunked prefill has no recurrent-state or "
                 "frontend-token analog yet)")
         super().__init__(cfg, model, n_slots=n_slots,
                          max_prompt_len=max_prompt_len,
@@ -305,10 +311,13 @@ class PagedEngine(SlotEngineBase):
         valid = min(self.chunk_size, plen - start)
         t0 = time.perf_counter()
         # positions: the chunk's rows run, padding included; device_s: the
-        # stream's time over the chunk, read once its end has passed
+        # stream's time over the chunk, read once its end has passed;
+        # pages_peak: the most pool pages held so far (of pool_pages)
         with self.tracer.span("prefill_chunk", uid=st.uid, slot=slot,
                               start=start, n_tokens=valid,
                               positions=self.chunk_size,
+                              pages_peak=self.pages_peak,
+                              pool_pages=self.n_pages - 1,
                               device_clock=self.device):
             first = self._chunk_insert(st.prompt[start:start + valid], slot,
                                        start, st.gen)
@@ -364,6 +373,13 @@ class PagedEngine(SlotEngineBase):
         return self._alloc.misses
 
     @property
+    def pages_peak(self) -> int:
+        """The most pool pages ever held at once, by slots and the prefix
+        cache together (page 0 and the sink not counted), since the
+        engine was built."""
+        return self._alloc.peak_in_use
+
+    @property
     def prefix_hit_rate(self) -> float:
         tot = self._alloc.hits + self._alloc.misses
         return self._alloc.hits / tot if tot else 0.0
@@ -381,6 +397,7 @@ class PagedEngine(SlotEngineBase):
                    state="held")
         snap.gauge("repro_page_pool_pages", float(self._alloc.n_parked),
                    state="parked")
+        snap.gauge("repro_page_pool_pages_peak", float(self.pages_peak))
         snap.gauge("repro_engine_slots", float(self.n_slots))
         snap.gauge("repro_engine_free_slots", float(self.free_slots))
         snap.counter("repro_engine_decode_steps_total",

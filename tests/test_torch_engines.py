@@ -40,6 +40,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import (ContinuousBatchingEngine, GenerationConfig,
                                  PageAllocator, PagedEngine)
 from repro_torch.serving.engine import exact_moe_policy
+from _config_compat import PORT_ONLY_FIELDS
 
 ARCHS = ["qwen3-moe-30b-a3b", "qwen2-7b"]
 REL_TOL = 1e-5
@@ -52,7 +53,8 @@ def _setup(arch):
     the dense arch)."""
     jcfg = jax_config(arch).reduced()
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
-                         for f in dataclasses.fields(ModelConfig)})
+                         for f in dataclasses.fields(ModelConfig)
+                         if f.name not in PORT_ONLY_FIELDS})
     params = JM.init_params(jax.random.PRNGKey(0), jcfg)
     dist, tpol = None, None
     if jcfg.is_moe:

@@ -30,6 +30,7 @@ from repro.serving import GenerationConfig as JGen
 from repro.serving import PagedEngine as JPaged
 from repro.serving import ServingEngine as JSync
 from repro_torch.checkpoint.from_numpy import params_from_numpy
+from _config_compat import shared_fields
 from repro_torch.configs import get_config
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
@@ -70,7 +71,7 @@ def _pos(B, S):
 
 def test_config_matches_jax():
     got, want = get_config(ARCH), jax_config(ARCH)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert shared_fields(got) == dataclasses.asdict(want)
     assert got.attn_kind == "mla" and got.n_layers == 62
 
 
@@ -202,16 +203,22 @@ def test_engines_match_jax(engine):
 
 
 def test_chunked_prefill_and_paged_kv_refuse_mla():
-    """Chunked prefill and the paged KV cache take GQA only, in both
-    packages."""
+    """The JAX package's paged engine takes GQA only. The port's paged
+    engine, paged cache and chunked prefill take MLA over a paged latent
+    pool ({"c", "kr"} pages; ``tests/test_torch_deepseek_v2.py`` holds
+    them to a reference) and refuse a chunk over a contiguous latent
+    cache."""
     cfg, jcfg, params, model = _model_setup()
     with pytest.raises(NotImplementedError):
-        PagedEngine(cfg, model, device="cpu")
-    with pytest.raises(NotImplementedError):
         JPaged(jcfg, params)
-    with pytest.raises(NotImplementedError, match="gqa"):
-        TT.init_paged_cache(cfg, 4, 16, 2, device="cpu")
+    eng = PagedEngine(cfg, model, device="cpu", max_prompt_len=16,
+                      max_new_tokens=4, n_slots=2)
+    assert set(eng._cache["layers"][0]) == {"c", "kr"}
+    pool = TT.init_paged_cache(cfg, 4, 16, 2, device="cpu")
+    assert tuple(pool["layers"][0]["c"].shape) == (5, 16, cfg.kv_lora_rank)
+    assert tuple(pool["layers"][0]["kr"].shape) == (5, 16,
+                                                    cfg.qk_rope_head_dim)
     cache = TT.init_cache(cfg, 1, 16, device="cpu", per_slot_pos=True)
-    with pytest.raises(NotImplementedError, match="gqa"):
+    with pytest.raises(NotImplementedError, match="paged"):
         TT.chunk_step(model, torch.zeros((1, 4), dtype=torch.long), 0, 0, 4,
                       cache, cfg, layout=TA.ContiguousLayout(sink=True))

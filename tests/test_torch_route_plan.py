@@ -4,8 +4,8 @@ launch pair (``repro_torch.kernels.ops.moe_route_plan``).
 On the CPU: the plain version against the composed path it replaces on
 the card (``policy.route`` -> ``core.moe.fused_pipeline_args`` ->
 ``drop.sub_pair_outcome_counts`` / ``gating.expert_histogram``), bit for
-bit, at reduced Qwen3, Qwen3-30B-A3B's router width and a DBRX-like
-width, under scalar, per-token and per-layer thresholds, an overflowing
+bit, at reduced Qwen3, Qwen3-30B-A3B's router width, a DBRX-like
+width and DeepSeek-V2-Lite's (64 experts, top-6, not renormalised), under scalar, per-token and per-layer thresholds, an overflowing
 capacity, every pair dropped and tied router scores; the CUDA kernel's
 plan algorithm (per-warp runs of a counting sort, counters from the
 bucket counts) emulated in numpy against the plain version; the MoE
@@ -37,7 +37,9 @@ from repro_torch.models import transformer as TT
 # name -> (E, K, d, renorm): reduced Qwen3, Qwen3-30B-A3B's router width,
 # a DBRX-like one (16 experts top-4, no renormalisation)
 WIDTHS = {"qwen3_reduced": (4, 2, 32, True), "qwen3": (128, 8, 32, True),
-          "dbrx": (16, 4, 48, False)}
+          "dbrx": (16, 4, 48, False),
+          # DeepSeek-V2-Lite's router: 64 experts, top-6, not renormalised
+          "deepseek": (64, 6, 32, False)}
 P = 2
 PLAN_FIELDS = ("idx", "modes", "combine", "group_offsets", "counts_full",
                "counts_major", "tok_sorted", "combine_sorted", "overflow",
@@ -145,7 +147,8 @@ CPU_CASES = [("qwen3_reduced", "scalar"), ("qwen3_reduced", "per_token"),
              ("qwen3", "scalar_tensor"), ("qwen3", "overflow"),
              ("qwen3", "all_dropped"), ("dbrx", "scalar"),
              ("dbrx", "per_token"), ("dbrx", "per_layer"),
-             ("dbrx", "overflow")]
+             ("dbrx", "overflow"), ("deepseek", "scalar"),
+             ("deepseek", "per_token"), ("deepseek", "overflow")]
 
 
 @pytest.mark.parametrize("width,form", CPU_CASES)
@@ -377,7 +380,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["scalar", "per_token", "overflow"])
-@pytest.mark.parametrize("width", ["qwen3", "dbrx"])
+@pytest.mark.parametrize("width", ["qwen3", "dbrx", "deepseek"])
 @pytest.mark.parametrize("T", [1, 8, 64, 256, 2048])
 def test_kernel_matches_plain(cuda, T, width, form):
     params, x, logits, policy, th, capacity, cfg = _case(width, form, T,

@@ -424,6 +424,47 @@ def test_float32_row_blocks_match_plain_over_a_nan_scratch(cuda, kernel, d,
         assert (y1[dead] == 0).all()
 
 
+# DeepSeek-V2-Lite's expert widths: d 2048, sub-experts of 704 neurons at
+# P 2, 5.5 strips of 128 (the last half empty); groups of few and many
+# rows, MAJOR-only rows, an empty group and one at capacity
+DSV2_C = 2 * D.MANY_ROWS + 8
+DSV2_CF = [R - 3, R + 1, DSV2_C, 0, 0, 2, D.MANY_ROWS + 9, 1]
+DSV2_CM = [2, 0, 0, 0, 5, 1, D.MANY_ROWS - 30, 0]
+
+
+@pytest.mark.cuda
+def test_fused_kernel_at_deepseek_v2_lite_widths(cuda):
+    """The fused pipeline on float32 operands at d 2048, f 704: equal to
+    its plain version to 1e-5, bit for bit across launches, with the row
+    tiles ``tile_plan`` predicts; the half-empty last strip of 128
+    neurons adds nothing past the 704th."""
+    gen = torch.Generator().manual_seed(29)
+    d, f, P, T = 2048, 704, 2, 160
+    C, E = DSV2_C, len(DSV2_CF)
+    cf, cm = _i32(DSV2_CF), _i32(DSV2_CM)
+    sizes = torch.clamp(cf + cm, max=C) + 1
+    offs = (torch.cumsum(sizes, 0) - sizes).to(torch.int32)
+    n_pos = int(sizes.sum()) + 8
+    tok = torch.randint(0, T, (n_pos,), generator=gen, dtype=torch.int32)
+    comb = torch.rand((n_pos,), generator=gen)
+    x = torch.randn((T, d), generator=gen)
+    w1, w3, w2 = _weights(gen, E, P, d, f, "cpu", torch.float32)
+    args = [a.to(cuda) for a in (x, w1, w3, w2, offs, cf, cm, tok, comb)]
+    kw = dict(capacity=C, p_factor=P, n_minor_start=None)
+    y1 = ops.fused_moe_pipeline(*args, **kw)
+    y2 = ops.fused_moe_pipeline(*args, **kw)
+    want = ops.fused_moe_pipeline_ref(*args, **kw)
+    assert torch.equal(y1, y2)
+    assert float((y1 - want).norm() / want.norm()) <= BAR[torch.float32]
+    regime = torch.zeros(E, dtype=torch.int32, device=cuda)
+    D.launch_fused_moe_pipeline(
+        *args, capacity=C, p_factor=P,
+        n_major=D.resolve_n_major(f, P, None, 128), regime=regime)
+    assert D.resolve_n_major(f, P, None, 128) == f
+    assert regime.tolist() == D.tile_plan(cf, cm, C)[0].tolist()
+    assert {1, 2} <= set(regime.tolist())
+
+
 @pytest.mark.cuda
 def test_device_position_keys_match_plain(cuda):
     """The fused kernel's first launch marks the positions as

@@ -14,7 +14,8 @@ While the profiler records, every span of the program's tracer
 so each gap goes to the layer whose host work held the card idle; the
 gaps are those the benchmark's ``device_idle_pct`` counts. Prints one
 JSON object: ``device_idle_pct``, ``idle_pct`` per layer (``moe``,
-``model``, ``scheduler``: the range named so or ``<layer>.*``) and per
+``model``, ``scheduler``: the range named so or ``<layer>.*``, and for
+``model`` MLA's ``mla.*`` parts too) and per
 range, each as a share of the profiled window. Skips the comparison with
 the reference."""
 from __future__ import annotations
@@ -40,6 +41,10 @@ from perfbench.harness import trace  # noqa: E402
 RANGE_CAT = "user_annotation"
 NO_RANGE = "host: no range open"
 LAYERS = ("moe", "model", "scheduler")
+# the range-name prefixes each layer's idle is read under: MLA's parts
+# (``mla.latent``, ``mla.attend``) open inside ``model.attention``
+PREFIXES = {"moe": ("moe",), "model": ("model", "mla"),
+            "scheduler": ("scheduler",)}
 
 
 def idle_by_range(events: List[Dict]) -> Dict[str, float]:
@@ -82,9 +87,11 @@ def idle_by_range(events: List[Dict]) -> Dict[str, float]:
 
 
 def idle_in(split: Dict[str, float], layer: str):
-    """Idle seconds under the ranges named ``layer`` or ``layer.<part>``;
-    None when the trace holds no such range."""
-    names = [k for k in split if k == layer or k.startswith(layer + ".")]
+    """Idle seconds under the ranges named ``p`` or ``p.<part>`` for the
+    layer's prefixes ``p`` (``PREFIXES``: the layer's own name, and for
+    ``model`` also ``mla``); None when the trace holds no such range."""
+    names = [k for k in split for p in PREFIXES.get(layer, (layer,))
+             if k == p or k.startswith(p + ".")]
     return sum(split[k] for k in names) if names else None
 
 
