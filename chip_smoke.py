@@ -243,8 +243,9 @@ def ptxas_report(text: str):
 def kernel_label(name: str) -> str:
     """A readable label for a mangled kernel name: the SwiGLU tiles as
     ``up_kernel<16x1, pipeline>`` (the float32 FMA few-row tile: rows x
-    rows per thread), ``up_tf32_kernel<64, buffer, f32>`` (the float32
-    3xTF32 many-row tile: rows) or ``up_mma_kernel<16, buffer, bf16>``
+    rows per thread), ``up_tf32_kernel<128, buffer, f32>`` (the float32
+    3xTF32 wgmma many-row tile: its row block) or
+    ``up_mma_kernel<16, buffer, bf16>``
     (the bf16 tensor-core tiles: rows), other kernels by their name."""
     import re
     tile = re.search(r"(up|down)_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
@@ -253,7 +254,7 @@ def kernel_label(name: str) -> str:
                 f"{'buffer' if tile.group(4) == '1' else 'pipeline'}>")
     tile = re.search(r"(up|down)_tf32_kernelILb([01])E", name)
     if tile:
-        return (f"{tile.group(1)}_tf32_kernel<64, "
+        return (f"{tile.group(1)}_tf32_kernel<{TF32_ROWS}, "
                 f"{'buffer' if tile.group(2) == '1' else 'pipeline'}, f32>")
     tile = re.search(r"(up|down)_mma_kernelILi(\d+)ELb([01])E", name)
     if tile:
@@ -266,14 +267,17 @@ def kernel_label(name: str) -> str:
     return kern.group(1) if kern else name[:60]
 
 
-# the SwiGLU tiles that run on the tensor cores: the bf16 tiles and the
-# float32 many-row tile
+# the SwiGLU tiles that run on the tensor cores: the bf16 tiles (mma.sync)
+# and the float32 many-row tile (wgmma)
 TENSOR_CORE_TILES = ("_mma_kernel", "_tf32_kernel")
+# the float32 many-row tile's row block (csrc/swiglu_tiles.cuh TF32_ROWS)
+TF32_ROWS = 128
 
 
 def sass_mma(lib: Path) -> dict:
-    """label -> whether the kernel's SASS holds HMMA (tensor-core) ops, for
-    each tensor-core tile of a built library, from ``cuobjdump -sass``."""
+    """label -> whether the kernel's SASS holds tensor-core ops (HMMA from
+    mma.sync, HGMMA from wgmma: the opcode its tile is built on), for each
+    tensor-core tile of a built library, from ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -282,7 +286,8 @@ def sass_mma(lib: Path) -> dict:
     for section in text.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
         if any(tile in name for tile in TENSOR_CORE_TILES):
-            found[kernel_label(name)] = "HMMA" in section
+            op = "HGMMA" if "_tf32_kernel" in name else "HMMA"
+            found[kernel_label(name)] = op in section
     return found
 
 
@@ -3840,10 +3845,11 @@ def fig10_point(dev, cfg, rec, x, pol, cap: int) -> dict:
             kw["tok_sorted"], kw["combine_sorted"], capacity=cap,
             p_factor=kw["p_factor"], n_major=n_major, regime=reg),
         cf, cm, cap, x.dtype)
-    # row blocks of the many-row tile with no FULL row: the ones whose
-    # minor-half strips are skipped
-    blocks = (torch.clamp(cf + cm, max=cap) + 63) // 64
-    full_blocks = (cf + 63) // 64
+    # row blocks of the (float32) many-row tile with no FULL row: the ones
+    # whose minor-half strips are skipped
+    rb = TF32_ROWS
+    blocks = (torch.clamp(cf + cm, max=cap) + rb - 1) // rb
+    full_blocks = (cf + rb - 1) // rb
     bound_ms, bound_by, flops, nbytes, f32core_ms = fused_bound(
         kw, T, x.shape[1])
     return dict(
@@ -3905,7 +3911,7 @@ def fig10_sweep(dev, cfg, rec) -> dict:
                 f"{tl['few_groups']} groups ({tl['few_rows']} rows), many "
                 f"{tl['many_groups']} ({tl['many_rows']} rows), row slots "
                 f"{tl['row_slots']} for {tl['live_rows']} live rows, "
-                f"{p['row_blocks']} row blocks of 64, "
+                f"{p['row_blocks']} row blocks of {TF32_ROWS}, "
                 f"{p['major_only_blocks']} with minor halves skipped; served "
                 f"layer {p['layer_ms']:.4f} ms ({p['layer_rel']:.3f} of "
                 f"keep-all; 1 - FLOPs saved {1 - p['flops_saved']:.3f}), "
@@ -4024,8 +4030,9 @@ def paper_metrics_phase(dev) -> dict:
 def build_phase() -> str:
     """Phase 1: the card's line, the versions, the build of every kernel
     with its ptxas registers and spills (none allowed in a tensor-core
-    tile), HMMA in every tensor-core tile's SASS, the SwiGLU rings' shared
-    memory. Returns the card's ``nvidia-smi`` line."""
+    tile), HMMA (mma.sync) or HGMMA (wgmma) in every tensor-core tile's
+    SASS, the SwiGLU rings' shared memory. Returns the card's
+    ``nvidia-smi`` line."""
     import re
     import torch
     from repro_torch.kernels import _build, dualsparse_ffn
@@ -4058,16 +4065,16 @@ def build_phase() -> str:
                                  f"{spilled}")
     for name in ("fused_moe_pipeline", "grouped_swiglu"):
         hmma = sass_mma(libs[name])
-        log(f"  {name}: HMMA in the SASS of " + ", ".join(
+        log(f"  {name}: HMMA / HGMMA in the SASS of " + ", ".join(
             f"{k} {v}" for k, v in sorted(hmma.items())))
         # four bf16 tiles (up / down, few / many) and the two float32
         # many-row tiles
         if len(hmma) != 6 or not all(hmma.values()):
-            raise AssertionError(f"{name}: a tensor-core tile without HMMA "
-                                 f"ops: {hmma}")
+            raise AssertionError(f"{name}: a tensor-core tile without its "
+                                 f"tensor-core ops: {hmma}")
     for dtype in dualsparse_ffn.ELEMENT_TYPES:
         ring = dualsparse_ffn.ring_bytes(dtype)
-        log(f"  swiglu tiles' cp.async rings, {dtype} operands (dynamic "
+        log(f"  swiglu tiles' rings, {dtype} operands (dynamic "
             "shared memory per CTA): "
             + ", ".join(f"{k} {v}" for k, v in ring.items()))
 

@@ -20,16 +20,19 @@
 //     type) the products run on the bf16 tensor cores (989 TFLOP/s), and
 //     the prefill is bound by bytes too.
 // What the design does about that (swiglu_tiles.cuh, pipeline row layout):
-// the up and down launches stream each group's weights through a cp.async
-// ring of shared-memory slots, several steps in flight per CTA, with the
-// rows x[tok[p]] gathered into the same slots; the row tile is chosen on
-// the device from each group's live rows (a few-row tile for groups of at
-// most 16 rows, 64-row blocks above), so few-row groups spend no products
-// on dead rows. Float32 operands take an FMA few-row tile and a 3xTF32
-// mma.sync many-row tile; bf16 operands take mma.sync tiles; every ring
-// step carries 128 bytes of each weight row. Rows past an expert's count are never loaded, and MAJOR-only
-// row tiles stop the contraction at the minor half, so 2T-Drop's skipped
-// work is neither read nor computed.
+// the up and down launches stream each group's weights through a ring of
+// shared-memory stages, several steps in flight per CTA, with the rows
+// x[tok[p]] gathered into the same stages (for the float32 many-row tile,
+// from the copy the position-key launch makes by position, so that TMA
+// moves them in boxes of 32 rows); the row tile is chosen on the
+// device from each group's live rows (a few-row tile for groups of at most
+// 16 rows, row blocks above), so few-row groups spend no products on dead
+// rows. Float32 operands take an FMA few-row tile and a 3xTF32 wgmma
+// many-row tile (TMA-fed, warp-specialised; its wgmma width follows the
+// live rows); bf16 operands take mma.sync tiles; every ring step carries
+// 128 bytes of each weight row. Rows past an expert's count are never
+// loaded, and MAJOR-only row tiles stop the contraction at the minor half,
+// so 2T-Drop's skipped work is neither read nor computed.
 //
 // Three steps on the caller's stream, no atomics:
 //   1. up:      h[pos, u] = silu(x[tok[pos]] . w1[:, u]) * (x[tok[pos]] . w3[:, u])
@@ -42,8 +45,11 @@
 // Steps 1 and 2 are one launch per row tile each. The (N', V) h and (N', d)
 // y staging buffers are per sorted pair; positions no row tile computes
 // (capacity overflow, dropped pairs, padding) are never written. A first
-// launch marks each position with its token or -1 (not computed), and the
-// combine gathers each token's marked positions in order on the device, so
+// launch marks each position with its token or -1 (not computed) and, for
+// the float32 many-row tile, copies each of its positions' x rows into
+// the y scratch in position order (the tile reads them by TMA, in boxes of
+// 32 rows; the down launches overwrite y after), and the combine gathers
+// each token's marked positions in order on the device, so
 // the wrapper runs no torch op of its own besides allocating (and, for
 // bf16 operands, casting the float32 output to bf16).
 
@@ -59,17 +65,22 @@ namespace {
 template <typename T>
 using Problem = swiglu_tiles::Problem<T>;
 
-constexpr int KEY_THREADS = 256;
+constexpr int KEY_THREADS = 256;   // a warp a position
 constexpr int COMBINE_THREADS = 256;
 constexpr int COMBINE_LIST = 1024;   // positions summed per pass
 
 // key[p] = tok[p] if some row tile computes position p, else -1: p lies in
 // group g = the last group with offs[g] <= p (0 if none), and is computed
-// when p - offs[g] < min(cf[g] + cm[g], capacity).
+// when p - offs[g] < min(cf[g] + cm[g], capacity). With xs (float32
+// operands), a computed position of a group past FEW_ROWS rows (the
+// many-row tile's) also gets its row: xs[p, :] = x[tok[p], :]. A warp a
+// position.
 __global__ void __launch_bounds__(KEY_THREADS)
 position_key_kernel(const int* tok, const int* offs, const int* cf,
-                    const int* cm, int n_pos, int E, int capacity, int* key) {
-  const int p = blockIdx.x * KEY_THREADS + threadIdx.x;
+                    const int* cm, int n_pos, int E, int capacity, int* key,
+                    const float* x, float* xs, int d) {
+  const int p = blockIdx.x * (KEY_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   if (p >= n_pos) return;
   int lo = 0, hi = E;               // the first group with offs > p
   while (lo < hi) {
@@ -78,7 +89,32 @@ position_key_kernel(const int* tok, const int* offs, const int* cf,
   }
   const int g = max(lo - 1, 0);
   const int rows = min(cf[g] + cm[g], capacity);
-  key[p] = p - offs[g] < rows ? tok[p] : -1;
+  const bool computed = p - offs[g] < rows;
+  if (lane == 0) key[p] = computed ? tok[p] : -1;
+  if (xs == nullptr || !computed || rows <= swiglu_tiles::FEW_ROWS) return;
+  // xs and x allow 16-byte copies whenever xs is given (d a multiple of 4)
+  const float4* src =
+      reinterpret_cast<const float4*>(x + (size_t)tok[p] * d);
+  float4* dst = reinterpret_cast<float4*>(xs + (size_t)p * d);
+  for (int c = lane; c < d / 4; c += 32) dst[c] = src[c];
+}
+
+// Fills key (N',) and, with xs, the float32 many-row tile's rows, as
+// position_key_kernel does.
+int position_keys(const void* tok_sorted, const void* group_offsets,
+                  const void* counts_full, const void* counts_major,
+                  void* key, int n_pos, int E, int capacity, const float* x,
+                  float* xs, int d, cudaStream_t stream) {
+  if (n_pos == 0) return 0;
+  const int per_block = KEY_THREADS / 32;
+  position_key_kernel<<<(n_pos + per_block - 1) / per_block, KEY_THREADS, 0,
+                        stream>>>(
+      static_cast<const int*>(tok_sorted),
+      static_cast<const int*>(group_offsets),
+      static_cast<const int*>(counts_full),
+      static_cast<const int*>(counts_major), n_pos, E, capacity,
+      static_cast<int*>(key), x, xs, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[t, :] = the sum of y[p, :] over the positions p with key[p] == t, in
@@ -128,12 +164,12 @@ combine_kernel(const float* y, const int* key, int n_pos, float* out,
 struct Operands {
   const void *x, *w1, *w3, *w2, *offs, *cf, *cm, *tok, *comb;
   void *h, *y, *regime;
-  int d, f, P, n_major, capacity;
+  int d, f, P, n_major, capacity, n_pos;
 };
 
-// The up and down launches of every row tile, in element type T.
+// The tiles' problem in element type T.
 template <typename T>
-int run_tiles(const Operands& o, int E, cudaStream_t s) {
+Problem<T> tiles_problem(const Operands& o) {
   Problem<T> pb;
   pb.x = static_cast<const T*>(o.x);
   pb.w1 = static_cast<const T*>(o.w1);
@@ -152,7 +188,9 @@ int run_tiles(const Operands& o, int E, cudaStream_t s) {
   pb.P = o.P;
   pb.n_major = o.n_major;
   pb.capacity = o.capacity;
-  return static_cast<int>(swiglu_tiles::launch_swiglu<false>(pb, E, s));
+  pb.n_pos = o.n_pos;
+  pb.xs = nullptr;
+  return pb;
 }
 
 }  // namespace
@@ -165,16 +203,9 @@ int fused_moe_pipeline_position_keys(
     const void* tok_sorted, const void* group_offsets,
     const void* counts_full, const void* counts_major, void* key, int n_pos,
     int E, int capacity, void* stream) {
-  if (n_pos == 0) return 0;
-  const int blocks = (n_pos + KEY_THREADS - 1) / KEY_THREADS;
-  position_key_kernel<<<blocks, KEY_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tok_sorted),
-      static_cast<const int*>(group_offsets),
-      static_cast<const int*>(counts_full),
-      static_cast<const int*>(counts_major), n_pos, E, capacity,
-      static_cast<int*>(key));
-  return static_cast<int>(cudaGetLastError());
+  return position_keys(tok_sorted, group_offsets, counts_full, counts_major,
+                       key, n_pos, E, capacity, nullptr, nullptr, 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Enqueues the launches on ``stream``: the position keys, each row tile's
@@ -192,15 +223,25 @@ int fused_moe_pipeline_launch(
     void* regime, int T, int n_pos, int d, int f, int E, int P,
     int n_major, int capacity, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = fused_moe_pipeline_position_keys(
-      tok_sorted, group_offsets, counts_full, counts_major, key, n_pos, E,
-      capacity, stream);
-  if (err != 0) return err;
   const Operands ops{x, w1, w3, w2, group_offsets, counts_full, counts_major,
                      tok_sorted, combine_sorted, h, y, regime, d, f, P,
-                     n_major, capacity};
-  err = bf16 ? run_tiles<__nv_bfloat16>(ops, E, s)
-             : run_tiles<float>(ops, E, s);
+                     n_major, capacity, n_pos};
+  Problem<float> pb = tiles_problem<float>(ops);
+  // float32 operands past FEW_ROWS rows, when every operand allows 16-byte
+  // copies (the many-row tile's TMA path): that tile's rows are gathered by
+  // position into the y scratch, which the down launches overwrite after
+  float* xs = nullptr;
+  if (!bf16 && capacity > swiglu_tiles::FEW_ROWS &&
+      swiglu_tiles::vector_ok(pb))
+    pb.xs = xs = pb.y;
+  int err = position_keys(tok_sorted, group_offsets, counts_full,
+                          counts_major, key, n_pos, E, capacity,
+                          static_cast<const float*>(x), xs, d, s);
+  if (err != 0) return err;
+  err = static_cast<int>(
+      bf16 ? swiglu_tiles::launch_swiglu<false>(
+                 tiles_problem<__nv_bfloat16>(ops), E, s)
+           : swiglu_tiles::launch_swiglu<false>(pb, E, s));
   if (err != 0) return err;
   if (T > 0) {
     // a few tokens spread their columns over more CTAs (~1024 in all)

@@ -22,14 +22,15 @@
 // reused by that many rows, so float32 operands are bound by operations
 // (3xTF32 on the tensor cores), while bf16 operands, on the bf16 tensor
 // cores, stay bound by bytes. What the design does about that: the up and
-// down tiles of
-// swiglu_tiles.cuh in its buffer row layout stream the weights through a
-// ring of cp.async shared-memory slots, and pick the row tile on the device
-// from each group's live rows, not from C: a group of at most 16 rows runs
-// one 16-row tile, larger groups 64-row blocks (for float32 an FMA few-row
-// tile and a 3xTF32 many-row tile, mma.sync tiles for bf16). Row tiles past a group's live rows load
-// nothing, and MAJOR-only row tiles skip the MINOR up strips and stop the
-// down contraction at n_major. Unlike the fused pipeline it reads x from
+// down tiles of swiglu_tiles.cuh in its buffer row layout stream the
+// weights through a ring of shared-memory stages, and pick the row tile on
+// the device from each group's live rows, not from C: a group of at most
+// 16 rows runs one 16-row tile, larger groups the many-row tile (for
+// float32 an FMA few-row tile and a TMA-fed 3xTF32 wgmma tile in 128-row
+// blocks whose wgmma width follows the live rows; mma.sync tiles in 64-row
+// blocks for bf16). Row tiles past a group's live rows load nothing, and
+// MAJOR-only row tiles skip the MINOR up strips and stop the down
+// contraction at n_major. Unlike the fused pipeline it reads x from
 // the (E, C, d) buffer and writes the (E, C, d) output directly (no
 // gather, no combine). One writer per output element, a fixed k order:
 // runs are bit-identical.
@@ -65,6 +66,8 @@ int run_tiles(const void* x, const void* w1, const void* w3, const void* w2,
   pb.P = P;
   pb.n_major = n_major;
   pb.capacity = C;
+  pb.n_pos = E * C;
+  pb.xs = nullptr;
   return static_cast<int>(swiglu_tiles::launch_swiglu<true>(pb, E, stream));
 }
 
@@ -93,14 +96,14 @@ int grouped_swiglu_launch(const void* x, const void* w1, const void* w3,
                           regime, E, C, d, f, P, n_major, s);
 }
 
-// Dynamic shared memory of one CTA (its cp.async ring) of the up (up != 0)
-// or down launch of the few-row (few != 0) or many-row tile, for float32
-// (bf16 == 0) or bfloat16 operands.
+// Dynamic shared memory of one CTA (its ring) of the up (up != 0) or down
+// launch of the few-row (few != 0) or many-row tile, for float32 (bf16 ==
+// 0) or bfloat16 operands.
 int grouped_swiglu_ring_bytes(int up, int few, int bf16) {
   const int BM = few ? swiglu_tiles::FEW_ROWS : swiglu_tiles::MANY_ROWS;
   if (bf16) return swiglu_tiles::mma_smem_bytes(up != 0, BM);
   return few ? swiglu_tiles::smem_bytes<float>(up != 0, BM)
-             : swiglu_tiles::tf32_smem_bytes(up != 0);
+             : swiglu_tiles::tf32_smem_bytes();
 }
 
 const char* grouped_swiglu_error_string(int code) {

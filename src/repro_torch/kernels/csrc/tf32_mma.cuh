@@ -1,7 +1,8 @@
 // 3xTF32 on Hopper's tensor cores: a float32 product carried by three TF32
-// mma.sync passes, for kernels whose float32 operands must keep ~20 of
-// float32's 24 bits (one TF32 pass keeps ~11). Shared by ssd_chunk.cu and
-// the float32 many-row tiles of swiglu_tiles.cuh.
+// passes, for kernels whose float32 operands must keep ~20 of float32's 24
+// bits (one TF32 pass keeps ~11). The split is shared by ssd_chunk.cu
+// (mma.sync, below) and the float32 many-row tiles of swiglu_tiles.cuh
+// (wgmma).
 #pragma once
 
 #include <cuda_runtime.h>

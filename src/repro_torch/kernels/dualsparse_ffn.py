@@ -20,9 +20,10 @@ to x's type by ``ops``); the grouped kernel writes its output in x's type.
 
 Both run the row tiles of ``csrc/swiglu_tiles.cuh``, which choose on the
 device, per group, between a few-row and a many-row tile: on float32
-operands an FMA few-row tile and a 3xTF32 ``mma.sync`` many-row tile, on
-bf16 ones ``mma.sync`` tiles. ``tile_plan`` says on the host which tile
-serves each group and how many row slots it multiplies.
+operands an FMA few-row tile and a 3xTF32 many-row tile (``wgmma``, fed
+by TMA, its width following the live rows), on bf16 ones ``mma.sync``
+tiles. ``tile_plan`` says on the host which tile serves each group and
+how many row slots it multiplies.
 """
 from __future__ import annotations
 
@@ -36,17 +37,20 @@ I32 = torch.int32
 
 # the row tiles of csrc/swiglu_tiles.cuh: groups with at most FEW_ROWS live
 # rows take the few-row tile (regime 1), the others the many-row tile
-# (regime 2) in row blocks of MANY_ROWS. ROW_STEP[dtype][regime]: the rows
-# the tile multiplies in one unit, dead or live. The float32 few-row FMA
-# tile: 16 threads share a row (64 columns, 4 each), so a warp multiplies 2
-# rows, and warps without a live row skip the FMAs. The many-row tiles of
-# both types give each warp MMA_M = 16 rows on the mma's M side (3xTF32 for
-# float32), and warps without a live row skip their products. The bf16
+# (regime 2), in row blocks of MANY_ROWS (bf16) or TF32_ROWS (float32).
+# ROW_STEP[dtype][regime]: the rows the tile multiplies in one unit, dead or
+# live. The float32 few-row FMA tile: 16 threads share a row (64 columns,
+# 4 each), so a warp multiplies 2 rows, and warps without a live row skip
+# the FMAs. The float32 many-row tile puts a row block's rows on the wgmma's
+# N side, N its live rows rounded up to TF32_N_STEP (a divisor of
+# TF32_ROWS). The bf16 many-row tile gives each warp MMA_M = 16 rows on the
+# mma's M side, and warps without a live row skip their products; its
 # few-row tile puts the rows on the mma's N side (steps of MMA_N = 8 rows).
 FEW_ROWS = 16
 MANY_ROWS = 64
+TF32_ROWS, TF32_N_STEP = 128, 32
 MMA_M, MMA_N = 16, 8
-ROW_STEP = {torch.float32: {1: 2 * FEW_ROWS // 16, 2: MMA_M},
+ROW_STEP = {torch.float32: {1: 2 * FEW_ROWS // 16, 2: TF32_N_STEP},
             torch.bfloat16: {1: MMA_N, 2: MMA_M}}
 
 
