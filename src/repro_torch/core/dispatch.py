@@ -19,7 +19,7 @@ and ``cumsum_dispatch`` stays as the oracle the tests hold the sort against.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -197,28 +197,6 @@ def sorted_pair_arrays(plan: DispatchPlan, weights, *, index_div: int = 1,
         src = torch.nn.functional.pad(src, (0, pad))
         w = torch.nn.functional.pad(w, (0, pad))
     return src.to(I32), w
-
-
-def prefer_fused_pipeline(n_tokens: int, n_groups: int, *,
-                          use_kernel: bool = False,
-                          device: Optional[torch.device] = None) -> bool:
-    """Should the MoE forward run the fused dispatch->FFN->combine kernel
-    instead of the gather->grouped-FFN->unpermute buffer path? On a CUDA
-    device always; on the CPU (where the kernel's plain version stands in)
-    only with ``use_kernel``. All paths agree to fp tolerance."""
-    del n_tokens, n_groups          # the rule is shape-independent today
-    if device is not None and torch.device(device).type == "cuda":
-        return True
-    return use_kernel
-
-
-def prefer_route_plan(device) -> bool:
-    """Should a 2T layer call on the fused pipeline take its routing, keep
-    mask and plan from ``kernels.ops.moe_route_plan`` (one launch pair)
-    instead of the composed torch ops (~100 launches)? On a CUDA device;
-    on the CPU the composed ops run as before (the plain version composes
-    the same ops)."""
-    return torch.device(device).type == "cuda"
 
 
 # ---------------------------------------------------------------------------

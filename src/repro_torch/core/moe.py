@@ -1,7 +1,22 @@
-"""MoE layer: the exact dense reference and the capacity-based dispatch
-forward (the fused kernel pipeline, or the buffer path: gather -> grouped
-FFN -> unpermute, whose FFN is the grouped SwiGLU kernel under
-``use_kernel`` and an einsum otherwise).
+"""MoE layer: the exact dense reference, the capacity-based dispatch
+forward, and the one place each layer call's path is chosen.
+
+``expert_path`` resolves the path of a call from the policy's hints, the
+device and the call:
+
+  * ``route_plan``: ``kernels.ops.moe_route_plan``'s launch pair gives the
+    routing, keep mask, plan and obs counters, then the fused kernel runs;
+  * ``fused``: the composed routing (``policy.route``), then the fused
+    kernel (dispatch gather, grouped SwiGLU with minor-half skipping and
+    weighted combine, with no (E, capacity, d) buffer);
+  * ``grouped``: the buffer path, gather -> grouped SwiGLU kernel ->
+    unpermute;
+  * ``einsum``: the buffer path with an einsum FFN, the differentiable
+    route training takes.
+
+``moe_layer_forward`` is a served layer call's entry and ``expert_runner``
+runs every local expert FFN: this module's paths and the S-ETP local
+seating (``core.setp``).
 
 Params are name -> tensor dicts in the JAX layouts: wg (d, E); w1, w3
 (E, d, f); w2 (E, f, d); optional "shared" {w1, w3, w2} dense expert;
@@ -10,7 +25,7 @@ optional "thresholds" (2,) float32, the layer's calibrated
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,8 +34,14 @@ from torch import nn
 from ..models.layers import MLP, normal, tensors_of
 from ..obs.tracing import layer
 from . import dispatch as dispatch_mod
+from . import drop as drop_mod
 from . import gating
 from .drop import SubExpertPairs, MODE_FULL, expand_pairs_2t
+
+ROUTE_PLAN, FUSED, GROUPED, EINSUM = "route_plan", "fused", "grouped", "einsum"
+# the fused kernel's row block: the sorted pair arrays' trailing pad (at
+# most the capacity) and the wrapper's block_c / block_f
+BLOCK = 128
 
 
 class MoELayer(nn.Module):
@@ -73,15 +94,18 @@ def expert_ffn(w1, w3, w2, x):
     return torch.einsum("ecf,efd->ecd", h, w2)
 
 
-def _shared_out(params: Dict, x):
-    """The shared experts' SwiGLU over every token (never dropped), in the
-    ``moe.shared`` span; 0 for a layer without them."""
+def _with_shared(params: Dict, x, y):
+    """The routed experts' output ``y`` in x's dtype, plus the shared
+    experts' SwiGLU over every token (never dropped, in the ``moe.shared``
+    span) when the layer has them."""
+    y = y.to(x.dtype)
     if "shared" not in params:
-        return 0.0
+        return y
     with layer("moe.shared"):
         s = params["shared"]
         h = F.silu(x @ s["w1"]) * (x @ s["w3"])
-        return h @ s["w2"]
+        shared = h @ s["w2"]
+    return y + shared
 
 
 def aux_loss_for(params: Dict, x, cfg):
@@ -132,8 +156,7 @@ def moe_forward_ref(params: Dict, x, cfg,
     outs = torch.einsum("etf,efd->etd", h, params["w2"])
     w = pairs.combine * pairs.keep.to(pairs.combine.dtype)       # (T, K')
     sel = F.one_hot(pairs.idx.long(), E).to(w.dtype) * w[..., None]
-    y = torch.einsum("tke,etd->td", sel, outs).to(x.dtype)
-    return y + _shared_out(params, x)
+    return _with_shared(params, x, torch.einsum("tke,etd->td", sel, outs))
 
 
 def capacity_for(n_tokens: int, k_eff: int, n_experts: int,
@@ -170,94 +193,207 @@ def _sub_pair_overflow(plan, pairs: SubExpertPairs, fused, capacity: int):
                        kept_halves.new_zeros(())).sum(dtype=torch.int32)
 
 
-def fused_pipeline_args(params: Dict, pairs: SubExpertPairs, p: int,
-                        capacity: int, mode_grouped: bool,
-                        block_c: int = 128):
-    """The plan-derived arguments of ``kernels.ops.fused_moe_pipeline`` and
-    the overflow count, for the layout the forward uses.
+def expert_path(policy, device: torch.device, *, kernels: bool = True,
+                two_t: bool = False) -> str:
+    """The path of one MoE layer call (``ROUTE_PLAN``, ``FUSED``,
+    ``GROUPED`` or ``EINSUM``); the one reader of the policy's
+    ``use_kernel`` and ``fused_pipeline`` hints.
 
-    ``mode_grouped`` (P > 1): one row per ORIGINAL pair, sub-expert weights
-    fused by ``p_factor``. Otherwise rows are sub-expert pairs against the
-    weights' native expert axis (``n_minor_start`` = the full width).
-    Overflow is in SUB-pair units on both layouts. Returns
-    ``(kernel_kwargs, overflow)``; kwargs hold every argument but x."""
-    bc = min(block_c, capacity)
-    if mode_grouped and p > 1:
-        E = params["w1"].shape[0] // p
+    ``kernels=False`` (training: the kernels have no backward) takes the
+    einsum. Otherwise the fused kernel runs where ``fused_pipeline`` says
+    so; where it is None, always on a CUDA device and with ``use_kernel``
+    on the CPU (whose kernel wrappers run their plain versions). A fused
+    call takes the route plan on a CUDA device when the plan is over
+    original experts (``kernel_mode_grouping``: P > 1) and ``two_t``, the
+    layer's keep rule a 2T threshold pair (``policy.two_t_thresholds``).
+    Off the fused kernel, ``use_kernel`` picks the grouped SwiGLU kernel
+    over the einsum. All paths agree to fp tolerance."""
+    if not kernels:
+        return EINSUM
+    cuda = device.type == "cuda"
+    fused = policy.fused_pipeline
+    if fused is None:
+        fused = cuda or policy.use_kernel
+    if not fused:
+        return GROUPED if policy.use_kernel else EINSUM
+    if two_t and cuda and policy.kernel_mode_grouping:
+        return ROUTE_PLAN
+    return FUSED
+
+
+class _Hints(NamedTuple):
+    """``moe_forward_dispatch``'s path arguments as ``expert_path`` reads
+    a policy's."""
+    use_kernel: bool
+    fused_pipeline: Optional[bool]
+    kernel_mode_grouping: bool
+
+
+def _dispatch_plan(params: Dict, pairs: SubExpertPairs, p: int,
+                   capacity: int, grouped: bool):
+    """The dispatch layout of one layer call and its sort plan.
+
+    ``grouped`` (P > 1): one row per ORIGINAL pair, FULL rows first and
+    MAJOR-only rows second, sub-expert weights fused by ``p_factor`` so
+    ``counts_major`` lets the kernels skip the minor half (exact w.r.t. the
+    sub-expert path under partial transformation, Eq. 13). Otherwise rows
+    are sub-expert pairs against the weights' native expert axis
+    (``n_minor_start`` = the full width). Returns ``(plan, weights (T, K),
+    p_factor, n_minor_start, overflow)``; overflow is in SUB-pair units on
+    both layouts."""
+    if grouped and p > 1:
         fused = dispatch_mod.fuse_sub_pairs(pairs, p)
-        K = fused.group.shape[1]
-        plan = dispatch_mod.sort_dispatch(fused.group, fused.keep,
-                                          n_groups=E, capacity=capacity,
-                                          major_only=fused.major_only)
+        plan = dispatch_mod.sort_dispatch(
+            fused.group, fused.keep, n_groups=params["w1"].shape[0] // p,
+            capacity=capacity, major_only=fused.major_only)
         w = fused.combine * fused.keep.to(fused.combine.dtype)
-        overflow = _sub_pair_overflow(plan, pairs, fused, capacity)
-        p_factor, n_minor_start = p, None
-    else:
-        E = params["w1"].shape[0]
-        K = pairs.idx.shape[1]
-        plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
-                                          n_groups=E, capacity=capacity)
-        w = pairs.combine * pairs.keep.to(pairs.combine.dtype)
-        overflow = plan.overflow
-        p_factor, n_minor_start = 1, params["w1"].shape[-1]
-    tok_sorted, w_sorted = dispatch_mod.sorted_pair_arrays(
-        plan, w, index_div=K, pad=bc)
+        return plan, w, p, None, _sub_pair_overflow(plan, pairs, fused,
+                                                    capacity)
+    plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
+                                      n_groups=params["w1"].shape[0],
+                                      capacity=capacity)
+    w = pairs.combine * pairs.keep.to(pairs.combine.dtype)
+    return plan, w, 1, params["w1"].shape[-1], plan.overflow
+
+
+def _fused_args(plan, weights, capacity: int, index_div: int):
+    """The fused kernel's plan arguments, in its order: group_offsets,
+    counts_full, counts_major, tok_sorted, combine_sorted."""
     cf, cm = plan.kernel_counts(capacity)
+    tok_sorted, w_sorted = dispatch_mod.sorted_pair_arrays(
+        plan, weights, index_div=index_div, pad=min(BLOCK, capacity))
+    return plan.group_offsets, cf, cm, tok_sorted, w_sorted
+
+
+def fused_pipeline_args(params: Dict, pairs: SubExpertPairs, p: int,
+                        capacity: int, mode_grouped: bool):
+    """The plan-derived arguments of ``kernels.ops.fused_moe_pipeline`` on
+    ``_dispatch_plan``'s layout (``mode_grouped``: one row per ORIGINAL
+    pair), and the overflow count. Returns ``(kernel_kwargs, overflow)``;
+    kwargs hold every argument but x."""
+    plan, w, p_factor, n_minor_start, overflow = _dispatch_plan(
+        params, pairs, p, capacity, mode_grouped)
+    offsets, cf, cm, tok_sorted, w_sorted = _fused_args(plan, w, capacity,
+                                                        w.shape[1])
     kwargs = dict(w1=params["w1"], w3=params["w3"], w2=params["w2"],
-                  group_offsets=plan.group_offsets, counts_full=cf,
-                  counts_major=cm, tok_sorted=tok_sorted,
-                  combine_sorted=w_sorted, capacity=capacity,
-                  p_factor=p_factor, n_minor_start=n_minor_start,
-                  block_c=block_c)
+                  group_offsets=offsets, counts_full=cf, counts_major=cm,
+                  tok_sorted=tok_sorted, combine_sorted=w_sorted,
+                  capacity=capacity, p_factor=p_factor,
+                  n_minor_start=n_minor_start)
     return kwargs, overflow
 
 
-def _fused_pipeline_dispatch(params: Dict, x, cfg, pairs: SubExpertPairs,
-                             p: int, capacity: int, mode_grouped: bool,
-                             block_c: int = 128, block_f: int = 128,
-                             streamed: bool = True):
-    """The fused pipeline: the kernel consumes the DispatchPlan directly —
-    gathering token rows from the flat (T, d) array, running the
-    mode-ordered grouped SwiGLU with minor-half skipping, and combining
-    weighted rows per token — with no (E, capacity, d) buffer."""
+def grouped_swiglu_args(params: Dict, x, pairs: SubExpertPairs, p: int,
+                        capacity: int, mode_grouped: bool):
+    """The buffer path's arguments of ``kernels.ops.grouped_swiglu`` on
+    ``_dispatch_plan``'s layout, and what the unpermute and combine after
+    it need. Returns ``(kernel_kwargs, plan, weights (T*K,), K,
+    overflow)``."""
+    plan, w, p_factor, n_minor_start, overflow = _dispatch_plan(
+        params, pairs, p, capacity, mode_grouped)
+    K = w.shape[1]
+    cf, cm = plan.kernel_counts(capacity)
+    kwargs = dict(x=dispatch_mod.gather_rows(x, plan, capacity, index_div=K),
+                  w1=params["w1"], w3=params["w3"], w2=params["w2"],
+                  counts_full=cf, counts_major=cm, p_factor=p_factor,
+                  n_minor_start=n_minor_start)
+    return kwargs, plan, w.reshape(-1), K, overflow
+
+
+def expert_runner(path: str, x, w1, w3, w2, plan, weights, *,
+                  capacity: int, index_div: int = 1, p_factor: int = 1,
+                  n_minor_start=None):
+    """One local expert FFN call on ``path``, prepared: returns a function
+    of no arguments that runs it, so that a caller times the preparation
+    in its ``moe.plan`` span and the run in its ``moe.kernel`` span.
+
+    x: (T, d) rows; ``plan``: a ``DispatchPlan`` seating T * ``index_div``
+    flat pairs (pair ``i`` reads row ``i // index_div``) in (G,
+    ``capacity``) groups over the weights' experts, ``p_factor``
+    sub-experts fused per group, the minor half from ``n_minor_start`` on;
+    ``weights``: each pair's combine weight (0 where dropped). The run
+    returns (T, d), each row's sum of its pairs' weighted expert outputs:
+    the fused kernel over the plan's sorted pair arrays, or the (G,
+    capacity, d) buffer through the grouped SwiGLU kernel or the einsum,
+    unpermuted. On ``ROUTE_PLAN`` ``plan`` is the launch pair's
+    ``kernels.route_plan.RoutePlan``, which carries the sorted arrays and
+    clamped counts, and ``weights`` is None."""
     from ..kernels import ops as kops
+    if path in (ROUTE_PLAN, FUSED):
+        args = ((plan.group_offsets, plan.counts_full, plan.counts_major,
+                 plan.tok_sorted, plan.combine_sorted) if path == ROUTE_PLAN
+                else _fused_args(plan, weights, capacity, index_div))
+        # the wrapper is looked up on its module when the call runs: the
+        # benchmark's probe swaps it there
+        return lambda: kops.fused_moe_pipeline(
+            x, w1, w3, w2, *args, capacity=capacity, p_factor=p_factor,
+            n_minor_start=n_minor_start)
+    buf = dispatch_mod.gather_rows(x, plan, capacity, index_div=index_div)
+    if path == GROUPED:
+        cf, cm = plan.kernel_counts(capacity)
+        ffn = lambda: kops.grouped_swiglu(
+            buf, w1, w3, w2, counts_full=cf, counts_major=cm,
+            p_factor=p_factor, n_minor_start=n_minor_start)
+    else:
+        ffn = lambda: expert_ffn(w1, w3, w2, buf)
+
+    def run():
+        rows = dispatch_mod.unpermute(ffn(), plan)        # (T*index_div, d)
+        rows = rows * weights.reshape(-1, 1).to(rows.dtype)
+        return rows.reshape(x.shape[0], index_div, -1).sum(dim=1)
+    return run
+
+
+def moe_forward_dispatch(params: Dict, x, cfg,
+                         pairs: Optional[SubExpertPairs] = None,
+                         capacity_factor: float = 1.25,
+                         capacity: Optional[int] = None,
+                         use_kernel: bool = False,
+                         return_overflow: bool = False,
+                         mode_grouped: bool = False,
+                         fused_pipeline: Optional[bool] = None,
+                         path: Optional[str] = None):
+    """Sort-based dispatch forward. Exact w.r.t. the reference whenever no
+    token exceeds capacity.
+
+    ``path``: ``expert_path``'s ``FUSED``, ``GROUPED`` or ``EINSUM``;
+    None resolves it from ``use_kernel`` and ``fused_pipeline`` as
+    ``expert_path`` resolves a policy's hints. Under ``mode_grouped``
+    (P > 1) the two kernels take one row per ORIGINAL pair and skip minor
+    halves; the einsum runs full sub-experts. ``return_overflow`` also
+    returns the overflow count (sub-pair units)."""
+    T = x.shape[0]
+    E = params["w1"].shape[0]
+    if pairs is None:
+        pairs = route_plain(params, x, cfg, n_experts=E)
+    if capacity is None:
+        capacity = capacity_for(T, pairs.idx.shape[1], E, capacity_factor)
+    if path is None:
+        path = expert_path(_Hints(use_kernel, fused_pipeline, mode_grouped),
+                           x.device)
     with layer("moe.plan"):
-        kwargs, overflow = fused_pipeline_args(params, pairs, p, capacity,
-                                               mode_grouped, block_c)
+        plan, w, p_factor, n_minor_start, overflow = _dispatch_plan(
+            params, pairs, _pairs_partition_p(pairs), capacity,
+            mode_grouped and path != EINSUM)
+        run = expert_runner(path, x, params["w1"], params["w3"],
+                            params["w2"], plan, w, capacity=capacity,
+                            index_div=w.shape[1], p_factor=p_factor,
+                            n_minor_start=n_minor_start)
     with layer("moe.kernel"):
-        y = kops.fused_moe_pipeline(x, block_f=block_f, streamed=streamed,
-                                    **kwargs)
-    return y, overflow
-
-
-def route_plan_thresholds(policy, params: Dict, x):
-    """The (T²_major, T²_minor) pair that ``kernels.ops.moe_route_plan``
-    takes for this layer call in place of ``policy.route``, or None where
-    the call keeps the composed route: it needs the fused pipeline (as
-    ``moe_forward_dispatch`` resolves it), the original-expert layout
-    (P > 1), a policy whose keep rule is a 2T threshold pair, and
-    ``dispatch.prefer_route_plan``'s device."""
-    fused = policy.fused_pipeline
-    if fused is None:
-        fused = dispatch_mod.prefer_fused_pipeline(
-            x.shape[0], params["w1"].shape[0], use_kernel=policy.use_kernel,
-            device=x.device)
-    if not (fused and policy.kernel_mode_grouping
-            and dispatch_mod.prefer_route_plan(x.device)):
-        return None
-    return policy.two_t_thresholds(params)
+        y = run()
+    out = _with_shared(params, x, y)
+    return (out, overflow) if return_overflow else out
 
 
 def moe_forward_route_plan(params: Dict, x, logits, cfg, policy,
-                           thresholds, *, collect: bool = False,
-                           block_c: int = 128, block_f: int = 128):
+                           thresholds, *, collect: bool = False):
     """The fused pipeline's forward with routing, keep mask, plan and obs
     counters from ``kernels.ops.moe_route_plan``: the same capacity,
     arguments and outputs as ``moe_forward_dispatch(..., mode_grouped=
-    True, return_overflow=True)`` on ``policy.route``'s pairs, and the
-    stats dict ``_moe_forward`` collects. ``logits``: the router's (T, E)
-    float32 logits of ``x`` (T, d). Returns ``(y, overflow)``, or ``(y,
-    stats)`` under ``collect``."""
+    True, return_overflow=True)`` on ``policy.route``'s pairs.
+    ``logits``: the router's (T, E) float32 logits of ``x`` (T, d);
+    ``thresholds``: ``policy.two_t_thresholds(params)``. Returns ``(y,
+    overflow)``, or ``(y, stats)`` under ``collect``."""
     from ..kernels import ops as kops
     T = x.shape[0]
     p = policy.partition_p
@@ -269,120 +405,62 @@ def moe_forward_route_plan(params: Dict, x, logits, cfg, policy,
         plan = kops.moe_route_plan(
             logits, *thresholds, top_k=cfg.top_k,
             renorm=cfg.router_norm_topk, p_factor=p, capacity=capacity,
-            pad=min(block_c, capacity))
+            pad=min(BLOCK, capacity))
+        run = expert_runner(ROUTE_PLAN, x, params["w1"], params["w3"],
+                            params["w2"], plan, None, capacity=capacity,
+                            p_factor=p)
     with layer("moe.kernel"):
-        y = kops.fused_moe_pipeline(
-            x, w1=params["w1"], w3=params["w3"], w2=params["w2"],
-            group_offsets=plan.group_offsets, counts_full=plan.counts_full,
-            counts_major=plan.counts_major, tok_sorted=plan.tok_sorted,
-            combine_sorted=plan.combine_sorted, capacity=capacity,
-            p_factor=p, n_minor_start=None, block_c=block_c,
-            block_f=block_f, streamed=True)
-    out = y.to(x.dtype)
-    if "shared" in params:
-        out = out + _shared_out(params, x)
+        y = run()
+    out = _with_shared(params, x, y)
     if not collect:
         return out, plan.overflow
     with layer("moe.stats"):
-        stats = {"expert_load": plan.expert_load,
-                 "kept_full": plan.kept_full, "kept_major": plan.kept_major,
-                 "dropped_pairs": plan.dropped,
-                 "overflow_pairs": plan.overflow}
+        stats = layer_stats(plan.expert_load, plan.kept_full,
+                            plan.kept_major, plan.dropped, plan.overflow)
     return out, stats
 
 
-def grouped_swiglu_args(params: Dict, x, pairs: SubExpertPairs, p: int,
-                        capacity: int, mode_grouped: bool):
-    """The buffer path's arguments of ``kernels.ops.grouped_swiglu``, and
-    what the unpermute and combine after it need.
-
-    ``mode_grouped`` (P > 1): one row per (token, ORIGINAL expert) pair,
-    FULL rows first and MAJOR-only rows second, sub-expert weights fused by
-    ``p_factor`` so ``counts_major`` lets the kernel skip the minor half
-    (exact w.r.t. the sub-expert path under partial transformation,
-    Eq. 13). Otherwise rows are sub-expert pairs against the weights'
-    native expert axis (``n_minor_start`` = the full width). Returns
-    ``(kernel_kwargs, plan, weights (T*K,), K, overflow)``; overflow is in
-    SUB-pair units on both layouts."""
-    if mode_grouped and p > 1:
-        E = params["w1"].shape[0] // p
-        fused = dispatch_mod.fuse_sub_pairs(pairs, p)
-        K = fused.group.shape[1]
-        plan = dispatch_mod.sort_dispatch(fused.group, fused.keep,
-                                          n_groups=E, capacity=capacity,
-                                          major_only=fused.major_only)
-        w = fused.combine * fused.keep.to(fused.combine.dtype)
-        overflow = _sub_pair_overflow(plan, pairs, fused, capacity)
-        p_factor, n_minor_start = p, None
-    else:
-        E = params["w1"].shape[0]
-        K = pairs.idx.shape[1]
-        plan = dispatch_mod.sort_dispatch(pairs.idx, pairs.keep,
-                                          n_groups=E, capacity=capacity)
-        w = pairs.combine * pairs.keep.to(pairs.combine.dtype)
-        overflow = plan.overflow
-        p_factor, n_minor_start = 1, params["w1"].shape[-1]
-    cf, cm = plan.kernel_counts(capacity)
-    kwargs = dict(x=dispatch_mod.gather_rows(x, plan, capacity, index_div=K),
-                  w1=params["w1"], w3=params["w3"], w2=params["w2"],
-                  counts_full=cf, counts_major=cm, p_factor=p_factor,
-                  n_minor_start=n_minor_start)
-    return kwargs, plan, w.reshape(-1), K, overflow
+def layer_stats(expert_load, kept_full, kept_major, dropped, overflow):
+    """The obs per-layer stats dict of one MoE layer call, the same keys
+    on every route: the kept-pair histogram over sub-expert ids, the mode
+    counts and the capacity overflow, in sub-pair units."""
+    return {"expert_load": expert_load, "kept_full": kept_full,
+            "kept_major": kept_major, "dropped_pairs": dropped,
+            "overflow_pairs": overflow}
 
 
-def moe_forward_dispatch(params: Dict, x, cfg,
-                         pairs: Optional[SubExpertPairs] = None,
-                         capacity_factor: float = 1.25,
-                         capacity: Optional[int] = None,
-                         use_kernel: bool = False,
-                         return_overflow: bool = False,
-                         mode_grouped: bool = False,
-                         fused_pipeline: Optional[bool] = None,
-                         fused_streamed: bool = True):
-    """Sort-based dispatch forward. Exact w.r.t. the reference whenever no
-    token exceeds capacity.
-
-    ``fused_pipeline`` routes through the fused kernel (dispatch gather,
-    grouped SwiGLU with minor-half skipping under ``mode_grouped``, and
-    weighted combine); ``None`` resolves via
-    ``core.dispatch.prefer_fused_pipeline`` — fused on a CUDA device, fused
-    iff ``use_kernel`` on the CPU. Otherwise the buffer path gathers into
-    (E, C, d) buffers, runs the FFN and unpermutes: with ``use_kernel`` the
-    FFN is the grouped SwiGLU kernel — over ORIGINAL-expert buffers with
-    minor-half skipping under ``mode_grouped`` (P > 1), over sub-expert
-    buffers otherwise — and without it an einsum over full sub-experts.
-    ``return_overflow`` also returns the overflow count (sub-pair units)."""
-    T, d = x.shape
-    E = params["w1"].shape[0]
-    if pairs is None:
-        pairs = route_plain(params, x, cfg, n_experts=E)
-    if capacity is None:
-        capacity = capacity_for(T, pairs.idx.shape[1], E, capacity_factor)
-
-    p = _pairs_partition_p(pairs)
-    if fused_pipeline is None:
-        fused_pipeline = dispatch_mod.prefer_fused_pipeline(
-            T, E, use_kernel=use_kernel, device=x.device)
-    if fused_pipeline:
-        y, overflow = _fused_pipeline_dispatch(
-            params, x, cfg, pairs, p, capacity,
-            mode_grouped=mode_grouped and p > 1, streamed=fused_streamed)
-        out = y.to(x.dtype) + _shared_out(params, x)
-        return (out, overflow) if return_overflow else out
-
-    with layer("moe.plan"):
-        kwargs, plan, w, K, overflow = grouped_swiglu_args(
-            params, x, pairs, p, capacity,
-            mode_grouped=use_kernel and mode_grouped and p > 1)
-    with layer("moe.kernel"):
-        if use_kernel:
-            from ..kernels import ops as kops
-            out_buf = kops.grouped_swiglu(**kwargs)
+def moe_layer_forward(params: Dict, x, cfg, policy, *,
+                      collect: bool = False, kernels: bool = True):
+    """One MoE layer call under ``policy`` on one device: routing, the
+    path ``expert_path`` picks, the forward and the obs counters. x:
+    (B, S, d); per-request (B,) thresholds act per token. Returns ``(y,
+    overflow)``, or with ``collect`` ``(y, stats)``, ``layer_stats``'s dict:
+    the same routing and the same ``y`` either way. ``kernels=False``
+    takes the einsum (the differentiable route)."""
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    with layer("moe.route"):
+        policy = policy.per_token(B, S)
+        thresholds = policy.two_t_thresholds(params) if kernels else None
+        path = expert_path(policy, x.device, kernels=kernels,
+                           two_t=thresholds is not None)
+        if path == ROUTE_PLAN:
+            logits = gating.gate_logits(xt, params["wg"])
         else:
-            out_buf = expert_ffn(params["w1"], params["w3"], params["w2"],
-                                 kwargs["x"])
-        gathered = dispatch_mod.unpermute(out_buf, plan)        # (T*K, d)
-        y = gathered * w[:, None].to(gathered.dtype)
-        y = y.reshape(T, K, d).sum(dim=1)
-    out = y.to(x.dtype) + _shared_out(params, x)
-    return (out, overflow) if return_overflow else out
+            pairs = policy.route(params, xt, cfg)
+    if path == ROUTE_PLAN:
+        y, out = moe_forward_route_plan(params, xt, logits, cfg, policy,
+                                        thresholds, collect=collect)
+        return y.reshape(B, S, d), out
+    y, out = moe_forward_dispatch(
+        params, xt, cfg, pairs=pairs, capacity_factor=policy.capacity_factor,
+        capacity=policy.dispatch_capacity(xt.shape[0]), return_overflow=True,
+        mode_grouped=policy.kernel_mode_grouping, path=path)
+    if collect:
+        with layer("moe.stats"):
+            kf, km, dr = drop_mod.sub_pair_outcome_counts(
+                pairs.keep, _pairs_partition_p(pairs))
+            out = layer_stats(gating.expert_histogram(
+                pairs.idx, params["w1"].shape[0], keep=pairs.keep),
+                kf, km, dr, out)
+    return y.reshape(B, S, d), out

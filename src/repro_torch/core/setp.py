@@ -17,9 +17,11 @@ Every rank runs the JAX body on its own token block of the replicated
 ``distributed.DistContext``, then the blocks are all-gathered back into
 the replicated output shard_map's ``out_specs`` give JAX. Each rank holds
 only its expert shard: the contiguous L = E*P/D placed sub-experts at its
-``model`` coordinate (``shard_experts``). The local seating runs the fused
-MoE kernel (or the grouped SwiGLU kernel on the buffer path) on operands
-cast to the wire type, bfloat16 by default, as the JAX body does.
+``model`` coordinate (``shard_experts``). The local seating runs through
+``core.moe.expert_runner`` on ``core.moe.expert_path``'s path (the fused
+MoE kernel, or the grouped SwiGLU kernel or the einsum on the buffer path)
+on operands cast to the wire type, bfloat16 by default, as the JAX body
+does.
 
 Both layers are differentiable: the block boundary, the weights' entry
 and the collectives inside go through ``distributed.context``'s
@@ -109,7 +111,6 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
     over the token axes and the expert axis. ``kernels=False``: the
     buffer path's einsum, never a kernel."""
     p_factor = policy.partition_p
-    use_kernel = policy.use_kernel and kernels
     Bl, Sl, d = x_loc.shape
     xt = x_loc.reshape(-1, d)
     T = xt.shape[0]
@@ -146,14 +147,11 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
     keep = policy.sub_pair_keep(score, is_major, sub_idx, cfg, n_dev=n_dev,
                                 loads=loads, thresholds=thresholds)
 
-    stats = None
     if collect_stats:
         hist = dispatch_mod.group_histogram(sub_idx, L * n_dev, mask=keep)
         kf, km, dr = drop_mod.sub_pair_outcome_counts(keep, p_factor)
         for ax in sum_axes:
             hist, kf, km, dr = (ctx.psum(v, ax) for v in (hist, kf, km, dr))
-        stats = {"expert_load": hist, "kept_full": kf, "kept_major": km,
-                 "dropped_pairs": dr}
 
     Kp = K * p_factor
     cap = _ceil_mult(cap_factor * T * Kp / n_dev, cap_multiple)
@@ -183,34 +181,14 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
     c2 = _ceil_mult(local_cap_factor * n_dev * cap / L, cap_multiple)
     plan_loc = dispatch_mod.sort_dispatch(loc, valid, n_groups=L,
                                           capacity=c2, major_only=mfl)
-    fused = policy.fused_pipeline if kernels else False
-    if fused is None:
-        fused = dispatch_mod.prefer_fused_pipeline(
-            rx.shape[0], L, use_kernel=use_kernel, device=rx.device)
-    cf, cm = plan_loc.kernel_counts(c2)
     # each local group IS one sub-expert (the halves of an original expert
     # live on different ranks), so there is no minor-half region locally:
-    # n_minor_start is the full width and counts_major only orders rows
-    if fused:
-        from ..kernels import ops as kops
-        bc = min(128, c2)
-        tok_s, w_s = dispatch_mod.sorted_pair_arrays(
-            plan_loc, valid.to(torch.float32), pad=bc)
-        out_tok = kops.fused_moe_pipeline(
-            rx, w1, w3, w2, plan_loc.group_offsets, cf, cm, tok_s, w_s,
-            capacity=c2, n_minor_start=w1.shape[-1],
-            block_c=bc).to(wire_dtype)
-    else:
-        buf = dispatch_mod.gather_rows(rx, plan_loc, c2)
-        if use_kernel:
-            from ..kernels import ops as kops
-            out_buf = kops.grouped_swiglu(buf, w1, w3, w2, counts_full=cf,
-                                          counts_major=cm,
-                                          n_minor_start=w1.shape[-1])
-        else:
-            out_buf = moe_mod.expert_ffn(w1, w3, w2, buf)
-        out_tok = dispatch_mod.unpermute(out_buf, plan_loc).to(wire_dtype)
-        out_tok = out_tok * valid[:, None].to(out_tok.dtype)
+    # n_minor_start is the full width and counts_major only orders rows;
+    # one row per received pair, weighted 1 where it holds one
+    out_tok = moe_mod.expert_runner(
+        moe_mod.expert_path(policy, rx.device, kernels=kernels), rx, w1, w3,
+        w2, plan_loc, valid.to(torch.float32), capacity=c2,
+        n_minor_start=w1.shape[-1])().to(wire_dtype)
 
     # --- return AlltoAll + combine on the source rank ---
     back = dctx.all_to_all(ctx, out_tok.reshape(n_dev, cap, d), axis)
@@ -226,8 +204,7 @@ def _setp_body(wg, w1, w3, w2, x_loc, *, cfg, ctx, n_dev: int, axis: str,
         overflow = ctx.psum(overflow, ax)
     y = y.reshape(Bl, Sl, d).to(x_loc.dtype)
     if collect_stats:
-        stats["overflow_pairs"] = overflow
-        return y, stats
+        return y, moe_mod.layer_stats(hist, kf, km, dr, overflow)
     return y, overflow
 
 

@@ -122,8 +122,7 @@ def _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
 def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
                        counts_major, tok_sorted, combine_sorted,
                        capacity: int, p_factor: int = 1, n_minor_start=None,
-                       block_c: int = 128, block_f: int = 128,
-                       streamed: bool = True):
+                       block_c: int = 128, block_f: int = 128):
     """Fused dispatch -> grouped SwiGLU -> weighted combine.
 
     x: (T, d); w1/w3: (E*p_factor, d, f); w2: (E*p_factor, f, d), all
@@ -133,10 +132,9 @@ def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
     ``DispatchPlan`` (counts clamped to ``capacity``); ``tok_sorted``/
     ``combine_sorted``: (N',) float32, per sorted pair position, padded as
     ``core.dispatch.sorted_pair_arrays(pad=block_c)`` pads them. Returns
-    (T, d) in x's dtype. ``block_c``, ``block_f`` and ``streamed`` are kept
-    for signature parity with the JAX wrapper: one CUDA kernel serves both
-    values of ``streamed``; ``block_f`` only places an explicit
-    ``n_minor_start`` as the TPU kernel reads it."""
+    (T, d) in x's dtype. ``block_c`` is kept for signature parity with the
+    JAX wrapper; ``block_f`` only places an explicit ``n_minor_start`` as
+    the TPU kernel reads it."""
     _check_fused_inputs(x, w1, w3, w2, group_offsets, counts_full,
                         counts_major, tok_sorted, combine_sorted, capacity,
                         p_factor)
@@ -144,8 +142,7 @@ def fused_moe_pipeline(x, w1, w3, w2, group_offsets, counts_full,
         return ref.fused_moe_pipeline_ref(
             x, w1, w3, w2, group_offsets, counts_full, counts_major,
             tok_sorted, combine_sorted, capacity, p_factor=p_factor,
-            n_minor_start=n_minor_start, block_c=block_c, block_f=block_f,
-            streamed=streamed)
+            n_minor_start=n_minor_start, block_c=block_c, block_f=block_f)
     if x.device.type != "cuda":
         raise ValueError(f"fused_moe_pipeline: no kernel for device "
                          f"{x.device}")

@@ -19,7 +19,7 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
                            counts_major, tok_sorted, combine_sorted,
                            capacity: int, p_factor: int = 1,
                            n_minor_start=None, block_c: int = 128,
-                           block_f: int = 128, streamed: bool = True):
+                           block_f: int = 128):
     """Fused dispatch -> grouped SwiGLU -> weighted combine, plainly.
 
     For each expert e: gather the token rows of its sorted positions
@@ -28,10 +28,10 @@ def fused_moe_pipeline_ref(x, w1, w3, w2, group_offsets, counts_full,
     ``[j*f, (j+1)*f)``) with rows ``>= counts_full`` masked off the MINOR
     neurons, and scale each row by its combine weight. Then add each token's
     rows in increasing sorted-position order, starting from 0 — the order
-    the TPU kernel accumulates in. ``capacity``, ``block_c`` and ``streamed``
-    do not change the function (counts arrive clamped); ``block_f`` only
-    places a caller's ``n_minor_start``."""
-    del capacity, block_c, streamed
+    the TPU kernel accumulates in. ``capacity`` and ``block_c`` do not
+    change the function (counts arrive clamped); ``block_f`` only places a
+    caller's ``n_minor_start``."""
+    del capacity, block_c
     fused_moe_pipeline_ref.calls += 1
     T, d = x.shape
     f = w1.shape[-1]

@@ -59,8 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--drop-target", type=float, default=None,
                     help="calibrate policy thresholds to this drop rate on "
                          "synthetic calibration activations")
-    ap.add_argument("--dualsparse", action="store_true",
-                    help="DEPRECATED alias for --policy 2t")
     ap.add_argument("--fused-pipeline", action="store_true", default=None,
                     help="force MoE layers through the fused "
                          "dispatch->FFN->combine kernel (default AUTO: "
@@ -96,11 +94,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = M.init_params(cfg, seed=args.seed, device=device)
 
-    policy_name = args.policy
-    if policy_name is None and args.dualsparse:
-        print("--dualsparse is deprecated; use --policy 2t")
-        policy_name = "2t"
-    policy_name = policy_name or "none"
+    policy_name = args.policy or "none"
 
     policy = None
     force_policy = policy_name != "none" or args.fused_pipeline is not None

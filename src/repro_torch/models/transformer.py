@@ -37,8 +37,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core import drop as drop_mod
-from ..core import gating
 from ..core import moe as moe_mod
 from ..device import resolve_device
 from ..obs import MetricsState
@@ -153,62 +151,31 @@ def _policy_of(policy):
 def _moe_forward(moe: moe_mod.MoELayer, x, cfg, policy=None,
                  collect: bool = False, dist=None, aux: bool = False,
                  kernels: bool = True):
-    """MoE layer forward under ``policy`` (default ``NoDrop``); on the
-    S-ETP path when ``dist`` is an EP context with ``moe_impl`` "setp".
+    """MoE layer forward under ``policy`` (default ``NoDrop``): on the
+    S-ETP path when ``dist`` is an EP context with ``moe_impl`` "setp",
+    else ``core.moe.moe_layer_forward``, which picks the layer's path.
 
     Returns ``(y, aux_loss, overflow)``: aux_loss is None unless ``aux``
     (training); with ``collect`` the third value is the per-layer obs
-    stats dict (kept-pair expert_load histogram over sub-expert ids plus
-    kept_full/kept_major/dropped_pairs/overflow_pairs) — same routing,
-    same ``y``. On the S-ETP path overflow and stats are summed over the
-    mesh. ``kernels=False`` takes the differentiable route the reference
-    trains through: the buffer path with the ``expert_ffn`` einsum, on the
-    S-ETP path too (its local seating). A 2T policy on the fused pipeline
-    on a CUDA device takes its routing, keep mask, plan and counters from
-    one kernel (``core.moe.moe_forward_route_plan``)."""
-    B, S, d = x.shape
+    stats dict (``core.moe.layer_stats``) — same routing, same ``y``. On
+    the S-ETP path overflow and stats are summed over the mesh.
+    ``kernels=False`` takes the differentiable route the reference trains
+    through: the einsum expert FFN, on the S-ETP path too (its local
+    seating)."""
     params = moe.weights()
-    aux_val = moe_mod.aux_loss_for(params, x.reshape(-1, d), cfg) \
-        if aux else None
+    aux_val = moe_mod.aux_loss_for(params, x.reshape(-1, x.shape[-1]),
+                                   cfg) if aux else None
+    policy = _policy_of(policy)
     if dist is not None and dist.moe_impl == "setp":
         from ..core import setp as setp_mod
         # the wire type is setp_moe_forward's default (bf16), as in JAX
         y, of = setp_mod.setp_moe_forward(
-            params, x, cfg, dist, policy=_policy_of(policy),
-            return_overflow=True, return_stats=collect, kernels=kernels)
+            params, x, cfg, dist, policy=policy, return_overflow=True,
+            return_stats=collect, kernels=kernels)
         return y, aux_val, of
-    xt = x.reshape(-1, d)
-    with layer("moe.route"):
-        # per-request (B,) thresholds -> per-token over the (B*S, d) block
-        policy = _policy_of(policy).per_token(B, S)
-        thresholds = (moe_mod.route_plan_thresholds(policy, params, xt)
-                      if kernels else None)
-        if thresholds is None:
-            pairs = policy.route(params, xt, cfg)
-        else:
-            logits = gating.gate_logits(xt, params["wg"])
-    if thresholds is not None:
-        y, out = moe_mod.moe_forward_route_plan(
-            params, xt, logits, cfg, policy, thresholds, collect=collect)
-        return y.reshape(B, S, d), aux_val, out
-    y, overflow = moe_mod.moe_forward_dispatch(
-        params, xt, cfg, pairs=pairs, capacity_factor=policy.capacity_factor,
-        capacity=policy.dispatch_capacity(xt.shape[0]),
-        use_kernel=policy.use_kernel and kernels, return_overflow=True,
-        mode_grouped=policy.kernel_mode_grouping,
-        fused_pipeline=policy.fused_pipeline if kernels else False)
-    if collect:
-        with layer("moe.stats"):
-            n_sub = params["w1"].shape[0]
-            p_factor = pairs.idx.shape[1] // pairs.modes.shape[1]
-            kf, km, dr = drop_mod.sub_pair_outcome_counts(pairs.keep,
-                                                          p_factor)
-            stats = {"expert_load": gating.expert_histogram(
-                         pairs.idx, n_sub, keep=pairs.keep),
-                     "kept_full": kf, "kept_major": km, "dropped_pairs": dr,
-                     "overflow_pairs": overflow}
-        return y.reshape(B, S, d), aux_val, stats
-    return y.reshape(B, S, d), aux_val, overflow
+    y, out = moe_mod.moe_layer_forward(params, x, cfg, policy,
+                                       collect=collect, kernels=kernels)
+    return y, aux_val, out
 
 
 def _no_overflow(x):

@@ -1,6 +1,7 @@
 """The port's dispatch substrate against the JAX package: plans must be
 bit-identical (perm, offsets, counts, group, slot, overflow) over the grid
-of ``tests/test_dispatch.py``, and so must everything built from a plan."""
+of ``tests/test_dispatch.py``, and so must everything built from a plan;
+and the table of the MoE layer's path (``core.moe.expert_path``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +9,8 @@ import torch
 
 from repro.core import dispatch as JD
 from repro_torch.core import dispatch as TD
+from repro_torch.core import moe as TM
+from repro_torch.core import policy as TP
 
 PLAN_FIELDS = ("perm", "group_offsets", "counts_full", "counts_major",
                "group", "slot", "overflow")
@@ -127,13 +130,64 @@ def test_group_histogram_matches_jax():
         assert ht.dtype == torch.int32
 
 
-def test_prefer_fused_pipeline_table():
-    """CUDA -> fused always; CPU -> follow ``use_kernel`` (the JAX rule with
-    "cuda" in place of "non-CPU backend")."""
-    for use_kernel in (False, True):
-        assert TD.prefer_fused_pipeline(8, 4, use_kernel=use_kernel,
-                                        device=torch.device("cuda"))
-        assert TD.prefer_fused_pipeline(8, 4, use_kernel=use_kernel,
-                                        device="cpu") == use_kernel
-        assert JD.prefer_fused_pipeline(8, 4, use_kernel=use_kernel,
-                                        backend="cpu") == use_kernel
+# (policy, use_kernel, fused_pipeline, device, kernels) -> the layer's path
+CPU, CUDA = torch.device("cpu"), torch.device("cuda")
+PATH_TABLE = [
+    # the CPU: the fused kernel (its plain version) iff use_kernel, unless
+    # fused_pipeline says; never the route plan
+    ("none", False, None, CPU, True, "einsum"),
+    ("none", True, None, CPU, True, "fused"),
+    ("none", True, False, CPU, True, "grouped"),
+    ("2t", False, None, CPU, True, "einsum"),
+    ("2t", True, None, CPU, True, "fused"),
+    ("2t", True, False, CPU, True, "grouped"),
+    ("2t", False, True, CPU, True, "fused"),
+    ("2t", True, None, CPU, False, "einsum"),
+    # a CUDA device: the fused kernel unless fused_pipeline is False; the
+    # route plan for a 2T keep rule over original experts (P > 1)
+    ("none", False, None, CUDA, True, "fused"),
+    ("none", True, None, CUDA, True, "fused"),
+    ("1t", True, None, CUDA, True, "fused"),
+    ("load_aware", True, None, CUDA, True, "fused"),
+    ("2t_p1", True, None, CUDA, True, "fused"),
+    ("2t", False, None, CUDA, True, "route_plan"),
+    ("2t", True, None, CUDA, True, "route_plan"),
+    ("2t", True, True, CUDA, True, "route_plan"),
+    ("per_layer", True, None, CUDA, True, "route_plan"),
+    ("2t", True, False, CUDA, True, "grouped"),
+    ("2t", False, False, CUDA, True, "einsum"),
+    ("2t", True, None, CUDA, False, "einsum"),
+]
+
+
+def _path_policy(name, **hints):
+    cls = {"none": TP.NoDrop, "1t": TP.OneTDrop, "2t": TP.TwoTDrop,
+           "load_aware": TP.LoadAwareTwoT,
+           "per_layer": TP.PerLayerCalibrated2T}[name.removesuffix("_p1")]
+    if name.endswith("_p1"):
+        hints["partition_p"] = 1
+    return cls(**hints)
+
+
+@pytest.mark.parametrize("name,use_kernel,fused,device,kernels,want",
+                         PATH_TABLE)
+def test_expert_path_table(name, use_kernel, fused, device, kernels, want):
+    """``core.moe.expert_path`` as a served layer call asks it (``two_t``
+    from ``policy.two_t_thresholds``); on the CPU with ``fused_pipeline``
+    unset, fused-or-buffer follows the JAX rule (``prefer_fused_pipeline``
+    on the "cpu" backend)."""
+    policy = _path_policy(name, use_kernel=use_kernel, fused_pipeline=fused)
+    params = {"thresholds": torch.tensor([0.05, 0.1])}
+    th = policy.two_t_thresholds(params)
+    if name.startswith("2t"):
+        assert th == (policy.t_major, policy.t_minor)
+    elif name == "per_layer":
+        assert torch.equal(torch.stack(th), params["thresholds"])
+    else:
+        assert th is None
+    path = TM.expert_path(policy, device, kernels=kernels,
+                          two_t=th is not None)
+    assert path == want
+    if device == CPU and fused is None and kernels:
+        assert (path == "fused") == JD.prefer_fused_pipeline(
+            8, 4, use_kernel=use_kernel, backend="cpu")

@@ -9,8 +9,9 @@ width and DeepSeek-V2-Lite's (64 experts, top-6, not renormalised), under scalar
 capacity, every pair dropped and tied router scores; the CUDA kernel's
 plan algorithm (per-warp runs of a counting sort, counters from the
 bucket counts) emulated in numpy against the plain version; the MoE
-forward through the new path against the composed one; which calls take
-the path; and the benchmark's probe on ``kernels.ops.fused_moe_pipeline``
+forward through the new path against the composed one (which calls take
+the path is ``test_torch_dispatch.py``'s table of ``core.moe.expert_path``);
+and the benchmark's probe on ``kernels.ops.fused_moe_pipeline``
 seeing every MoE call of a served run with the counts the plan gave.
 
 The tests marked ``cuda`` run the kernel on the card against its plain
@@ -27,10 +28,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import dispatch, drop, gating
+from repro_torch.core import drop, gating
 from repro_torch.core import moe as moe_mod
-from repro_torch.core.policy import (LoadAwareTwoT, NoDrop, OneTDrop,
-                                     PerLayerCalibrated2T, TwoTDrop)
+from repro_torch.core.policy import PerLayerCalibrated2T, TwoTDrop
 from repro_torch.kernels import ops, route_plan
 from repro_torch.models import transformer as TT
 
@@ -117,12 +117,12 @@ def _case(width, form, T, seed=3):
             capacity, _Cfg(K, renorm))
 
 
-def _composed(params, x, cfg, policy, capacity, block_c=128):
+def _composed(params, x, cfg, policy, capacity):
     """Today's composed path: the pairs, the fused call's arguments, the
     overflow and the obs counters."""
     pairs = policy.route(params, x, cfg)
     kw, overflow = moe_mod.fused_pipeline_args(params, pairs, P, capacity,
-                                               True, block_c)
+                                               True)
     kf, km, dr = drop.sub_pair_outcome_counts(pairs.keep, P)
     load = gating.expert_histogram(pairs.idx, params["w1"].shape[0],
                                    keep=pairs.keep)
@@ -253,6 +253,15 @@ def test_emulated_kernel_plan_matches_plain(width, form, n_warps):
             getattr(want, name).numpy(), err_msg=name)
 
 
+def _route_plan_on_the_cpu(monkeypatch):
+    """Let the one resolver (``core.moe.expert_path``) see a CUDA device, so
+    that a CPU call takes the route plan where the rules allow it; the
+    wrappers still run their plain versions on the CPU tensors."""
+    real = moe_mod.expert_path
+    monkeypatch.setattr(moe_mod, "expert_path", lambda policy, device, **kw:
+                        real(policy, torch.device("cuda"), **kw))
+
+
 def _served_layer():
     cfg = get_config("qwen3-moe-30b-a3b").reduced()
     gen = torch.Generator().manual_seed(0)
@@ -272,7 +281,7 @@ def test_route_plan_forward_matches_composed_forward(monkeypatch, collect):
     with torch.no_grad():
         y0, _, out0 = TT._moe_forward(layer, x, cfg, policy, collect=collect)
         calls = ops.moe_route_plan_ref.calls
-        monkeypatch.setattr(dispatch, "prefer_route_plan", lambda dev: True)
+        _route_plan_on_the_cpu(monkeypatch)
         y1, _, out1 = TT._moe_forward(layer, x, cfg, policy, collect=collect)
     assert ops.moe_route_plan_ref.calls == calls + 1
     _eq(y1, y0)
@@ -282,25 +291,6 @@ def test_route_plan_forward_matches_composed_forward(monkeypatch, collect):
             _eq(out1[k], out0[k])
     else:
         _eq(out1, out0)
-
-
-def test_route_plan_is_taken_for_2t_pairs_on_the_fused_path(monkeypatch):
-    cfg, layer, policy, x = _served_layer()
-    params, xt = layer.weights(), x.reshape(-1, cfg.d_model)
-    # the CPU keeps the composed ops
-    assert moe_mod.route_plan_thresholds(policy, params, xt) is None
-    monkeypatch.setattr(dispatch, "prefer_route_plan", lambda dev: True)
-    th = moe_mod.route_plan_thresholds(policy, params, xt)
-    assert th == (policy.t_major, policy.t_minor)
-    per_layer = PerLayerCalibrated2T(use_kernel=True)
-    lp = dict(params, thresholds=torch.tensor([0.05, 0.1]))
-    _eq(torch.stack(moe_mod.route_plan_thresholds(per_layer, lp, xt)),
-        lp["thresholds"])
-    for other in (NoDrop(use_kernel=True), OneTDrop(use_kernel=True),
-                  LoadAwareTwoT(use_kernel=True),
-                  TwoTDrop(use_kernel=False),          # the buffer path
-                  TwoTDrop(use_kernel=True, partition_p=1)):
-        assert moe_mod.route_plan_thresholds(other, params, xt) is None
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -335,7 +325,7 @@ def test_fused_probe_sees_every_served_moe_call(monkeypatch):
                         generator=torch.Generator().manual_seed(1))
     _, policy = TwoTDrop(use_kernel=True, drop_target=0.25).prepare(
         model, cfg, calib)
-    monkeypatch.setattr(dispatch, "prefer_route_plan", lambda dev: True)
+    _route_plan_on_the_cpu(monkeypatch)
     plans, moe_calls = [], [0]
     real_plan, real_forward = ops.moe_route_plan, TT._moe_forward
 

@@ -269,6 +269,47 @@ def test_setp_overflow_counter_surfaces(world1):
     assert got[0] == 0 and got[1] > 0
 
 
+# a 2T policy's path hints -> the local seating's path on the CPU
+SEATING_HINTS = {"fused": dict(use_kernel=True),
+                 "grouped": dict(use_kernel=True, fused_pipeline=False),
+                 "einsum": {}}
+
+
+@pytest.mark.parametrize("path", sorted(SEATING_HINTS))
+def test_setp_local_seating_paths_agree(world1, monkeypatch, path):
+    """The local seating through ``core.moe.expert_runner`` on each path it
+    takes on the CPU (the fused kernel's and the grouped SwiGLU kernel's
+    plain versions, and the einsum) gives the einsum's output and
+    overflow, at an ample local capacity and at one that overflows."""
+    cfg = get_config(ARCH)
+    prepared, x, tm, tn = _two_t_setup()
+    placed = tsetp.place_params_strided(_t(prepared), 1)
+    seen, real = [], tmoe.expert_runner
+
+    def runner(p, *a, **kw):
+        seen.append(p)
+        return real(p, *a, **kw)
+    monkeypatch.setattr(tmoe, "expert_runner", runner)
+
+    def forward(hints, **kw):
+        pol = tpolicy.TwoTDrop(partition_p=2, t_major=tm, t_minor=tn,
+                               **hints)
+        return tsetp.setp_moe_forward(
+            placed, torch.from_numpy(x)[None], cfg, world1, policy=pol,
+            wire_dtype=torch.float32, return_overflow=True, cap_factor=4.0,
+            **kw)
+    overflows = []
+    for kw in (dict(local_cap_factor=4.0),
+               dict(local_cap_factor=0.3, cap_multiple=1)):
+        y, of = forward(SEATING_HINTS[path], **kw)
+        y_e, of_e = forward({}, **kw)
+        _close(y.numpy(), y_e.numpy(), F32_TOL)
+        assert int(of) == int(of_e)
+        overflows.append(int(of))
+    assert seen == [path, "einsum"] * 2
+    assert overflows[0] == 0 and overflows[1] > 0
+
+
 @pytest.mark.parametrize("name", ["2t", "load_aware", "per_layer"])
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])
 def test_setp_world_of_one_equals_jax(world1, name, wire):
