@@ -23,6 +23,11 @@
    padded prefill T=2048, Qwen3 past capacity): everything but combine
    equal, combine within 1e-6; device time per launch beside the byte
    bound, and the plain version's time and launches.
+   2d: MLA's latent attention over the paged pool (``mla_latent_attend``)
+   against its plain version on the card at the DeepSeek-V2-Lite doc
+   cell's shapes: its decode step (32 slots over 5120 positions) and a
+   256-row prompt chunk at starts 0 and 4096, within the norm bar of its
+   card tests, bit-identical, each beside its bound.
 3. Serve: Qwen3-30B-A3B at full width (depth cut from 48 to 4 layers,
    seeded random weights) through ``ServingEngine`` under 2T-Drop: 8
    requests x 128-token prompts x 16 new tokens, greedy. Checks the result
@@ -87,7 +92,10 @@
    dense oracle.
 12. Serve MiniCPM3-4B (MLA) at full width and depth (62 layers) through
    ``ServingEngine``, 4 x 512 x 16, and ``ContinuousBatchingEngine``: no
-   kernel of ours.
+   kernel of ours. 12b: DeepSeek-V2-Lite at full width (4 of 27 layers)
+   through ``PagedEngine`` over its latent pool: one ``mla_latent_attend``
+   launch per MLA layer call, and the greedy tokens' agreement with the
+   plain version in the kernel's place.
 13. Train on the card (``make_train_step``: AdamW on a cosine schedule,
    aux 0.01, the differentiable route, which launches no kernel of ours:
    the kernels have no backward). (a) Reduced Qwen3-30B-A3B, 3 steps on
@@ -202,7 +210,7 @@ DECAY_TOL = 1e-6        # ssd_chunk decay: exp of the same float32 cumsum
 ORACLE_TOL = 5e-5
 N_LAYERS = 4            # depth cut of the serve phases (the model has 48)
 KERNELS = ("fused_moe_pipeline", "grouped_swiglu", "ssd_chunk",
-           "moe_route_plan")
+           "moe_route_plan", "mla_latent_attend")
 # (d, E, P, f, top_k) of DBRX-132B's MoE layer, partitioned P=2
 DBRX_WIDTHS = (6144, 16, 2, 5376, 4)
 DBRX_LAYERS = 3         # depth cut of phase 9 (the model has 40)
@@ -585,6 +593,8 @@ def launch_profile(fn, runs: int = 5) -> dict:
             key = "route"
         elif "moe_plan_kernel" in ev.key:
             key = "plan"
+        elif re.search(r"mla_(score|weighted|split_sum)_kernel", ev.key):
+            key = "mla_" + re.search(r"mla_(\w+?)_kernel", ev.key).group(1)
         else:
             key = "wrapper_ops"
             wrapper_kernels += ev.count
@@ -1169,6 +1179,111 @@ def route_plan_phase(dev):
             raise AssertionError(f"moe_route_plan[{label}]: equal {equal}, "
                                  f"bit-stable {stable}, combine rel {rel}, "
                                  f"launches {launches} (expected 2)")
+    return out
+
+
+# MLA's latent attention at the DeepSeek-V2-Lite doc cell's shapes (latent
+# 512, rope 64, 16 heads, pages of 16)
+MLA_R, MLA_DR, MLA_H, MLA_PS = 512, 64, 16, 16
+MLA_CASES = ("decode", "chunk_0", "chunk_4096")
+# the norm bar of tests/test_torch_mla_latent_attend.py: both sides round
+# p to bf16 after the division, and where the two float32 scores straddle a
+# rounding boundary an element of p moves one bf16 ulp
+MLA_TOL = 1e-4
+
+
+def mla_attend_case(name: str, dev):
+    """The arguments of ``ops.mla_latent_attend`` in case ``name`` and its
+    bound in ms, with what sets it. ``decode``: one decode step of the doc
+    cell's 32 slots over 5120 positions, 7 live at positions 4160-4700 (a
+    4096-token document, a question and part of an answer), 25 retired on
+    page 0 at the positions of their last requests; bound: the live slots'
+    latent and rope rows (1152 bytes a position) read once at the HBM
+    rate. ``chunk_<start>``: a 256-row prompt chunk over 4608 positions at
+    that start; bound: the causal operations with the three-term query,
+    (3 x 576 + 512) x 2 FLOPs a (row, head, visible key), at the bf16
+    tensor-core peak."""
+    import torch
+    R, DR, H, PS = MLA_R, MLA_DR, MLA_H, MLA_PS
+    g = torch.Generator(device=dev).manual_seed(MLA_CASES.index(name) + 7)
+    decode = name == "decode"
+    G, S, T = (32, 1, 5120) if decode else (1, 256, 4608)
+    n_logical = -(-T // PS)
+    N = G * S
+    # heads outermost, as the engine's product over the heads leaves q_lat
+    q_lat = (torch.randn((H, N, R), generator=g, device=dev) * 0.2
+             ).transpose(0, 1)
+    q_rope = torch.randn((N, H, DR), generator=g, device=dev) * 0.9
+    pages = G * n_logical + 1
+    c = torch.randn((pages, PS, R), generator=g, device=dev).bfloat16()
+    kr = torch.randn((pages, PS, DR), generator=g, device=dev).bfloat16()
+    table = 1 + torch.randperm(pages - 1, generator=g, device=dev)[
+        :G * n_logical].reshape(G, n_logical).int()
+    if decode:
+        last = torch.randint(4100, 4700, (G,), generator=g,
+                             device=dev).int()
+        live = torch.arange(G, device=dev) < 7
+        last[:7] = torch.linspace(4160, 4700, 7, device=dev).int()
+        table[~live] = 0
+        live_rows = int((last[live].long() + 1).sum())
+        bound, by = live_rows * (R + DR) * 2 / HBM_BYTES_PER_S, "bytes"
+    else:
+        start = int(name.split("_")[1])
+        last = start + torch.arange(S, device=dev, dtype=torch.int32)
+        keys = int((last.long() + 1).sum())
+        bound = keys * H * (3 * (R + DR) + R) * 2 / BF16_FLOPS
+        by = "operations"
+    kw = dict(q_lat=q_lat, q_rope=q_rope, c=c, kr=kr, page_table=table,
+              last=last, scale=0.1147, read_len=T)
+    return kw, 1e3 * bound, by
+
+
+def mla_attend_phase(dev, cases=MLA_CASES):
+    """``mla_latent_attend`` against its plain version (the gather, float32
+    products and softmax it replaced, on the card) in ``mla_attend_case``'s
+    cases: the norm gap within MLA_TOL, one launch a call, runs
+    bit-identical; CUDA-event time beside the bound from the case's own
+    inputs, device µs per launch and the host's enqueue, and the plain
+    version's time."""
+    import torch
+    from repro_torch.kernels import ops
+    out = []
+    for name in cases:
+        kw, bound_ms, by = mla_attend_case(name, dev)
+        with torch.no_grad():
+            want = ops.mla_latent_attend_ref(**kw)
+            n0 = ops.mla_latent_attend.launches
+            got, again = ops.mla_latent_attend(**kw), \
+                ops.mla_latent_attend(**kw)
+            torch.cuda.synchronize()
+            launches = ops.mla_latent_attend.launches - n0
+            gap = norm_rel(got, want)
+            abs_err = float((got - want).abs().max())
+            stable = bool(torch.equal(got, again))
+            del want, got, again
+            ms = cuda_ms(lambda: ops.mla_latent_attend(**kw), 50)
+            plain_ms = cuda_ms(lambda: ops.mla_latent_attend_ref(**kw), 5)
+            prof = launch_profile(lambda: ops.mla_latent_attend(**kw),
+                                  runs=10)
+        torch.cuda.empty_cache()
+        T = kw["read_len"]
+        res = dict(case=name, T=T, capacity=None, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by, bound_f32core_ms=None,
+                   bound_share=bound_ms / ms, rel_err=gap,
+                   max_abs_err=abs_err, bit_stable=stable,
+                   launches_per_call=launches / 2, profile=prof)
+        out.append(res)
+        dev_us = prof["device_us"]
+        log(f"  {name} (T {T}): {ms:.4f} ms events, device µs "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(dev_us.items()))
+            + f"; host enqueue {prof['host_enqueue_us']:.1f} µs; bound_ms "
+            f"{bound_ms:.4f} ({by}), {100 * bound_ms / ms:.1f}%; plain "
+            f"{plain_ms:.3f} ms; rel_err {gap:.3e} (bar {MLA_TOL:g}), max "
+            f"abs {abs_err:.3e}, bit-stable {stable}")
+        if not (gap <= MLA_TOL and stable and launches == 2):
+            raise AssertionError(f"mla_latent_attend[{name}]: rel_err {gap}, "
+                                 f"bit-stable {stable}, launches {launches} "
+                                 f"(expected 2)")
     return out
 
 
@@ -2071,6 +2186,81 @@ def dbrx_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 10: the dense and VLM decoders
 # ---------------------------------------------------------------------------
+
+DSV2_LAYERS = 4         # depth cut of phase 12b (the model has 27)
+DSV2_SLOTS, DSV2_REQ, DSV2_DOC, DSV2_NEW = 8, 12, 1024, 16
+
+
+def deepseek_paged_phase(dev) -> dict:
+    """DeepSeek-V2-Lite at full width (MLA: 16 heads, latent 512, rope 64,
+    no query LoRA, YaRN; the leading dense layer; 64 experts top-6 + 2
+    shared), depth cut to DSV2_LAYERS, seeded random float32 weights,
+    through ``PagedEngine`` over its bf16 latent pool (page 16, chunk 256,
+    DSV2_SLOTS slots): DSV2_REQ requests of one shared DSV2_DOC-token
+    document and a 16-64-token question, DSV2_NEW new tokens each, greedy.
+    Counts zeroed just before the measured run and read just after: one
+    ``mla_latent_attend`` launch per MLA layer call of every chunk and
+    decode step, and no plain call. Then the same requests with the plain
+    version in the kernel's place: the share of greedy tokens the two
+    agree on (reported, not asserted: the latent outputs differ by ~1e-5)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import GenerationConfig, PagedEngine
+    full = get_config("deepseek-v2-lite")
+    cfg = dataclasses.replace(full, n_layers=DSV2_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed=0, device=dev)
+    src = SyntheticLM(cfg.vocab_size, seed=2)
+    rng = np.random.default_rng(2)
+    doc = src.sample_batch(rng, 1, DSV2_DOC)["tokens"][0]
+    prompts = [np.concatenate([doc, src.sample_batch(rng, 1, int(n))[
+        "tokens"][0]]).astype(np.int32)
+        for n in rng.integers(16, 65, DSV2_REQ)]
+    kw = dict(n_slots=DSV2_SLOTS, page_size=16, chunk_size=256,
+              max_prompt_len=DSV2_DOC + 64, max_new_tokens=DSV2_NEW,
+              device=dev)
+    PagedEngine(cfg, model, **kw).generate(
+        prompts[:2], GenerationConfig(max_new_tokens=2))        # warm-up
+    eng = PagedEngine(cfg, model, **kw)
+    results, wall, counts = serve_slots(eng, prompts, [DSV2_NEW] * DSV2_REQ)
+    st = slot_stats(eng, results, wall, counts)
+    mla = counts["mla_latent_attend"]
+    expected = cfg.n_layers * (eng.chunk_steps + eng.decode_steps)
+    st.update(layers=cfg.n_layers, layers_full_model=full.n_layers,
+              chunk_steps=eng.chunk_steps, expected_launches=expected,
+              prefix_hit_rate=eng.prefix_hit_rate,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    kernel = ops.mla_latent_attend
+    ops.mla_latent_attend = ops.mla_latent_attend_ref
+    try:
+        plain = PagedEngine(cfg, model, **kw).generate(
+            prompts, GenerationConfig(max_new_tokens=DSV2_NEW))
+    finally:
+        ops.mla_latent_attend = kernel
+    same = sum(a == b for r, rp in zip(results, plain)
+               for a, b in zip(r.tokens, rp.tokens))
+    st["tokens_agree"] = same / st["tokens"]
+    log(f"  {cfg.n_layers} of {full.n_layers} layers, {DSV2_REQ} requests "
+        f"of a {DSV2_DOC}-token document + a question: {st['tokens']} "
+        f"tokens in {wall:.3f}s, {eng.chunk_steps} chunk steps, "
+        f"{eng.decode_steps} decode steps (median "
+        f"{st['decode_step_ms']:.3f} ms), prefix hit rate "
+        f"{eng.prefix_hit_rate:.3f}; mla_latent_attend launches "
+        f"{mla['launches']} (expected {expected}: one per MLA layer call), "
+        f"plain calls {mla['plain_calls']}; greedy tokens equal to the "
+        f"plain version's: {same} of {st['tokens']}; peak memory "
+        f"{st['peak_mem_gb']:.2f} GB")
+    if mla["launches"] != expected or mla["plain_calls"] != 0:
+        raise AssertionError(f"deepseek paged: mla_latent_attend launches "
+                             f"{mla['launches']} (expected {expected}), "
+                             f"counts {counts}")
+    del model, eng
+    return st
+
 
 def blockwise_check(model, cfg, tokens) -> dict:
     """Layer 0's attention on the real hidden states of ``tokens`` after
@@ -4112,6 +4302,13 @@ def main() -> int:
         f"bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; equal but combine, "
         f"combine rel <= 1e-6)")
     route = route_plan_phase(dev)
+    log(f"phase 2d: mla_latent_attend against its plain version at the "
+        f"DeepSeek-V2-Lite doc cell's shapes (bound = the live rows' bytes "
+        f"/ {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM for decode, the causal "
+        f"operations with the three-term query / {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 for a chunk; bar rel_err <= {MLA_TOL:g}, "
+        f"bit-identical)")
+    mla_cases = mla_attend_phase(dev)
     log("phase 3: serve Qwen3-30B-A3B (4 of 48 layers) under 2T-Drop")
     serve, (cfg, model, policy, calib) = serve_phase(dev)
     log(f"phase 4: continuous batching ({SLOTS} slots, {N_REQ} requests, "
@@ -4154,6 +4351,10 @@ def main() -> int:
     log("phase 12: serve MiniCPM3-4B (MLA, 62 layers), 4 x 512 x 16")
     mla = dense_serve(dev, "minicpm3-4b", None, 4, 512, 16, continuous=True)
     free_memory()
+    log(f"phase 12b: serve DeepSeek-V2-Lite ({DSV2_LAYERS} of 27 layers) "
+        f"through the paged engine, MLA on mla_latent_attend")
+    dsv2 = deepseek_paged_phase(dev)
+    free_memory()
     log(f"phase 13: train on the card: reduced Qwen3 card vs CPU; "
         f"Qwen3-30B-A3B full width ({TRAIN_LAYERS} of 48 layers) "
         f"{TRAIN_STEPS} steps at {TRAIN_B} x {TRAIN_S}; the Fig. 4 "
@@ -4187,11 +4388,12 @@ def main() -> int:
     with open(out_dir / "chip_smoke.json", "w") as fh:
         json.dump({"device": smi, "torch": torch.__version__,
                    "kernel_cases": cases, "grouped_cases": grouped,
-                   "route_plan_cases": route,
+                   "route_plan_cases": route, "mla_attend_cases": mla_cases,
                    "serve": serve, "continuous": cont, "paged": paged,
                    "ssd_cases": ssd, "mamba2": mamba, "zamba2": zamba,
                    "dbrx": dbrx, "dense": dense, "setp_world": ep,
-                   "minicpm3": mla, "train": train, "whisper": whisper,
+                   "minicpm3": mla, "deepseek_paged": dsv2, "train": train,
+                   "whisper": whisper,
                    "train_ep": train_ep, "paper_metrics": paper},
                   fh, indent=1)
 
@@ -4252,11 +4454,16 @@ def main() -> int:
                                  "slots); launches of phases 3, 4, 5 (fused "
                                  "route), 9 (2t, per_layer) and 16, beside "
                                  f"fused_moe_pipeline's {fused_launches}")
+    mla_line = kernel_entry(
+        "mla_latent_attend", None, mla_cases, "decode",
+        dsv2["counts"]["mla_latent_attend"]["launches"],
+        at="the doc cell's decode step: 32 slots over 5120 positions (7 "
+           "live), DeepSeek-V2-Lite widths; launches of phase 12b")
     ep_ranks = ep["ranks"]
     log("fig10 " + json.dumps(paper["fig10_summary"]))
     log(smi.splitlines()[0])          # the card's line, again beside the result
     print(json.dumps({"kernels": [
-        fused, route_line,
+        fused, route_line, mla_line,
         kernel_entry("fused_moe_pipeline[bf16]",
                      "src/repro/kernels/dualsparse_ffn.py:498", cases,
                      "setp_prefill_bf16",

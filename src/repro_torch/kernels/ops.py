@@ -18,14 +18,17 @@ from __future__ import annotations
 
 import torch
 
-from . import dualsparse_ffn, ref, route_plan, ssd_chunk as ssd_chunk_kernel
+from . import dualsparse_ffn, mla_attend, ref, route_plan
+from . import ssd_chunk as ssd_chunk_kernel
 
 __all__ = ["fused_moe_pipeline", "fused_moe_pipeline_ref",
-           "grouped_swiglu", "grouped_swiglu_ref", "moe_route_plan",
-           "moe_route_plan_ref", "ssd_chunk", "ssd_chunk_ref"]
+           "grouped_swiglu", "grouped_swiglu_ref", "mla_latent_attend",
+           "mla_latent_attend_ref", "moe_route_plan", "moe_route_plan_ref",
+           "ssd_chunk", "ssd_chunk_ref"]
 
 fused_moe_pipeline_ref = ref.fused_moe_pipeline_ref
 grouped_swiglu_ref = ref.grouped_swiglu_ref
+mla_latent_attend_ref = ref.mla_latent_attend_ref
 moe_route_plan_ref = ref.moe_route_plan_ref
 ssd_chunk_ref = ref.ssd_chunk_ref
 
@@ -328,3 +331,100 @@ def ssd_chunk(x, dt, a, bm, cm):
 
 
 ssd_chunk.launches = 0
+
+
+def check_mla_latent_attend_shape(kv_lora: int, rope: int, page_size: int,
+                                  device) -> None:
+    """Raise ValueError where ``mla_latent_attend`` off the CPU would: latent
+    / rope widths the kernel is not built for (``mla_attend.WIDTHS``), or a
+    page size that is not a multiple of ``mla_attend.PAGE_STEP``. The plain
+    version on the CPU takes any."""
+    if torch.device(device).type == "cpu":
+        return
+    op = "mla_latent_attend"
+    if (kv_lora, rope) not in mla_attend.WIDTHS:
+        raise ValueError(f"{op}: latent / rope widths {kv_lora} / {rope}: "
+                         f"the kernel is built for {mla_attend.WIDTHS}")
+    if page_size % mla_attend.PAGE_STEP:
+        raise ValueError(f"{op}: page size {page_size}: the kernel takes "
+                         f"multiples of {mla_attend.PAGE_STEP}")
+
+
+def _check_mla_inputs(q_lat, q_rope, c, kr, page_table, last, read_len):
+    op = "mla_latent_attend"
+    named = dict(q_lat=q_lat, q_rope=q_rope, c=c, kr=kr,
+                 page_table=page_table, last=last)
+    _check_no_grad(op, named)
+    where = q_lat.get_device()
+    for name, t in named.items():
+        if t.get_device() != where:
+            raise ValueError(f"{op}: {name} is on {t.device}, q_lat on "
+                             f"{q_lat.device}")
+    _check_dtypes(op, named, ("q_lat", "q_rope"), ("page_table", "last"))
+    for name in ("c", "kr"):
+        if named[name].dtype != torch.bfloat16:
+            raise TypeError(f"{op}: the pool {name} must be bfloat16 (got "
+                            f"{named[name].dtype})")
+    for name in ("c", "kr", "page_table", "last"):
+        if not named[name].is_contiguous():
+            raise ValueError(f"{op}: {name} is not contiguous")
+    if q_lat.ndim != 3 or q_rope.ndim != 3 or c.ndim != 3 or kr.ndim != 3 \
+            or page_table.ndim != 2 or last.ndim != 1:
+        raise ValueError(f"{op}: q_lat / q_rope must be (N, H, width), c / "
+                         "kr (pages, page_size, width), page_table (G, n) "
+                         "and last (N,)")
+    N, H, R = q_lat.shape
+    DR = q_rope.shape[-1]
+    check_mla_latent_attend_shape(R, DR, c.shape[1], q_lat.device)
+    if tuple(q_rope.shape[:2]) != (N, H) or c.shape[-1] != R or \
+            kr.shape[-1] != DR or c.shape[:2] != kr.shape[:2] or \
+            last.shape[0] != N:
+        raise ValueError(f"{op}: shapes q_lat {tuple(q_lat.shape)} q_rope "
+                         f"{tuple(q_rope.shape)} c {tuple(c.shape)} kr "
+                         f"{tuple(kr.shape)} last {tuple(last.shape)} do "
+                         "not fit")
+    G = page_table.shape[0]
+    if G < 1 or N % G:
+        raise ValueError(f"{op}: {N} query rows do not fall in the "
+                         f"{G} groups of the page table")
+    if read_len is not None and read_len < 1:
+        raise ValueError(f"{op}: read_len must be >= 1")
+    for name, t in (("q_lat", q_lat), ("q_rope", q_rope)):
+        if t.stride(2) != 1 or t.stride(0) % 4 or t.stride(1) % 4 or \
+                t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name}'s rows must be contiguous and "
+                             "lie on 16 bytes")
+
+
+def mla_latent_attend(q_lat, q_rope, c, kr, page_table, last, scale: float,
+                      read_len=None):
+    """MLA's absorbed attention over the paged latent pool: scores, the
+    softmax and the output in latent space.
+
+    q_lat: (N, H, kv_lora) float32, q_nope through wk_b; q_rope: (N, H,
+    rope) float32 (rows contiguous, row strides free); c: (P+1, page,
+    kv_lora) and kr: (P+1, page, rope) bfloat16, the pool as it is;
+    page_table: (G, n) int32, G dividing N: query row n reads the pages of
+    ``page_table[n // (N // G)]`` (decode: one row per slot; a chunk: one
+    slot's row); last: (N,) int32, each row's last visible position (its
+    own). Each row sees positions up to min(last, T - 1), T = ``read_len``
+    or every page of the table. Scores at ``scale`` in float32, p rounded
+    to bf16 after the division, the output (N, H, kv_lora) in float32
+    (``ref.mla_latent_attend_ref``). Off the CPU the widths and the page
+    size must be the kernel's (``check_mla_latent_attend_shape``)."""
+    _check_mla_inputs(q_lat, q_rope, c, kr, page_table, last, read_len)
+    if q_lat.device.type == "cpu":
+        return ref.mla_latent_attend_ref(q_lat, q_rope, c, kr, page_table,
+                                         last, scale, read_len)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"mla_latent_attend: no kernel for device "
+                         f"{q_lat.device}")
+    full = page_table.shape[1] * c.shape[1]
+    T = full if read_len is None else min(read_len, full)
+    out = mla_attend.launch_mla_latent_attend(q_lat, q_rope, c, kr,
+                                              page_table, last, scale, T)
+    mla_latent_attend.launches += 1
+    return out
+
+
+mla_latent_attend.launches = 0

@@ -216,3 +216,64 @@ def moe_route_plan_ref(logits, t_major, t_minor, *, top_k: int,
 
 
 moe_route_plan_ref.calls = 0
+
+
+# the score of a masked key
+NEG_INF = -1e30
+
+
+def attend_latent_rows(q_eff, q_rope, c, kr, mask, scale: float, *,
+                       latent_out_in_cache_dtype: bool = False):
+    """MLA's absorbed attention over gathered latent rows: queries q_eff
+    (B,S,H,kv_lora) (q_nope through wk_b) and q_rope (B,S,H,rope) against
+    c (B,T,kv_lora) and kr (B,T,rope) under ``mask`` (broadcastable to the
+    (B,S,H,T) scores). Float32 scores at ``scale``, the softmax rounded to
+    the cache dtype, the output (B,S,H,kv_lora) taken in float32 (in the
+    cache dtype with ``latent_out_in_cache_dtype``)."""
+    cf = c.float()
+    s = (torch.einsum("bshr,btr->bsht", q_eff, cf)
+         + torch.einsum("bshk,btk->bsht", q_rope.float(), kr.float())) \
+        * scale
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(c.dtype)
+    lat = c if latent_out_in_cache_dtype else cf
+    return torch.einsum("bsht,btr->bshr", p.to(lat.dtype), lat)
+
+
+def gather_pages(pool, ids, read_len=None):
+    """Pages ``ids`` (..., n) of a paged pool (pages, page_size, ...) as
+    (..., n * page_size, ...) rows: only the pages ``read_len`` needs,
+    trimmed to it."""
+    ps = pool.shape[1]
+    if read_len is not None:
+        ids = ids[..., :-(-read_len // ps)]
+    g = pool[ids.long()].flatten(ids.ndim - 1, ids.ndim)
+    if read_len is not None:
+        g = g[(slice(None),) * (ids.ndim - 1) + (slice(0, read_len),)]
+    return g
+
+
+def mla_latent_attend_ref(q_lat, q_rope, c, kr, page_table, last,
+                          scale: float, read_len=None):
+    """``attend_latent_rows`` over the paged latent pool, as the paged MLA
+    paths composed it: the N query rows (q_lat (N,H,kv_lora), q_rope
+    (N,H,rope)) fall in G = page_table.shape[0] groups of N / G
+    consecutive rows, group g reading the pages of ``page_table[g]``; the
+    pool's pages c (P+1,page,kv_lora) and kr (P+1,page,rope) are gathered
+    through it (``gather_pages``, trimmed to ``read_len`` rows as
+    ``PagedLayout.read`` trims them) and row n sees the positions up to
+    ``last[n]``. Returns o_lat (N,H,kv_lora) float32."""
+    mla_latent_attend_ref.calls += 1
+    G = page_table.shape[0]
+    N, H, _ = q_lat.shape
+    cg, krg = (gather_pages(pool, page_table, read_len) for pool in (c, kr))
+    T = cg.shape[1]
+    mask = torch.arange(T, device=c.device)[None, None, :] <= \
+        last.long().reshape(G, N // G)[:, :, None]
+    o = attend_latent_rows(q_lat.reshape(G, N // G, H, -1),
+                           q_rope.reshape(G, N // G, H, -1), cg, krg,
+                           mask[:, :, None, :], scale)
+    return o.reshape(N, H, -1)
+
+
+mla_latent_attend_ref.calls = 0

@@ -3,6 +3,9 @@
 Attention has no TPU kernel in the JAX package, so plain PyTorch matmuls
 compute it here: the O(S²) ``plain_attention`` up to 1024 tokens, and the
 online-softmax ``blockwise_attention`` past that, as in the JAX package.
+The paged MLA paths' latent attention is the one exception: on the card
+it runs a hand-written kernel over the pool's pages in place
+(``kernels.ops.mla_latent_attend``; its plain version on the CPU).
 Layouts follow the JAX package: q (B, S, Hkv, G, D),
 k/v (B, S, Hkv, D); the cache is per-slot contiguous rows
 (``ContiguousLayout``, {"k", "v"}: (B, cap, Hkv, D)) or a shared page pool
@@ -27,10 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels import ops as kops
+from ..kernels import ref as kref
 from ..obs.tracing import layer
 from . import layers
 
-NEG_INF = -1e30
+NEG_INF = kref.NEG_INF
 
 
 class Attention(nn.Module):
@@ -355,32 +360,15 @@ class PagedLayout:
         """(logical page, in-page offset) of absolute position ``pos``."""
         return pos // self.page_size, pos % self.page_size
 
-    def _gather(self, a, ids, read_len):
-        """Pages ``ids`` (..., n) of pool ``a`` as (..., n*page_size, ...)
-        rows, only the pages ``read_len`` needs, trimmed to it."""
-        if read_len is not None:
-            ids = ids[..., :-(-read_len // self.page_size)]
-        g = a[ids.long()]                           # (..., n, ps, ...)
-        g = g.reshape(ids.shape[:-1] + (ids.shape[-1] * self.page_size,)
-                      + a.shape[2:])
-        if read_len is not None:
-            g = g[(slice(None),) * (ids.ndim - 1) + (slice(0, read_len),)]
-        return g
-
     def read(self, cache, page_table=None, read_len=None):
         """(B, pages_per_slot * page_size, Hkv, D) gathered views, trimmed to
         ``read_len`` rows when given (so the softmax reduces over the same
         width as a contiguous cache of that capacity)."""
-        return self.read_keys(cache, ("k", "v"), page_table, read_len)
+        return tuple(kref.gather_pages(cache[k], page_table, read_len)
+                     for k in ("k", "v"))
 
     def read_slot(self, cache, slot: int, page_table=None, read_len=None):
-        return self.read_keys(cache, ("k", "v"), page_table[slot], read_len)
-
-    def read_keys(self, cache, keys, table, read_len=None):
-        """The pools ``keys`` (``("k", "v")``; MLA's ``("c", "kr")``)
-        gathered through ``table``: the (B, n) page table, or one slot's
-        (n,) row."""
-        return tuple(self._gather(cache[k], table, read_len) for k in keys)
+        return self.read(cache, page_table[slot], read_len)
 
     def _sink(self, cache) -> int:
         return next(iter(cache.values())).shape[0] - 1
@@ -701,6 +689,26 @@ def mla_decode_attention(attn: MLAttention, x, cache, pos, cfg,
                               cfg, latent_out_in_cache_dtype=True), cache
 
 
+def _absorbed_query(attn: MLAttention, q_nope):
+    """q_nope (B,S,H,nope) through wk_b into latent space: (B*S,H,kv_lora),
+    one product batched over the heads (a view of its (H, B*S, kv_lora)
+    result: rows strided, each contiguous)."""
+    B, S, H, dn = q_nope.shape
+    return torch.bmm(q_nope.reshape(B * S, H, dn).transpose(0, 1),
+                     attn.wk_b.permute(1, 2, 0)).transpose(0, 1)
+
+
+def _latent_out(attn: MLAttention, o_lat, B: int):
+    """The latent-space output (N,H,kv_lora) of B batch rows through wv_b
+    (a product batched over the heads) and wo (one product over the heads
+    and the value width): (B,N/B,d)."""
+    N = o_lat.shape[0]
+    o = torch.bmm(o_lat.transpose(0, 1), attn.wv_b.transpose(0, 1))
+    out = torch.mm(o.transpose(0, 1).reshape(N, -1),
+                   attn.wo.reshape(-1, attn.wo.shape[-1]))
+    return out.view(B, N // B, -1)
+
+
 def _attend_latent(attn: MLAttention, q_nope, q_rope, c, kr, mask, cfg, *,
                    latent_out_in_cache_dtype: bool = False):
     """Absorbed attention of queries (B,S,H,.) over latent rows c
@@ -711,17 +719,13 @@ def _attend_latent(attn: MLAttention, q_nope, q_rope, c, kr, mask, cfg, *,
     in float32 — in the cache dtype with ``latent_out_in_cache_dtype``, as
     the JAX package's contiguous decode takes it — and then through wv_b
     and wo. Returns (B,S,d)."""
-    cf = c.float()
-    q_eff = torch.einsum("bshk,rhk->bshr", q_nope, attn.wk_b)
-    s = (torch.einsum("bshr,btr->bsht", q_eff, cf)
-         + torch.einsum("bshk,btk->bsht", q_rope.float(), kr.float())) \
-        * mla_scale(cfg)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(c.dtype)
-    lat = c if latent_out_in_cache_dtype else cf
-    o_lat = torch.einsum("bsht,btr->bshr", p.to(lat.dtype), lat)
-    o = torch.einsum("bshr,rhk->bshk", o_lat.to(attn.wv_b.dtype), attn.wv_b)
-    return torch.einsum("bshk,hkd->bsd", o, attn.wo)
+    B, S, H, _ = q_nope.shape
+    o_lat = kref.attend_latent_rows(
+        _absorbed_query(attn, q_nope).reshape(B, S, H, -1), q_rope, c, kr,
+        mask, mla_scale(cfg),
+        latent_out_in_cache_dtype=latent_out_in_cache_dtype)
+    return _latent_out(attn, o_lat.to(attn.wv_b.dtype).reshape(B * S, H, -1),
+                       B)
 
 
 def mla_paged_decode_attention(attn: MLAttention, x, cache, pos, cfg, *,
@@ -731,7 +735,8 @@ def mla_paged_decode_attention(attn: MLAttention, x, cache, pos, cfg, *,
     pool at per-slot positions ``pos`` (B,): the new latent and rope key
     written through ``page_table`` (``write_mask``-ed slots to the sink),
     then each query over its slot's rows up to its position (``read_len``
-    trims the read as in ``PagedLayout.read``). Returns (out, cache)."""
+    trims the read as in ``PagedLayout.read``), in place in the pool
+    (``kernels.ops.mla_latent_attend``). Returns (out, cache)."""
     posb = pos[:, None]
     with layer("mla.latent"):
         q_nope, q_rope = mla_queries(attn, x, posb, cfg)     # (B,1,H,.)
@@ -741,10 +746,10 @@ def mla_paged_decode_attention(attn: MLAttention, x, cache, pos, cfg, *,
                                            "kr": kr_new[:, 0]},
                                    pos, page_table, write_mask)
     with layer("mla.attend"):
-        c, kr = layout.read_keys(cache, ("c", "kr"), page_table, read_len)
-        valid = layout.validity(pos + 1, c.shape[1], x.device)
-        return _attend_latent(attn, q_nope, q_rope, c, kr,
-                              _valid_mask(valid, 4), cfg), cache
+        o_lat = kops.mla_latent_attend(
+            _absorbed_query(attn, q_nope), q_rope[:, 0].float(), cache["c"],
+            cache["kr"], page_table, pos, mla_scale(cfg), read_len)
+        return _latent_out(attn, o_lat, x.shape[0]), cache
 
 
 def mla_chunk_attention(attn: MLAttention, x, cache, slot: int, start: int,
@@ -756,7 +761,8 @@ def mla_chunk_attention(attn: MLAttention, x, cache, slot: int, start: int,
     rows are written to the slot's pages, then each query attends,
     absorbed, over the slot's rows at positions up to its own: the
     prefix (earlier chunks, or pages shared from the prefix cache) and
-    the chunk, all as the cache holds them. Returns (out (1,C,d), cache)."""
+    the chunk, all as the cache holds them, read in place in the pool
+    (``kernels.ops.mla_latent_attend``). Returns (out (1,C,d), cache)."""
     if not isinstance(layout, PagedLayout):
         raise NotImplementedError("chunked MLA prefill needs the paged "
                                   "latent cache")
@@ -771,10 +777,8 @@ def mla_chunk_attention(attn: MLAttention, x, cache, slot: int, start: int,
                                                  "kr": kr_new[0]},
                                          slot, start, valid_len, page_table)
     with layer("mla.attend"):
-        c, kr = layout.read_keys(cache, ("c", "kr"), page_table[slot],
-                                 read_len)
-        q_abs = positions[0].long()
-        k_abs = torch.arange(c.shape[0], device=x.device)
-        mask = (k_abs[None, :] <= q_abs[:, None])[None, :, None, :]
-        return _attend_latent(attn, q_nope, q_rope, c[None], kr[None], mask,
-                              cfg), cache
+        o_lat = kops.mla_latent_attend(
+            _absorbed_query(attn, q_nope), q_rope[0].float(), cache["c"],
+            cache["kr"], page_table[slot:slot + 1], positions[0],
+            mla_scale(cfg), read_len)
+        return _latent_out(attn, o_lat, 1), cache

@@ -36,6 +36,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.policy import SparsityPolicy
+from ..kernels import ops as kops
 from ..models import attention as attn
 from ..models import model as M
 from ..models import transformer
@@ -148,7 +149,9 @@ class PagedEngine(SlotEngineBase):
     """Paged-KV continuous-batching engine with chunked prefill and prefix
     caching on ``device`` (default the card; the model must live there).
     Speaks the unified ``submit()``/``step()``/``drain()`` API. Decoder-only
-    text models with GQA attention (a K/V pool) or MLA (a latent pool).
+    text models with GQA attention (a K/V pool) or MLA (a latent pool; off
+    the CPU only at the widths and page sizes ``kernels.ops.
+    mla_latent_attend`` takes, which a build elsewhere refuses).
 
     Given an EP context (``dist``), every rank builds the engine over its
     shard of the model and serves the same requests in SPMD: each MoE
@@ -170,6 +173,10 @@ class PagedEngine(SlotEngineBase):
                 "paged serving supports GQA or MLA attention decoder-only "
                 "text models (chunked prefill has no recurrent-state or "
                 "frontend-token analog yet)")
+        if cfg.attn_kind == "mla":
+            kops.check_mla_latent_attend_shape(
+                cfg.kv_lora_rank, cfg.qk_rope_head_dim, page_size,
+                "cuda" if device is None else device)
         super().__init__(cfg, model, n_slots=n_slots,
                          max_prompt_len=max_prompt_len,
                          max_new_tokens=max_new_tokens, pad_token=pad_token,

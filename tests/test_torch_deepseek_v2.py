@@ -43,6 +43,7 @@ from perfbench.reference import deepseek_v2 as REF  # noqa: E402
 from perfbench.tests import tiny_deepseek as TD  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.policy import make_policy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -64,18 +65,31 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _prepared(policy: str):
+def _widened(conf, **widths):
+    """``conf`` with the latent / rope widths ``widths`` in its dims and
+    its port fields."""
+    port = {**conf["port"], "fields": {**conf["port"]["fields"], **widths}}
+    return {**conf, "dims": {**conf["dims"], **widths}, "port": port}
+
+
+# the tiny configuration at MiniCPM3-4B's latent and rope widths, which
+# the card's latent-attention kernel is built for
+WIDE = _widened(TD.CONFIG, kv_lora_rank=256, qk_rope_head_dim=32)
+
+
+def _prepared(policy: str, conf=TD.CONFIG, device="cpu"):
     """(cfg, model, calibrated policy) of the tiny configuration."""
-    conf, serving = TD.CONFIG, POLICIES[policy]
+    serving = POLICIES[policy]
     cfg = program.port_config({**conf, "serving": serving})
-    model = program.build_model(cfg, conf["dims"], SEED, "cpu")
+    model = program.build_model(cfg, conf["dims"], SEED, device)
     calib = W.calibration(conf["dims"], serving["calibration_tokens"], SEED,
-                          "cpu") if "calibration_tokens" in serving else None
+                          device) if "calibration_tokens" in serving else None
     return cfg, model, program.prepare(model, cfg, serving, calib)
 
 
-def _reference(policy: str, precision: str = "float32"):
-    return REF.Reference(TD.DIMS, POLICIES[policy], SEED, "cpu",
+def _reference(policy: str, precision: str = "float32", dims=TD.DIMS,
+               device="cpu"):
+    return REF.Reference(dims, POLICIES[policy], SEED, device,
                          precision=precision)
 
 
@@ -215,38 +229,78 @@ def _doc_prompts():
             for n in (20, 9)]
 
 
-@pytest.mark.parametrize("policy", ["none", "2t"])
-def test_paged_chunks_and_decode_match_reference(monkeypatch, policy):
-    """Two requests on one 64-token document through ``PagedEngine``
-    (chunks of 32, pages of 16): the first prefills three chunks and
-    decodes 7 tokens; the second, after it, maps the document's 4 pages
-    from the prefix cache and prefills the rest. Every served logit is
-    the reference's teacher-forced full forward (all positions through
-    the bf16 latent cache) within PAGED_TOL; the TF32 control is not."""
-    cfg, model, pol = _prepared(policy)
+def _paged_gaps(monkeypatch, policy, conf, device):
+    """Two requests on one 64-token document through ``PagedEngine`` on
+    ``device`` (chunks of 32, pages of 16): the first prefills three
+    chunks and decodes 7 tokens; the second, after it, maps the document's
+    4 pages from the prefix cache and prefills the rest. Returns the
+    largest gap of the served logits to the reference's teacher-forced
+    full forward at float32 and at TF32 products, and the latent
+    attention calls (kernel launches on the card, plain calls on the
+    CPU) against the MLA layer calls the steps made."""
+    cfg, model, pol = _prepared(policy, conf, device)
     cap = _Capture(monkeypatch)
     eng = PagedEngine(cfg, model, n_slots=2, page_size=16, chunk_size=32,
                       max_prompt_len=96, max_new_tokens=8, policy=pol,
-                      device="cpu")
+                      device=device)
     gen = GenerationConfig(max_new_tokens=8, temperature=0.0, eos_token=-1)
+    counter = ops.mla_latent_attend_ref if device == "cpu" else \
+        ops.mla_latent_attend
+    count = counter.calls if device == "cpu" else counter.launches
     served = []
     for p in _doc_prompts():
         tokens = eng.generate([p], gen)[0].tokens
         served.append((p, tokens, cap.served_logits(0, len(p), len(tokens))))
     assert eng.prefix_hits == 4 and eng.chunk_steps == 3 + 1
+    calls = (counter.calls if device == "cpu" else counter.launches) - count
+    layer_calls = cfg.n_layers * (eng.chunk_steps + len(cap.decodes))
     seqs = [np.concatenate([p, np.asarray(t[:-1], np.int32)])
             for p, t, _ in served]
     pos = [range(len(p) - 1, len(p) - 1 + len(t)) for p, t, _ in served]
     got = torch.cat([lg for _, _, lg in served])
     gaps = {}
     for precision in ("float32", "tf32"):
-        ref = _reference(policy, precision)
+        # the seeded weights are drawn on the device: the reference too
+        ref = _reference(policy, precision, conf["dims"], device)
         with torch.no_grad():
             hidden, margins = ref.run(seqs, [0, 0], pos)
             gaps[precision] = _gap(got, ref.logits(hidden, ref.head()),
                                    margins)
+    return gaps, calls, layer_calls
+
+
+@pytest.mark.parametrize("policy", ["none", "2t"])
+def test_paged_chunks_and_decode_match_reference(monkeypatch, policy):
+    """``_paged_gaps`` on the CPU: every served logit is the reference's
+    teacher-forced full forward (all positions through the bf16 latent
+    cache) within PAGED_TOL; the TF32 control is not. Every MLA layer call
+    of a chunk or a decode step ran the latent attention's plain version
+    once."""
+    gaps, calls, layer_calls = _paged_gaps(monkeypatch, policy, TD.CONFIG,
+                                           "cpu")
     assert gaps["float32"] <= PAGED_TOL
     assert gaps["tf32"] > 2 * PAGED_TOL
+    assert calls == layer_calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "2t"])
+def test_paged_chunks_and_decode_match_reference_on_the_card(monkeypatch,
+                                                             policy):
+    """``_paged_gaps`` on the card at MiniCPM3-4B's latent widths (256 /
+    32), the paged MLA paths through the latent-attention kernel: the
+    served logits within PAGED_TOL of the float32 reference and the TF32
+    control still outside twice that, so the kernel's scores keep float32
+    accuracy. One launch per MLA layer call. Skips without a card; this
+    file imports no JAX (``--noconftest`` runs it there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gaps, calls, layer_calls = _paged_gaps(monkeypatch, policy, WIDE,
+                                           "cuda")
+    assert gaps["float32"] <= PAGED_TOL
+    assert gaps["tf32"] > 2 * PAGED_TOL
+    assert calls == layer_calls
 
 
 def test_latent_pages_are_shared_by_the_prefix_cache():
